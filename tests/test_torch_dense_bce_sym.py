@@ -1,0 +1,192 @@
+"""Port of the symmetric fused dense BCE (tip_tpu_torch/ops/dense_bce_sym.py)
+against the JAX package.
+
+The CPU runs the plain PyTorch version; the CUDA kernel is held against
+the same plain version on the card by chip_smoke.py.  As in
+tests/test_dense_bce_sym.py, the JAX kernel in interpret mode draws
+u24 = 0, so the plain version fed an explicit zero field must match it
+value for value and gradient for gradient.  The hashed field is checked in
+the two deterministic threshold modes against a float64 oracle, and
+statistically against the estimator's analytic expectation.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from tip_tpu.data import build_trigraph, synthetic_trigraph
+from tip_tpu.data.packing import (
+    dense_relation_adj,
+    poisson_neg_thresholds_sym,
+    sym_strip_pack,
+)
+from tip_tpu.ops.pallas_dense_bce_sym import dense_bce_sym_sum
+from tip_tpu_torch import kernels
+from tip_tpu_torch.ops import dense_bce_sym as port
+
+
+@pytest.fixture(scope="module")
+def setup():
+    # n_drug > 128: off-diagonal strips and a ragged edge
+    raw = synthetic_trigraph(n_drug=150, n_prot=16, n_et=5, pairs_per_et=120,
+                             seed=3)
+    data = build_trigraph(raw, split_rate=0.9, seed=3)
+    da = dense_relation_adj(data.dd_train, data.n_drug)
+    pages = sym_strip_pack(da)
+    q8 = poisson_neg_thresholds_sym(data.dd_train, data.n_drug)
+    rng = np.random.default_rng(0)
+    w = (rng.standard_normal((data.n_et, 8)) * 0.3).astype(np.float32)
+    z = (rng.standard_normal((data.n_drug, 8)) * 0.5).astype(np.float32)
+    return data, da, pages, q8, w, z
+
+
+def _torch_value_and_grads(w, z, pages, q8, seed, u24=None):
+    wt = torch.tensor(w, requires_grad=True)
+    zt = torch.tensor(z, requires_grad=True)
+    loss = port.dense_bce_sym_sum(wt, zt, torch.from_numpy(pages),
+                                  torch.from_numpy(q8), seed, u24=u24)
+    loss.backward()
+    return loss.item(), wt.grad.numpy(), zt.grad.numpy()
+
+
+def test_plain_u24_zero_matches_jax_interpret_kernel(setup):
+    data, _, pages, _, w, z = setup
+    # per-rate-class counts #{k: q_k > 0}, varied over relations
+    q8 = np.zeros((data.n_et, 8), np.int32)
+    for t, (cs, cd) in enumerate(zip([0, 1, 2, 3, 1], [1, 2, 0, 4, 3])):
+        q8[t, :cs] = 7
+        q8[t, 4:4 + cd] = 7
+    with pltpu.force_tpu_interpret_mode():
+        jval, (jdw, jdz) = jax.value_and_grad(
+            lambda wz: dense_bce_sym_sum(wz[0], wz[1], jnp.asarray(pages),
+                                         jnp.asarray(q8), jax.random.key(5)),
+        )((jnp.asarray(w), jnp.asarray(z)))
+    val, dw, dz = _torch_value_and_grads(w, z, pages, q8, seed=5,
+                                         u24=torch.zeros((), dtype=torch.int64))
+    # f32 sums in another order: the repo's own kernel tolerances
+    np.testing.assert_allclose(val, float(jval), rtol=1e-5)
+    np.testing.assert_allclose(dw, np.asarray(jdw), rtol=2e-4, atol=1e-5)
+    np.testing.assert_allclose(dz, np.asarray(jdz), rtol=2e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["positives_only", "saturated"])
+def test_plain_hashed_field_deterministic_modes_vs_oracle(setup, mode):
+    """q = 0 (no negatives) and q = 2^24 (count 4 on every valid
+    non-positive stored cell) make the hashed field irrelevant: the plain
+    version must equal the float64 full-matrix oracle of
+    tests/test_tpu_kernels.py."""
+    data, da, pages, _, w, z = setup
+    q8 = np.full((data.n_et, 8), 0 if mode == "positives_only" else 1 << 24,
+                 np.int32)
+    val, dw, dz = _torch_value_and_grads(w, z, pages, q8, seed=7)
+    wn, zn, dan = (np.asarray(x, np.float64) for x in (w, z, da))
+    L = np.einsum("nf,tf,mf->tnm", zn, wn, zn)
+    sp = np.logaddexp(0.0, -L)
+    if mode == "positives_only":
+        cnt = 0.0
+    else:
+        ii = np.arange(data.n_drug)
+        same_block = (ii[:, None] // 128) == (ii[None, :] // 128)
+        cnt = np.where(same_block, 4.0, 2.0) * (dan == 0)
+    oval = (sp * dan + (sp + L) * cnt).sum()
+    g = cnt - (dan + cnt) / (1.0 + np.exp(L))
+    odw = np.einsum("tnm,nf,mf->tf", g, zn, zn)
+    odz = (np.einsum("tf,tnm,mf->nf", wn, g, zn)
+           + np.einsum("tf,tnm,nf->mf", wn, g, zn))
+    assert abs(val - oval) / abs(oval) < 1e-4
+    np.testing.assert_allclose(dw, odw, atol=2e-2 * np.abs(odw).max())
+    np.testing.assert_allclose(dz, odz, atol=2e-2 * np.abs(odz).max())
+
+
+def test_plain_hashed_field_mean_matches_expectation(setup):
+    """E[loss] over seeds equals the analytic expectation: the pair-rate
+    construction preserves every per-pair count marginal (the check of
+    tests/test_dense_bce_sym.py on the JAX fallback)."""
+    data, da, pages, q8, w, z = setup
+    m = np.bincount(data.dd_train.edge_type, minlength=data.n_et)
+    logits = np.einsum("nf,tf,mf->tnm", z, w, z)
+    sp = np.logaddexp(0.0, -logits)
+    nonpos = da == 0
+    mu = m / nonpos.reshape(data.n_et, -1).sum(1)
+    expect = float((sp * da).sum() + sum(
+        mu[t] * ((sp[t] + logits[t]) * nonpos[t]).sum()
+        for t in range(data.n_et)))
+    args = [torch.from_numpy(x) for x in (w, z, pages, q8)]
+    vals = np.array([float(port.dense_bce_sym_sum(*args, seed=s))
+                     for s in range(60)])
+    se = vals.std(ddof=1) / np.sqrt(len(vals))
+    assert abs(vals.mean() - expect) < max(5 * se, 2e-3 * abs(expect)), (
+        vals.mean(), expect, se)
+
+
+def test_u24_field_is_uniform_and_keyed():
+    npad = 256
+    idx = torch.arange(npad)
+    u = port.u24_field(123, torch.arange(4), idx, idx, npad)
+    assert u.shape == (4, npad, npad)
+    assert int(u.min()) >= 0 and int(u.max()) < (1 << 24)
+    # 16 equal bins over 262k draws: chi-square with 15 dof
+    counts = torch.bincount((u >> 20).flatten(), minlength=16).double()
+    exp = u.numel() / 16
+    assert float(((counts - exp) ** 2 / exp).sum()) < 50.0
+    # relations and seeds draw different fields
+    assert not torch.equal(u[0], u[1])
+    v = port.u24_field(124, torch.arange(4), idx, idx, npad)
+    assert float((u == v).double().mean()) < 1e-3
+
+
+def test_mix32_matches_uint32_arithmetic():
+    rng = np.random.default_rng(1)
+    x = rng.integers(0, 2**32, 1000, dtype=np.uint64).astype(np.uint32)
+    ref = x.copy()
+    ref ^= ref >> np.uint32(16)
+    ref *= np.uint32(0x7FEB352D)
+    ref ^= ref >> np.uint32(15)
+    ref *= np.uint32(0x846CA68B)
+    ref ^= ref >> np.uint32(16)
+    got = port.mix32(torch.from_numpy(x.astype(np.int64)))
+    np.testing.assert_array_equal(got.numpy(), ref.astype(np.int64))
+
+
+def test_value_only_equals_fused_and_cpu_wrapper_launches_nothing(setup):
+    _, _, pages, q8, w, z = setup
+    kernels.reset_launch_counts()
+    args = [torch.from_numpy(x) for x in (w, z, pages, q8)]
+    value = port.dense_bce_sym_sum(*args, seed=11)
+    fused, _, _ = port.dense_bce_sym_plain(*args, seed=11, grads=True)
+    assert float(value) == float(fused)
+    # CPU tensors take the plain version: the kernel count stays at 0
+    assert kernels.LAUNCHES[port.KERNEL] == 0
+
+
+def test_cuda_wrapper_rejects_cpu_tensors(setup):
+    _, _, pages, q8, w, z = setup
+    with pytest.raises(ValueError, match="CUDA"):
+        port.dense_bce_sym_cuda(*[torch.from_numpy(x)
+                                  for x in (w, z, pages, q8)], seed=0)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "contiguous", "width", "shape",
+                                 "rows"])
+def test_cuda_argument_checks(setup, bad):
+    """The checks the CUDA wrapper runs before it hands pointers to the
+    kernel (they need no card)."""
+    _, _, pages, q8, w, z = setup
+    args = dict(w=torch.from_numpy(w), z=torch.from_numpy(z),
+                pages=torch.from_numpy(pages), q8=torch.from_numpy(q8))
+    port._check_cuda_args(**args)  # the valid call passes
+    if bad == "dtype":
+        args["q8"] = args["q8"].long()
+    elif bad == "contiguous":
+        args["z"] = torch.from_numpy(np.asfortranarray(z))
+    elif bad == "width":
+        args["w"], args["z"] = args["w"][:, :6].contiguous(), args["z"][:, :6].contiguous()
+    elif bad == "shape":
+        args["w"] = args["w"][:-1].contiguous()
+    else:  # n outside the strips' row range
+        args["z"] = args["z"][:100].contiguous()
+    with pytest.raises(ValueError):
+        port._check_cuda_args(**args)

@@ -1,0 +1,42 @@
+"""GCN convolution over the dense int8 (A+I) protein graph.
+
+Port of the dense branch of tip_tpu/nn/gcn.py (``gcn_conv_apply_dense``):
+out = dinv * ((A+I) @ (dinv * (x W))) + b, the cached D^-1/2 (A+I) D^-1/2
+normalization with the non-representable edge weights factored out of
+the streamed operand (data/packing.py:dense_pp_parts).  ``x=None`` is the
+identity-feature fast path: layer 1's weight acts as an embedding table.
+
+Precision: the product takes bf16-rounded operands and accumulates in
+float32 (ops/matmul.py), as the JAX path does on both the TPU and
+the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tip_tpu_torch.nn import initializers as init
+from tip_tpu_torch.ops.matmul import bf16_round
+
+
+def gcn_conv_init(gen, in_dim: int, out_dim: int, bias: bool = True,
+                  device=None):
+    params = {"weight": init.glorot_uniform(gen, (in_dim, out_dim), device)}
+    if bias:
+        params["bias"] = torch.zeros((out_dim,), dtype=torch.float32,
+                                     device=device)
+    return params
+
+
+def gcn_conv_apply_dense(params, x, a1, dinv):
+    """x [N, in] or None; a1: the (A+I) matrix [N, N] as int8, or its exact
+    float32 upcast (a caller applying several layers upcasts once); dinv
+    [N] float32."""
+    h = params["weight"] if x is None else x @ params["weight"]
+    # a float32 a1 holds 0/1 already: only the small operand is rounded
+    a = a1 if a1.dtype == torch.float32 else bf16_round(a1)
+    agg = a @ bf16_round(h * dinv[:, None])
+    out = agg * dinv[:, None]
+    if "bias" in params:
+        out = out + params["bias"]
+    return out

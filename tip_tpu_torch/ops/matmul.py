@@ -1,0 +1,36 @@
+"""Dense products with bf16 operands and float32 accumulation.
+
+The JAX path contracts its dense adjacency products with bf16 inputs and
+an f32 result (``preferred_element_type=float32`` on the accelerator; on
+the CPU, bf16-rounded inputs in an f32 product).  ``torch.matmul`` on bf16
+CUDA tensors returns a bf16 result, which is not that contract.  The port
+therefore rounds each operand to bf16 and multiplies the float32 values:
+every bf16 x bf16 product is exact in float32, and the sum accumulates in
+float32 on either device.  This needs TF32 off on the card
+(:func:`set_matmul_precision`), or the rounded operands would lose bits
+again.  int8 operands (the 0/1 and count matrices) upcast exactly.
+
+The upcast copies are materialised (torch has no int8 x bf16 product).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def set_matmul_precision() -> None:
+    """Full float32 matmuls and convolutions, no TF32, on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16, as float32 (exact for int8 inputs)."""
+    if x.dtype in (torch.int8, torch.uint8):
+        return x.float()
+    return x.to(torch.bfloat16).float()
+
+
+def mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b over bf16-rounded operands, float32 accumulate and result."""
+    return bf16_round(a) @ bf16_round(b)

@@ -1,0 +1,50 @@
+"""Typed negative sampling against a relation-strided membership bitmap
+(port of tip_tpu/sampling/negative.py:43-124, the XLA path).
+
+One uniform pair per positive edge over [0, n)^2 for the edge's relation,
+tested against that relation's positives by one bitmap word lookup; a
+fixed number of masked resampling rounds, leftovers accepted after the
+last.  Draws come from a ``torch.Generator`` (CPU draws moved to the
+device, so a seed gives the same pairs on either device).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tip_tpu_torch.data.packing import bitmap_stride_bits
+
+
+def bitmap_tensor(bitmap, device=None) -> torch.Tensor:
+    """uint32 bitmap words (numpy) as an int32 tensor of the same bits."""
+    return torch.from_numpy(np.asarray(bitmap, np.uint32).view(np.int32)).to(device)
+
+
+def collides(pair, edge_type, bitmap: torch.Tensor, n_nodes: int):
+    """Whether pair = dst * n + src is a positive of edge_type."""
+    bit = edge_type.long() * bitmap_stride_bits(n_nodes) + pair
+    word = bitmap[bit >> 5]
+    return ((word >> (bit & 31)) & 1) != 0
+
+
+def typed_negative_sampling(gen: torch.Generator, edge_type, bitmap,
+                            n_nodes: int, rounds: int = 4):
+    """One negative (src, dst) per positive edge, per relation.
+
+    edge_type [E] relation ids; bitmap: int32 words (:func:`bitmap_tensor`).
+    Returns (src, dst) int64 tensors [E]."""
+    e = edge_type.shape[0]
+
+    def draw():
+        pair = torch.randint(0, n_nodes * n_nodes, (e,), generator=gen,
+                             dtype=torch.int64).to(edge_type.device)
+        return pair, collides(pair, edge_type, bitmap, n_nodes)
+
+    pair, hit = draw()
+    for _ in range(1, rounds):
+        new_pair, new_hit = draw()
+        pair = torch.where(hit, new_pair, pair)
+        hit = hit & new_hit
+    # pair = dst * n + src (the (type, dst, src) key order)
+    return pair % n_nodes, pair // n_nodes
