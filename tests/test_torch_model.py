@@ -49,7 +49,7 @@ def setup():
     jgraph, jgs = j_graph_arrays(jdata, dense_dtype="bfloat16")
     jmodel = JTIP.for_data(jcfg, jdata, jgs, backend="pallas")
     params = jax.tree.map(np.asarray, jax.jit(jmodel.init)(jax.random.key(0)))
-    graph, gs = make_graph_arrays(tdata, device="cpu")
+    graph, gs = make_graph_arrays(tdata, device="cpu", dense_dtype="bfloat16")
     model = TIP.for_data(cfg, tdata, gs, device="cpu")
     return jdata, tdata, jgraph, jmodel, graph, model, params
 

@@ -1,5 +1,6 @@
 """The port's host-side packing (tip_tpu_torch/data) is bit-identical to the
-JAX package's, and the port imports nothing of JAX or the JAX package."""
+JAX package's, in both D-D layouts, and the port imports nothing of JAX or
+the JAX package."""
 
 import ast
 import dataclasses
@@ -10,9 +11,11 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import tip_tpu.data as jdata
 from tip_tpu.data import packing as jpack
+from tip_tpu.sampling.negative import bitmap_byte_planes
 from tip_tpu.sampling.negative import build_typed_bitmap as j_bitmap
 from tip_tpu.train.model import make_graph_arrays as j_graph_arrays
 import tip_tpu_torch
@@ -91,7 +94,7 @@ def test_dense_layouts_identical(both):
 def test_graph_arrays_match_jax_layout(both):
     _, jd, _, td = both
     jg, jgs = j_graph_arrays(jd, dense_dtype="bfloat16")
-    tg, tgs = t_graph_arrays(td, device="cpu")
+    tg, tgs = t_graph_arrays(td, device="cpu", dense_dtype="bfloat16")
     assert "dd_adj_t" not in tg  # the strips replace the full pages
     for k in ("dd_deg", "dd_adj_sym", "dd_neg_q8", "pp_a1", "pp_dinv",
               "dp_src", "dp_dst", "dp_deg"):
@@ -113,7 +116,63 @@ def test_asymmetric_pages_raise_naming_later_slice(both):
             tpack._ranges_from_counts(np.bincount(
                 td.dd_train.edge_type[keep], minlength=td.n_et))))
     with pytest.raises(NotImplementedError, match="float32 full-page"):
-        t_graph_arrays(broken, device="cpu")
+        t_graph_arrays(broken, device="cpu", dense_dtype="bfloat16")
+
+
+@pytest.mark.parametrize("chunk", [32, 1024])
+def test_pad_typed_edges_identical(both, chunk):
+    _, jd, _, td = both
+    for split in ("dd_train", "dd_test"):
+        a = jpack.pad_typed_edges(getattr(jd, split), jd.n_drug, chunk=chunk)
+        b = tpack.pad_typed_edges(getattr(td, split), td.n_drug, chunk=chunk)
+        for f in dataclasses.fields(a):
+            _equal(getattr(a, f.name), getattr(b, f.name), f"{split}.{f.name}")
+
+
+@pytest.mark.parametrize("window,chunk", [(64, 32), (1024, 512)])
+def test_pad_windowed_edges_identical(both, window, chunk):
+    _, jd, _, td = both
+    a = jpack.pad_windowed_edges(jd.pp_norm_index, jd.pp_norm_weight,
+                                 jd.n_prot, window=window, chunk=chunk)
+    b = tpack.pad_windowed_edges(td.pp_norm_index, td.pp_norm_weight,
+                                 td.n_prot, window=window, chunk=chunk)
+    for f in dataclasses.fields(a):
+        _equal(getattr(a, f.name), getattr(b, f.name), f.name)
+
+
+def test_chunked_graph_arrays_match_jax_layout(both):
+    _, jd, _, td = both
+    kw = dict(dd_chunk=32, pp_window=64, pp_chunk=32)
+    jg, jgs = j_graph_arrays(jd, **kw)
+    tg, tgs = t_graph_arrays(td, device="cpu", **kw)
+    assert "dd_adj_sym" not in tg and "pp_a1" not in tg
+    for k in ("dd_src2d", "dd_dst2d", "dd_valid", "dd_chunk_type", "ppw_src",
+              "ppw_dstl", "ppw_w", "ppw_chunk_window"):
+        want, got = np.asarray(jg[k]), tg[k].numpy()
+        assert got.dtype == want.dtype and np.array_equal(got, want), k
+    for k in ("dd_deg", "dp_deg"):  # int64 here, int32 in JAX without x64
+        assert np.array_equal(tg[k].numpy(), np.asarray(jg[k])), k
+    # the bitmap travels as int32 words holding the same bits
+    assert np.array_equal(tg["dd_bitmap"].numpy().view(np.uint32),
+                          np.asarray(jg["dd_bitmap"]))
+    for f in ("n_drug", "n_prot", "n_et", "dd_chunk", "dd_n_chunks",
+              "dd_n_valid", "pp_window", "pp_n_windows", "drug_feat_dim"):
+        assert getattr(tgs, f) == getattr(jgs, f), f
+    assert tgs.dd_layout == "chunked"
+
+
+def test_bitmap_bytes_are_jax_byte_planes(both):
+    """The CUDA sampler reads byte (pair >> 3) of a relation's slice of the
+    uint32 bitmap; that is the byte JAX's sampler table holds at
+    [t, lane = b & 127, row = b >> 7], for every byte."""
+    _, jd, _, td = both
+    n, n_et = td.n_drug, td.n_et
+    planes = bitmap_byte_planes(jd.dd_train_bitmap, n_et, n)  # [R, 128, rows]
+    tg, _ = t_graph_arrays(td, device="cpu")
+    got = tg["dd_bitmap"].view(torch.uint8).numpy().reshape(n_et, -1)
+    want = planes.transpose(0, 2, 1).reshape(n_et, -1).view(np.uint8)
+    assert got.shape == want.shape and np.array_equal(got, want)
+    assert got.any()  # the check is not vacuous
 
 
 def _port_sources():

@@ -35,9 +35,9 @@ class ModelConfig:
     pp_hid2: int = 16  # P-P GCN layer-2 width
     decoder: str = "distmult"  # 'distmult' | 'nn'
     nn_decoder_l1_dim: int = 16  # reference: src/layers.py:601
-    # Input precision ('float32' | 'bfloat16') of the chunked path's kernels,
-    # a later slice of the port; the dense-strip path this package runs
-    # takes bf16-rounded operands either way, as the JAX package's does.
+    # Input precision ('float32' | 'bfloat16') of the chunked path's kernels
+    # (B4, B5, B8); the dense-strip path takes bf16-rounded operands either
+    # way, as the JAX package's does.
     kernel_dtype: str = "float32"
     # Negative-sampling estimator: 'sampled' draws one negative per positive
     # slot (the reference's estimator, src/neg_sampling.py);

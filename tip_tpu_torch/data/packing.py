@@ -1,10 +1,12 @@
 """Host-side graph packing, numpy only: splits, type-binned sorting, degrees,
-the symmetric int8 strip layout, negative thresholds, dense P-P parts and
+the symmetric int8 strip layout, negative thresholds, dense P-P parts, the
+chunk-aligned D-D and windowed P-P edge buffers of the chunked layout, and
 the relation-strided membership bitmaps.
 
-A copy of what the port's training path needs from tip_tpu/data/packing.py,
+A copy of what the port's training paths need from tip_tpu/data/packing.py,
 tip_tpu/sampling/negative.py (bitmap layout) and the numpy branches of
-tip_tpu/native/__init__.py (edge sort, bincount, bitmap build).  Every
+tip_tpu/native/__init__.py (edge sort, bincount, padded fill, bitmap
+build).  Every
 output is bit-identical to the JAX package's on the same raw graph
 (tests/test_torch_packing.py).  Layout recap:
 
@@ -136,6 +138,99 @@ def max_multiplicity(edges: TypedEdges, n_nodes: int) -> int:
     change = np.flatnonzero(np.diff(keys)) + 1
     bounds = np.concatenate([[0], change, [keys.size]])
     return int(np.max(np.diff(bounds)))
+
+
+@dataclass
+class PaddedTypedEdges:
+    """Chunk-aligned padding of a TypedEdges buffer for the chunked kernels.
+
+    Each relation bin is padded to a multiple of ``chunk`` (at least one
+    chunk); padded slots get ``dst = n_nodes`` (one past the last valid
+    node) and ``src = 0``.  ``chunk_type[i]`` is the relation owning chunk
+    ``i``: no chunk straddles two relations.
+    """
+
+    src: np.ndarray  # [Ep] int32
+    dst: np.ndarray  # [Ep] int32 (n_nodes for padding)
+    chunk_type: np.ndarray  # [Ep // chunk] int32
+    range_list: np.ndarray  # [n_et, 2] int32 ranges in the PADDED buffer
+    valid: np.ndarray  # [Ep] bool
+    chunk: int
+    n_valid: int
+
+
+def pad_typed_edges(edges: TypedEdges, n_nodes: int,
+                    chunk: int = 512) -> PaddedTypedEdges:
+    """Pad every relation bin of a type-binned buffer to whole chunks."""
+    counts = edges.counts()
+    padded_counts = np.maximum(1, -(-counts // chunk)) * chunk
+    total = int(padded_counts.sum())
+    new_ranges = _ranges_from_counts(padded_counts)
+    src = np.zeros(total, np.int32)
+    dst = np.full(total, n_nodes, np.int32)
+    valid = np.zeros(total, bool)
+    for t in range(edges.n_et):
+        s, e = (int(x) for x in edges.range_list[t])
+        o = int(new_ranges[t, 0])
+        src[o:o + e - s] = edges.edge_index[0, s:e]
+        dst[o:o + e - s] = edges.edge_index[1, s:e]
+        valid[o:o + e - s] = True
+    chunk_type = np.repeat(np.arange(edges.n_et, dtype=np.int32),
+                           padded_counts // chunk)
+    return PaddedTypedEdges(src=src, dst=dst, chunk_type=chunk_type,
+                            range_list=new_ranges, valid=valid, chunk=chunk,
+                            n_valid=edges.n_edges)
+
+
+@dataclass
+class WindowedEdges:
+    """Destination-windowed, chunk-aligned edge buffer for the P-P SpMM.
+
+    Edges are grouped by destination window (``dst // window``); each
+    window's edge list is padded to a multiple of ``chunk`` (at least one
+    chunk) so no chunk straddles a window.  ``dst_local`` is the in-window
+    destination; ``window`` itself marks padding, whose weight is 0.
+    """
+
+    src: np.ndarray  # [Ep] int32 (padding: 0)
+    dst_local: np.ndarray  # [Ep] int32 (padding: window)
+    weight: np.ndarray  # [Ep] float32 (padding: 0)
+    chunk_window: np.ndarray  # [n_chunks] int32, non-decreasing
+    window: int
+    chunk: int
+    n_windows: int
+    n_valid: int
+
+
+def pad_windowed_edges(edge_index: np.ndarray, weight: Optional[np.ndarray],
+                       n_nodes: int, window: int = 512,
+                       chunk: int = 512) -> WindowedEdges:
+    """Window a dst-sorted weighted edge list for the windowed SpMM."""
+    src, dst = edge_index
+    if np.any(np.diff(dst) < 0):
+        raise ValueError("edges must be dst-sorted")
+    if weight is None:
+        weight = np.ones(src.shape[0], np.float32)
+    n_windows = -(-n_nodes // window)
+    counts = np.bincount(dst // window, minlength=n_windows)
+    padded_counts = np.maximum(1, -(-counts // chunk)) * chunk
+    total = int(padded_counts.sum())
+    starts = np.cumsum(padded_counts) - padded_counts
+    in_starts = np.cumsum(counts) - counts
+    p_src = np.zeros(total, np.int32)
+    p_dst = np.full(total, window, np.int32)
+    p_w = np.zeros(total, np.float32)
+    for wi in range(n_windows):
+        n, s_in, s_out = counts[wi], in_starts[wi], starts[wi]
+        p_src[s_out:s_out + n] = src[s_in:s_in + n]
+        p_dst[s_out:s_out + n] = dst[s_in:s_in + n] - wi * window
+        p_w[s_out:s_out + n] = weight[s_in:s_in + n]
+    chunk_window = np.repeat(np.arange(n_windows, dtype=np.int32),
+                             padded_counts // chunk)
+    return WindowedEdges(src=p_src, dst_local=p_dst, weight=p_w,
+                         chunk_window=chunk_window, window=window,
+                         chunk=chunk, n_windows=n_windows,
+                         n_valid=src.shape[0])
 
 
 def dense_relation_adj(edges: TypedEdges, n_nodes: int) -> np.ndarray:

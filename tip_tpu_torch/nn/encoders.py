@@ -1,12 +1,14 @@
-"""Tri-graph encoder, dense-strip branch (port of tip_tpu/nn/encoders.py:36,
-51, 80 and the dense branches of 100-194).
+"""Tri-graph encoder (port of tip_tpu/nn/encoders.py:36, 51, 60, 80 and
+100-218 without the sharded branches).
 
-P-P: two dense GCN layers over the int8 (A+I); P->D: the mean hierarchy
-conv; the drug embedding joined by concatenation (TIP-cat) or sum
-(TIP-add); D-D: both R-GCN layers from one M-first contraction over the
-symmetric strips.  Graphs without the dense P-P matrix or the strips take
-the COO / chunked paths of the JAX package, which this package does not
-have yet: it raises for them.
+P-P: two GCN layers, dense over the int8 (A+I) where the graph ships it,
+else windowed over the P-P edge buffers (kernel B5, the JAX package's
+``backend="pallas"`` branch); P->D: the mean hierarchy conv; the drug
+embedding joined by concatenation (TIP-cat) or sum (TIP-add); D-D: both
+R-GCN layers from one M-first contraction over the symmetric strips where
+the graph ships them, else two chunked layers (kernel B4).  The COO P-P
+path of the JAX package's XLA backend has no counterpart here: the
+windowed kernel covers the same graphs.
 """
 
 from __future__ import annotations
@@ -15,9 +17,17 @@ import torch
 
 from tip_tpu_torch.config import ModelConfig
 from tip_tpu_torch.nn import initializers as init
-from tip_tpu_torch.nn.gcn import gcn_conv_apply_dense, gcn_conv_init
+from tip_tpu_torch.nn.gcn import (
+    gcn_conv_apply_dense,
+    gcn_conv_apply_windowed,
+    gcn_conv_init,
+)
 from tip_tpu_torch.nn.hierarchy import hierarchy_conv_apply, hierarchy_conv_init
-from tip_tpu_torch.nn.rgcn import dense_rgcn_pair_apply_sym, rgcn_init
+from tip_tpu_torch.nn.rgcn import (
+    dense_rgcn_pair_apply_sym,
+    rgcn_apply_padded,
+    rgcn_init,
+)
 from tip_tpu_torch.ops.matmul import bf16_round
 
 
@@ -34,6 +44,18 @@ def pp_encoder_apply_dense(params, x_prot, a1, dinv):
     a1f = bf16_round(a1)
     h = torch.relu(gcn_conv_apply_dense(params["conv1"], x_prot, a1f, dinv))
     return gcn_conv_apply_dense(params["conv2"], h, a1f, dinv)
+
+
+def pp_encoder_apply_windowed(params, x_prot, graph, gs,
+                              kernel_dtype: str = "float32"):
+    """Two GCN layers over the pre-windowed P-P buffers (kernel B5)."""
+    args = (graph["ppw_src"], graph["ppw_dstl"], graph["ppw_w"],
+            graph["ppw_chunk_window"], gs.pp_n_windows, gs.pp_window,
+            gs.n_prot)
+    h = torch.relu(gcn_conv_apply_windowed(params["conv1"], x_prot, *args,
+                                           kernel_dtype=kernel_dtype))
+    return gcn_conv_apply_windowed(params["conv2"], h, *args,
+                                   kernel_dtype=kernel_dtype)
 
 
 def fm_encoder_init(gen, cfg: ModelConfig, n_drug: int, n_prot: int,
@@ -54,19 +76,26 @@ def fm_encoder_init(gen, cfg: ModelConfig, n_drug: int, n_prot: int,
 
 def fm_encoder_apply(params, graph, cfg: ModelConfig, gs, x_drug=None,
                      x_prot=None, d_norm=None):
-    """Final drug embeddings z [n_drug, n_hid2]."""
-    missing = [k for k in ("pp_a1", "pp_dinv", "dd_adj_sym") if k not in graph]
-    if missing:
-        raise NotImplementedError(
-            f"graph lacks {missing}: the COO P-P and chunked/full-page D-D "
-            "paths are later slices of the port")
-    hp = pp_encoder_apply_dense(params["pp"], x_prot, graph["pp_a1"],
-                                graph["pp_dinv"])
+    """Final drug embeddings z [n_drug, n_hid2]; ``gs.pp_layout`` and
+    ``gs.dd_layout`` say which buffers ``graph`` carries."""
+    if gs.pp_layout == "dense":
+        hp = pp_encoder_apply_dense(params["pp"], x_prot, graph["pp_a1"],
+                                    graph["pp_dinv"])
+    else:
+        hp = pp_encoder_apply_windowed(params["pp"], x_prot, graph, gs,
+                                       cfg.kernel_dtype)
     hd = hierarchy_conv_apply(params["hier"], hp, graph["dp_src"],
                               graph["dp_dst"], graph["dp_deg"], gs.n_drug)
     xd = params["embed"] if x_drug is None else x_drug @ params["embed"]
     if d_norm is not None:
         xd = xd / d_norm[:, None]
     x = torch.cat([xd, hd], dim=1) if cfg.mode == "cat" else xd + hd
-    return dense_rgcn_pair_apply_sym(params["rgcn1"], params["rgcn2"], x,
-                                     graph["dd_adj_sym"], graph["dd_deg"])
+    if gs.dd_layout == "strips":
+        return dense_rgcn_pair_apply_sym(params["rgcn1"], params["rgcn2"], x,
+                                         graph["dd_adj_sym"], graph["dd_deg"])
+    dd = (graph["dd_src2d"], graph["dd_dst2d"], graph["dd_chunk_type"],
+          graph["dd_deg"], gs.n_drug, gs.n_et)
+    x = torch.relu(rgcn_apply_padded(params["rgcn1"], x, *dd,
+                                     kernel_dtype=cfg.kernel_dtype))
+    return rgcn_apply_padded(params["rgcn2"], x, *dd,
+                             kernel_dtype=cfg.kernel_dtype)

@@ -1,14 +1,15 @@
-"""GCN convolution over the dense int8 (A+I) protein graph.
+"""GCN convolution over the protein graph, dense or windowed.
 
-Port of the dense branch of tip_tpu/nn/gcn.py (``gcn_conv_apply_dense``):
-out = dinv * ((A+I) @ (dinv * (x W))) + b, the cached D^-1/2 (A+I) D^-1/2
-normalization with the non-representable edge weights factored out of
-the streamed operand (data/packing.py:dense_pp_parts).  ``x=None`` is the
-identity-feature fast path: layer 1's weight acts as an embedding table.
-
-Precision: the product takes bf16-rounded operands and accumulates in
-float32 (ops/matmul.py), as the JAX path does on both the TPU and
-the CPU.
+Port of tip_tpu/nn/gcn.py's ``gcn_conv_apply_dense`` and
+``gcn_conv_apply_windowed``.  Dense: out = dinv * ((A+I) @ (dinv * (x W)))
++ b, the cached D^-1/2 (A+I) D^-1/2 normalization with the
+non-representable edge weights factored out of the streamed operand
+(data/packing.py:dense_pp_parts); the product takes bf16-rounded operands
+and accumulates in float32 (ops/matmul.py), as the JAX path does on both
+the TPU and the CPU.  Windowed: out = A_hat @ (x W) + b over the
+pre-windowed edge buffers, kernel B5 (ops/typed_segment.py).  ``x=None``
+is the identity-feature fast path: layer 1's weight acts as an embedding
+table.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from tip_tpu_torch.nn import initializers as init
 from tip_tpu_torch.ops.matmul import bf16_round
+from tip_tpu_torch.ops.typed_segment import gcn_spmm_padded
 
 
 def gcn_conv_init(gen, in_dim: int, out_dim: int, bias: bool = True,
@@ -37,6 +39,20 @@ def gcn_conv_apply_dense(params, x, a1, dinv):
     a = a1 if a1.dtype == torch.float32 else bf16_round(a1)
     agg = a @ bf16_round(h * dinv[:, None])
     out = agg * dinv[:, None]
+    if "bias" in params:
+        out = out + params["bias"]
+    return out
+
+
+def gcn_conv_apply_windowed(params, x, wsrc2d, wdstl2d, ww2d, chunk_window,
+                            n_windows: int, window: int, n_nodes: int,
+                            kernel_dtype: str = "float32"):
+    """x [N, in] or None; the windowed buffers of
+    data/packing.py:pad_windowed_edges.  Requires the symmetric cached
+    normalization (the SpMM's backward reruns it on the gradient)."""
+    h = params["weight"] if x is None else x @ params["weight"]
+    out = gcn_spmm_padded(h, wsrc2d, wdstl2d, ww2d, chunk_window, n_windows,
+                          window, n_nodes, kernel_dtype)
     if "bias" in params:
         out = out + params["bias"]
     return out

@@ -1,6 +1,7 @@
 """Basis-decomposed relational graph convolution over the symmetric strip
-layout (port of tip_tpu/nn/rgcn.py:34 ``rgcn_init`` and :152
-``dense_rgcn_pair_apply_sym``).
+layout or the chunked edge buffers (port of tip_tpu/nn/rgcn.py:34
+``rgcn_init``, :152 ``dense_rgcn_pair_apply_sym`` and :229
+``rgcn_apply_padded`` on its kernel branch).
 
 Per layer: out[d] = (1/deg[d]) * sum_t (DA[t] @ x)[d] @ W_t + x[d] @ root
 with W_t = sum_b att[t, b] basis_b.  Reassociated M-first,
@@ -15,6 +16,10 @@ block triangle; ``M @ h`` is reassembled strip by strip: strip I adds
 mirror rows.  Contributions to a row block are summed in the JAX
 package's order.  Both contractions take bf16-rounded operands with f32
 accumulation (ops/matmul.py).
+
+The chunked layer bins neighbour sums per (relation, dst) with kernel B4
+(ops/typed_segment.py) in the transposed [n_et, d, n] layout, which the
+basis einsums contract directly, in float32.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from tip_tpu_torch.data.packing import SYM_BLOCK as B, nb_from_cols
 from tip_tpu_torch.nn import initializers as init
 from tip_tpu_torch.ops.matmul import bf16_round, mm_bf16
 from tip_tpu_torch.ops.segment import mean_from_sum
+from tip_tpu_torch.ops.typed_segment import typed_neighbor_sum_padded_t
 
 
 def rgcn_init(gen, in_dim: int, out_dim: int, n_et: int, n_base: int,
@@ -78,3 +84,19 @@ def dense_rgcn_pair_apply_sym(params1, params2, x, sym_strips, degree):
 
     h = torch.relu(half(params1, m[:b1], x))
     return half(params2, m[b1:], h)
+
+
+def rgcn_apply_padded(params, x, src2d, dst2d, chunk_type, degree,
+                      n_nodes: int, n_et: int, kernel_dtype: str = "float32"):
+    """One R-GCN layer over chunk-aligned typed edges
+    (data/packing.py:pad_typed_edges): src2d/dst2d [n_chunks, chunk] int32
+    with pad slots at dst = n_nodes, chunk_type [n_chunks] int32; x
+    [n_nodes, d_in], degree [n_nodes].  Returns [n_nodes, d_out]."""
+    pt = typed_neighbor_sum_padded_t(x, src2d, dst2d, chunk_type, n_et,
+                                     kernel_dtype)
+    q = torch.einsum("tb,tdn->bdn", params["att"], pt)
+    agg = torch.einsum("bdn,bde->ne", q, params["basis"])
+    out = mean_from_sum(agg, degree) + x @ params["root"]
+    if "bias" in params:
+        out = out + params["bias"]
+    return out

@@ -35,7 +35,6 @@ field the JAX kernel sees in interpret mode (zeros).
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -77,7 +76,7 @@ def u24_field(seed: int, rel: torch.Tensor, rows: torch.Tensor,
     return mix32(key[:, None, None] ^ mix32(cell)[None]) >> 8
 
 
-def _softplus(x: torch.Tensor) -> torch.Tensor:
+def softplus(x: torch.Tensor) -> torch.Tensor:
     # log(1 + e^x) without torch's large-x threshold, as jax.nn.softplus
     return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
 
@@ -133,7 +132,7 @@ def dense_bce_sym_plain(w, z, pages, q8, seed: int, grads: bool = False,
             bad = (da > 0) | (rows >= n)[None, :, None] | (cols >= n)[None, None, :]
             cnt = torch.where(bad, torch.zeros_like(cnt), cnt)
             daw = torch.where(diag, da, 2.0 * da)
-            sp = _softplus(-logits)
+            sp = softplus(-logits)
             total = total + torch.sum(sp * daw + (sp + logits) * cnt)
             if not grads:
                 continue
@@ -178,23 +177,12 @@ def _check_cuda_args(w, z, pages, q8):
     return n_et, n, d, nb, totcols
 
 
-def _bind(lib):
-    fn = lib.tip_dense_bce_sym
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, ctypes.c_uint, i, i, i, i, i, i, i,
-                       p, p, p, p, p, p, p]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 def dense_bce_sym_cuda(w, z, pages, q8, seed: int, grads: bool = False):
     """Launch csrc/dense_bce_sym.cu on CUDA tensors.  Same contract as
     :func:`dense_bce_sym_plain` with the hashed field."""
     if not pages.is_cuda:
         raise ValueError("dense_bce_sym_cuda needs CUDA tensors")
     n_et, n, d, nb, totcols = _check_cuda_args(w, z, pages, q8)
-    fn = _bind(kernels.load(KERNEL))
     n_tiles = nb * (nb + 1) // 2
     n_chunks = -(-n_et // RC)
     # scratch freed on return while the kernel may still run: the caching
@@ -207,19 +195,12 @@ def dense_bce_sym_cuda(w, z, pages, q8, seed: int, grads: bool = False):
         dz_part = torch.empty(n_chunks * n_tiles * 2 * B * d, **f32)
         dw = torch.empty((n_et, d), **f32)
         dz = torch.empty((n, d), **f32)
-        ptrs = [x.data_ptr() for x in (dw_part, dz_part, loss, dw, dz)]
     else:
-        ptrs = [None, None, loss.data_ptr(), None, None]
-    stream = torch.cuda.current_stream(pages.device).cuda_stream
-    with torch.cuda.device(pages.device):
-        err = fn(w.data_ptr(), z.data_ptr(), pages.data_ptr(), q8.data_ptr(),
-                 seed & _M32, n_et, n, d, nb, totcols, RC, int(grads),
-                 loss_part.data_ptr(), ptrs[0], ptrs[1], ptrs[2], ptrs[3],
-                 ptrs[4], stream)
-    if err != 0:
-        raise RuntimeError(f"dense_bce_sym kernel launch failed: CUDA error "
-                           f"{err}")
-    kernels.count_launch(KERNEL)
+        dw_part = dz_part = dw = dz = None
+    kernels.launch(KERNEL, "tip_dense_bce_sym", "ppppuiiiiiiipppppp", w, z,
+                   pages, q8, seed & _M32, n_et, n, d, nb, totcols, RC,
+                   int(grads), loss_part, dw_part, dz_part, loss, dw, dz,
+                   device=pages.device)
     if not grads:
         return loss
     return loss, dw, dz

@@ -31,6 +31,22 @@ def bf16_round(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
+def is_bf16(compute_dtype) -> bool:
+    """Whether a kernel ``compute_dtype`` ('float32' | 'bfloat16', or the
+    torch dtype) asks for bf16 inputs."""
+    if compute_dtype in (torch.bfloat16, "bfloat16"):
+        return True
+    if compute_dtype in (torch.float32, "float32"):
+        return False
+    raise ValueError(f"compute_dtype {compute_dtype!r}: float32 or bfloat16")
+
+
+def compute_round(x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """x as float32, rounded to bf16 first where ``compute_dtype`` says so:
+    the inputs the chunked kernels take (they accumulate in float32)."""
+    return bf16_round(x) if is_bf16(compute_dtype) else x.float()
+
+
 def mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b over bf16-rounded operands, float32 accumulate and result."""
     return bf16_round(a) @ bf16_round(b)

@@ -1,11 +1,16 @@
 """Typed negative sampling against a relation-strided membership bitmap
-(port of tip_tpu/sampling/negative.py:43-124, the XLA path).
+(port of tip_tpu/sampling/negative.py:43-157).
 
-One uniform pair per positive edge over [0, n)^2 for the edge's relation,
-tested against that relation's positives by one bitmap word lookup; a
-fixed number of masked resampling rounds, leftovers accepted after the
-last.  Draws come from a ``torch.Generator`` (CPU draws moved to the
-device, so a seed gives the same pairs on either device).
+:func:`typed_negative_sampling` (the test negatives): one uniform pair per
+positive edge over [0, n)^2 for the edge's relation, tested against that
+relation's positives by one bitmap word lookup; a fixed number of masked
+resampling rounds, leftovers accepted after the last.  Draws come from a
+``torch.Generator`` (CPU draws moved to the device, so a seed gives the
+same pairs on either device).
+
+:func:`typed_negative_sampling_chunked` (the training negatives of the
+chunked layout): one draw per slot of the chunk-aligned buffer, kernel B10
+(ops/sampler.py) on CUDA tensors, its plain version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ import numpy as np
 import torch
 
 from tip_tpu_torch.data.packing import bitmap_stride_bits
+from tip_tpu_torch.ops.sampler import typed_negative_sampling_padded
 
 
 def bitmap_tensor(bitmap, device=None) -> torch.Tensor:
@@ -47,4 +53,15 @@ def typed_negative_sampling(gen: torch.Generator, edge_type, bitmap,
         pair = torch.where(hit, new_pair, pair)
         hit = hit & new_hit
     # pair = dst * n + src (the (type, dst, src) key order)
+    return pair % n_nodes, pair // n_nodes
+
+
+def typed_negative_sampling_chunked(seed: int, chunk_type, bitmap,
+                                    n_nodes: int, n_et: int, chunk: int,
+                                    u24=None):
+    """Negatives for a chunk-aligned buffer: (src2d, dst2d) int32
+    [n_chunks, chunk], one per slot, from the step ``seed`` (``u24``, CPU
+    only, replaces its draws: ops/sampler.py)."""
+    pair = typed_negative_sampling_padded(seed, chunk_type, bitmap, n_nodes,
+                                          n_et, chunk, u24=u24)
     return pair % n_nodes, pair // n_nodes

@@ -26,6 +26,7 @@ from tip_tpu_torch.train.model import (
     TIP,
     make_graph_arrays,
     make_test_arrays,
+    preferred_dense_dtype,
     resolve_device,
 )
 
@@ -45,7 +46,8 @@ def train(cfg: ModelConfig, tcfg: TrainConfig, data: TriGraphData,
         raise NotImplementedError("checkpoint_dir and remat: checkpointing "
                                   "and rematerialisation are later slices")
     set_matmul_precision()
-    graph, gs = make_graph_arrays(data, dev)
+    graph, gs = make_graph_arrays(data, dev,
+                                  dense_dtype=preferred_dense_dtype(data))
     model = TIP.for_data(cfg, data, gs, dev)
     test = make_test_arrays(data, dev)
 
