@@ -7,24 +7,29 @@ Phases, each fatal on failure:
   1. print the card (nvidia-smi name and power limit) and torch/CUDA versions;
   2. build every CUDA kernel from tip_tpu_torch/csrc with nvcc, in parallel;
   3. hold the whole training loss and its gradients on the GPU against the
-     same slice on the CPU, on a small graph, for both D-D layouts;
+     same slice on the CPU, on a small graph, for both D-D layouts, for
+     TIP-cat and for DR-NN;
   4. build a Decagon-shaped synthetic tri-graph (645 drugs, 19,081
      proteins, 1,097 relations), pack it in both layouts, and hold each
      kernel against its plain PyTorch version (KERNEL_CHECKS: B1 on the
-     dense strips, the dense path's shapes; B4, B5, B8, B10 on the chunked
-     buffers);
-  5. the dense path: train TIP-cat at full width for a few Adam steps on
-     the Decagon-shaped graph through tip_tpu_torch.train.loop.train, then
-     the final eval, with every kernel launch counter set to 0 just before
-     and read just after; then profile a few more steps (device time by
-     kernel, idle share);
-  6. hold B4, B5, B8 and B10 against their plain versions again on the
-     graph beyond the dense budget (BEYOND_DENSE: the chunked path's own
+     dense strips and B3 on DR-NN's full pages, the dense paths' shapes;
+     B4, B5, B8, B9, B10 on the chunked buffers);
+  5. the dense TIP path: train TIP-cat at full width for a few Adam steps
+     on the Decagon-shaped graph through tip_tpu_torch.train.loop.train,
+     then the final eval, with every kernel launch counter set to 0 just
+     before and read just after; then profile a few more steps (device
+     time by kernel, idle share);
+  6. the model variants through the models runner (build_variant,
+     train_variant) on the same graph, each at the default widths, counters
+     as in 5: DR-NN on the strips and pages (B3; profiled), then DR-DF
+     (B1), PR-HMP-NN and PP-GAE (no kernel);
+  7. hold B4, B5, B8, B9 and B10 against their plain versions again on the
+     graph beyond the dense budget (BEYOND_DENSE: the chunked paths' own
      shapes, timed) and on a graph too wide for any shared-memory table
      (WIDE: the kernels' global-memory and two-draw modes);
-  7. the chunked path: the same as 5 on BEYOND_DENSE, which train() packs
-     in the chunked layout;
-  8. print the kernels line (each kernel timed at its path's shapes), the
+  8. the chunked paths on BEYOND_DENSE: TIP-cat as in 5 and DR-NN as in 6
+     (B10, B9, B4; profiled);
+  9. print the kernels line (each kernel timed at its path's shapes), the
      card line and, last, the result line {"ok": true, "device": {...}}.
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -61,7 +66,9 @@ BEYOND_DENSE = dict(n_drug=1536, n_prot=19081, n_et=800, pairs_per_et=4600,
 # B10 (> 4,096) draws src and dst separately
 WIDE = dict(n_drug=7000, n_prot=300, n_et=3, pairs_per_et=40000,
             n_pp_pairs=600, n_dp=400, seed=0)
-TRAIN_STEPS = 5
+TRAIN_STEPS = 5  # TIP-cat paths
+VARIANT_STEPS = 5  # the DR-NN paths (kernels B3, B9)
+OTHER_STEPS = 2  # DR-DF, PR-HMP-NN, PP-GAE
 
 
 def card_line() -> str:
@@ -71,8 +78,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of fn() over reps launches, by CUDA events."""
+def cuda_ms(fn, reps: int, warmup: int = 2, primed: bool = False) -> float:
+    """Mean time of fn() over reps launches, by CUDA events.  Unprimed, that
+    is the larger of the host's and the device's time.  ``primed`` (kernel
+    wrappers): a spin kernel holds the stream while the host enqueues every
+    rep, so the events time the device alone and leave out the wrapper's
+    host work, which can outlast a small kernel; the spin is lengthened
+    until it outlasts the enqueue, or the check fails."""
     import torch
 
     for _ in range(warmup):
@@ -80,12 +92,23 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    cycles = 1 << 24  # ~10 ms at the H100's clock; x4 each retry
+    for _ in range(4 if primed else 1):
+        if primed:
+            torch.cuda._sleep(cycles)
+        held = torch.cuda.Event()
+        held.record()
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        still_held = not held.query()
+        torch.cuda.synchronize()
+        if still_held or not primed:
+            return start.elapsed_time(stop) / reps
+        cycles *= 4
+    raise AssertionError(f"could not prime the stream: enqueueing {reps} "
+                         f"calls outlasted a spin of {cycles // 4} cycles")
 
 
 def check(cond: bool, what: str) -> None:
@@ -227,9 +250,9 @@ def check_dense_bce_sym(graph, gs, data, dev, timed: bool = True) -> dict:
 
     # times at the main path's shapes
     rep["ms"] = cuda_ms(lambda: bce.dense_bce_sym_cuda(
-        w, z, pages, q8, seed, True), reps=20)
+        w, z, pages, q8, seed, True), reps=20, primed=True)
     rep["value_only_ms"] = cuda_ms(lambda: bce.dense_bce_sym_cuda(
-        w, z, pages, q8, seed, False), reps=20)
+        w, z, pages, q8, seed, False), reps=20, primed=True)
     rep["plain_ms"] = cuda_ms(lambda: bce.dense_bce_sym_plain(
         w, z, pages, q8, seed, True), reps=3, warmup=1)
 
@@ -332,11 +355,11 @@ def check_typed_neighbor_sum(graph, gs, data, dev, timed: bool = True) -> dict:
     dpt = torch.randn(n_et, d, n, generator=gen).to(dev)
     rep["d"] = d
     rep["ms"] = cuda_ms(lambda: ts.typed_neighbor_sum_fwd_cuda(x, *args, n_et),
-                        reps=20)
+                        reps=20, primed=True)
     rep["bwd_ms"] = cuda_ms(lambda: ts.typed_neighbor_sum_bwd_cuda(dpt, *args),
-                            reps=20)
+                            reps=20, primed=True)
     rep["bwd_global_ms"] = cuda_ms(lambda: ts.typed_neighbor_sum_bwd_cuda(
-        dpt, *args, table="global"), reps=20)
+        dpt, *args, table="global"), reps=20, primed=True)
     rep["plain_ms"] = cuda_ms(
         lambda: ts.typed_neighbor_sum_fwd_plain(x, *args, n_et), reps=3, warmup=1)
     rep["bwd_plain_ms"] = cuda_ms(
@@ -401,7 +424,8 @@ def check_gcn_spmm(graph, gs, data, dev, timed: bool = True) -> dict:
     d = cfg.pp_hid1
     x = torch.randn(gs.n_prot, d, generator=gen).to(dev)
     rep["d"] = d
-    rep["ms"] = cuda_ms(lambda: ts.gcn_spmm_cuda(x, *bufs), reps=50)
+    rep["ms"] = cuda_ms(lambda: ts.gcn_spmm_cuda(x, *bufs), reps=50,
+                        primed=True)
     rep["plain_ms"] = cuda_ms(lambda: ts.gcn_spmm_plain(x, *bufs), reps=5,
                               warmup=1)
     # yardstick: A_hat as one CSR matrix (gcn_normalize sorts it by dst)
@@ -468,12 +492,14 @@ def check_distmult_sddmm(graph, gs, data, dev, timed: bool = True) -> dict:
         return rep
 
     args = (z, w, src2d, dst2d, ct)
-    rep["ms"] = cuda_ms(lambda: sddmm2.distmult_logits_cuda(*args), reps=20)
-    rep["bwd_ms"] = cuda_ms(lambda: sddmm2.distmult_bwd_cuda(*args, g), reps=20)
+    rep["ms"] = cuda_ms(lambda: sddmm2.distmult_logits_cuda(*args), reps=20,
+                        primed=True)
+    rep["bwd_ms"] = cuda_ms(lambda: sddmm2.distmult_bwd_cuda(*args, g),
+                            reps=20, primed=True)
     rep["global_ms"] = cuda_ms(lambda: sddmm2.distmult_logits_cuda(
-        *args, table="global"), reps=20)
+        *args, table="global"), reps=20, primed=True)
     rep["bwd_global_ms"] = cuda_ms(lambda: sddmm2.distmult_bwd_cuda(
-        *args, g, table="global"), reps=20)
+        *args, g, table="global"), reps=20, primed=True)
     rep["plain_ms"] = cuda_ms(lambda: sddmm2.distmult_logits_plain(*args),
                               reps=3, warmup=1)
     rep["bwd_plain_ms"] = cuda_ms(lambda: sddmm2.distmult_bwd_plain(*args, g),
@@ -523,8 +549,9 @@ def check_typed_neg_sampler(graph, gs, data, dev, timed: bool = True) -> dict:
     if not timed:
         return rep
     rep["ms"] = cuda_ms(lambda: sampler.typed_negative_sampling_cuda(
-        seed, ct, bitmap, n, chunk), reps=50)
-    rep["resolve_ms"] = cuda_ms(lambda: sampler.resolve_borrow(rk), reps=20)
+        seed, ct, bitmap, n, chunk), reps=50, primed=True)
+    rep["resolve_ms"] = cuda_ms(lambda: sampler.resolve_borrow(rk), reps=20,
+                                primed=True)
     rep["plain_ms"] = cuda_ms(lambda: sampler.typed_negative_sampling_plain(
         seed, ct, bitmap, n, chunk), reps=3, warmup=1)
     rep["library_ms"] = None  # no single PyTorch call computes it
@@ -535,13 +562,236 @@ def check_typed_neg_sampler(graph, gs, data, dev, timed: bool = True) -> dict:
     return rep
 
 
-# name -> (the layout whose path runs the kernel, its check)
+def dense_bce_nn_oracle(args, da, mode: str, chunk: int = 64):
+    """float64 oracle of the NN decoder's estimator in its two deterministic
+    threshold modes: q = 0 (no negatives) and q = 2^24 (count 3 on every
+    non-positive cell).  args: (w1, w2, h1, h2); da: uint8 numpy [R, n, n].
+    Returns (value, [dw1, dw2, dh1, dh2])."""
+    import torch
+
+    w1, w2, h1, h2 = (a.double() for a in args)
+    dev = h1.device
+    val = torch.zeros((), dtype=torch.float64, device=dev)
+    rows = torch.zeros((da.shape[0], da.shape[1]), dtype=torch.float64,
+                       device=dev)
+    cols = torch.zeros_like(rows)
+    s1, s2 = h1 @ w1.T, h2 @ w2.T  # [n, R]
+    for c0 in range(0, da.shape[0], chunk):
+        dac = torch.from_numpy(da[c0:c0 + chunk]).to(dev).double()
+        L = s2[:, c0:c0 + chunk].T[:, :, None] + s1[:, c0:c0 + chunk].T[:, None, :]
+        sp = torch.nn.functional.softplus(-L, threshold=1e9)
+        cnt = (torch.zeros_like(L) if mode == "positives_only"
+               else 3.0 * (dac == 0))
+        val += (sp * dac + (sp + L) * cnt).sum()
+        g = cnt - (dac + cnt) * torch.sigmoid(-L)
+        rows[c0:c0 + chunk], cols[c0:c0 + chunk] = g.sum(2), g.sum(1)
+    return val, [cols @ h1, rows @ h2, cols.T @ w1, rows.T @ w2]
+
+
+def _frac_errs(got, want) -> list:
+    """max |got - want| / max |want| of each pair."""
+    return [float((a.double() - b.double()).abs().max() / b.double().abs().max())
+            for a, b in zip(got, want)]
+
+
+def check_dense_bce_nn_shapes(dev) -> list:
+    """B3 against its plain version on small random pages whose row tiles
+    and column strips are ragged (n = 100: one partial tile; n = 1,000: two
+    column strips of the kernel), with the main check's tolerances."""
+    import numpy as np
+    import torch
+
+    from tip_tpu_torch.ops import dense_bce_nn as bce
+
+    rng = np.random.default_rng(12)
+    out = []
+    for n, r in ((100, 5), (1000, 3)):
+        pages = torch.from_numpy(
+            (rng.random((r, n, n)) < 0.05).astype(np.uint8)).to(dev)
+        q = torch.from_numpy(
+            rng.integers(0, 1 << 22, (r, 3)).astype(np.int32)).to(dev)
+        args = [torch.from_numpy(a).float().to(dev) for a in (
+            0.4 * rng.standard_normal((r, 16)), 0.4 * rng.standard_normal((r, 16)),
+            np.maximum(rng.standard_normal((n, 16)), 0),
+            np.maximum(rng.standard_normal((n, 16)), 0))]
+        lk, *gk = bce.dense_bce_nn_cuda(*args, pages, q, 5, True)
+        lp, *gp = bce.dense_bce_nn_plain(*args, pages, q, 5, True)
+        vk = bce.dense_bce_nn_cuda(*args, pages, q, 5, False)
+        rel = abs(float(lk) - float(lp)) / abs(float(lp))
+        errs = _frac_errs(gk, gp)
+        check(rel < 1e-5, f"B3 n={n} R={r} loss rel err {rel}")
+        check(max(errs) <= 1e-3, f"B3 n={n} R={r} grads {errs}")
+        check(float(vk) == float(lk), f"B3 n={n} R={r} value-only != fused")
+        out.append({"shape": f"n={n} R={r}", "loss_rel_err": rel,
+                    "grad_err_frac": errs})
+    return out
+
+
+def check_dense_bce_nn(graph, gs, data, dev, timed: bool = True) -> dict:
+    """Kernel B3 against its plain version and the float64 oracle on DR-NN's
+    dense graph (the uint8 pages and thresholds make_dd_graph_arrays ships
+    for the NN decoder; R = 1097, n = 645, l1 = 16)."""
+    import torch
+
+    from tip_tpu_torch.data.packing import (
+        cast_dense_adj, dense_relation_adj, poisson_neg_thresholds,
+    )
+    from tip_tpu_torch.ops import dense_bce_nn as bce
+
+    n = data.n_drug
+    da = cast_dense_adj(dense_relation_adj(data.dd_train, n), "uint8")
+    pages = torch.from_numpy(da).to(dev)
+    q = torch.from_numpy(poisson_neg_thresholds(data.dd_train, n)).to(dev)
+    n_et, d = data.n_et, bce.D
+    gen = torch.Generator().manual_seed(8)
+    args = [(0.4 * torch.randn(n_et, d, generator=gen)).to(dev),
+            (0.4 * torch.randn(n_et, d, generator=gen)).to(dev),
+            torch.relu(torch.randn(n, d, generator=gen)).to(dev),
+            torch.relu(torch.randn(n, d, generator=gen)).to(dev)]
+    seed = 12345
+    rep = {}
+
+    # hashed field: kernel against the plain version, same field.  Per-
+    # block partial sums vs torch reductions: f32 order only
+    loss_k, *grads_k = bce.dense_bce_nn_cuda(*args, pages, q, seed, True)
+    loss_p, *grads_p = bce.dense_bce_nn_plain(*args, pages, q, seed, True)
+    torch.cuda.synchronize()
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    errs = _frac_errs(grads_k, grads_p)
+    check(rel < 1e-5, f"B3 loss vs plain: rel err {rel}")
+    check(max(errs) <= 1e-3, f"B3 grads vs plain (dw1, dw2, dh1, dh2): {errs}")
+    rep.update(loss=float(loss_k), loss_rel_err=rel, grad_err_frac=errs,
+               max_abs_err=max(max_err(a, b)[0]
+                               for a, b in zip(grads_k, grads_p)))
+    val_only = bce.dense_bce_nn_cuda(*args, pages, q, seed, False)
+    check(float(val_only) == float(loss_k),
+          f"B3 value-only {float(val_only)!r} != fused {float(loss_k)!r}")
+    check(torch.equal(bce.dense_bce_nn_cuda(*args, pages, q, seed, True)[1],
+                      grads_k[0]), "B3 is not deterministic")
+    rep["other_shapes"] = check_dense_bce_nn_shapes(dev)
+
+    # deterministic modes against the float64 oracle
+    for mode, qv in (("positives_only", 0), ("saturated", 1 << 24)):
+        lk, *gk = bce.dense_bce_nn_cuda(*args, pages, torch.full_like(q, qv),
+                                        seed, True)
+        ov, og = dense_bce_nn_oracle(args, da, mode)
+        vrel = abs(float(lk) - float(ov)) / abs(float(ov))
+        e = _frac_errs(gk, og)
+        check(vrel < 1e-4, f"B3 {mode} value rel err {vrel}")
+        check(max(e) < 1e-3, f"B3 {mode} grads {e}")
+        rep[mode] = {"value_rel_err": vrel, "grad_err_frac": e}
+
+    # first-order descent: the fused gradients predict the value-only drop
+    g2 = sum(float((g.double() ** 2).sum()) for g in grads_k)
+    lr = 1e-4 * abs(float(loss_k)) / g2  # a predicted drop of 1e-4 of the loss
+    after = bce.dense_bce_nn_cuda(*[a - lr * g for a, g in zip(args, grads_k)],
+                                  pages, q, seed, False)
+    drop = float(loss_k) - float(after)
+    check(abs(drop - lr * g2) < 0.2 * lr * g2, f"B3 descent {drop} vs {lr * g2}")
+    rep["descent"] = {"drop": drop, "predicted": lr * g2}
+    if not timed:
+        return rep
+
+    rep["ms"] = cuda_ms(lambda: bce.dense_bce_nn_cuda(
+        *args, pages, q, seed, True), reps=20, primed=True)
+    rep["value_only_ms"] = cuda_ms(lambda: bce.dense_bce_nn_cuda(
+        *args, pages, q, seed, False), reps=20, primed=True)
+    rep["plain_ms"] = cuda_ms(lambda: bce.dense_bce_nn_plain(
+        *args, pages, q, seed, True), reps=3, warmup=1)
+    rep["library_ms"] = None  # no single PyTorch call computes it
+    # bound: each input read once, each output written once; ~25 float
+    # operations a cell (outer sum, softplus, sigmoid, counts, G, the two
+    # running sums) plus the O(R n l1) score and gradient contractions
+    cells = n_et * n * n
+    flops = 25 * cells + 2 * 4 * n_et * n * d
+    rep.update(bound(nbytes(pages, q, *args) + 4 * (1 + sum(
+        a.numel() for a in args)), flops))
+    rep["cells"] = cells
+    return rep
+
+
+def check_nn_sddmm(graph, gs, data, dev, timed: bool = True) -> dict:
+    """Kernel B9 forward (logits) and backward (dh1, dh2, dw1, dw2) against
+    the plain version at l1 = 16, the backward's per-relation vectors where
+    the wrapper puts them for this graph (shared memory up to 29,055 nodes)
+    and forced to global memory, in float32 and with bf16 rounding.  Logits are
+    compared on valid slots (a pad slot scores its pad src); with h1 = 0 the
+    pad slots' logits (their dst terms) must be exactly 0.  Float32 order
+    only: 1e-5 of the largest logit, 1e-4 of the largest gradient."""
+    import torch
+
+    from tip_tpu_torch.ops import sddmm2
+    from tip_tpu_torch.ops.matmul import bf16_round
+
+    src2d, dst2d, ct = graph["dd_src2d"], graph["dd_dst2d"], graph["dd_chunk_type"]
+    d, n, n_et = sddmm2.D, gs.n_drug, gs.n_et
+    gen = torch.Generator().manual_seed(24)
+    h1, h2 = (torch.relu(torch.randn(n, d, generator=gen)).to(dev)
+              for _ in range(2))
+    w1, w2 = ((0.3 * torch.randn(n_et, d, generator=gen)).to(dev)
+              for _ in range(2))
+    g = torch.randn(src2d.shape, generator=gen).to(dev)
+    valid = graph["dd_valid"].reshape(src2d.shape) > 0
+    pad = ~valid
+    bufs = (src2d, dst2d, ct)
+    rep = {"d": d, "shared": sddmm2.nn_shared_fits(n),
+           "pad_slots": int(pad.sum())}
+    worst = 0.0
+    for bf16 in (False, True):
+        hr = [bf16_round(h) if bf16 else h for h in (h1, h2)]  # compute_round
+        args = (*hr, w1, w2, *bufs)
+        lp = sddmm2.nn_logits_plain(*args)
+        gp = sddmm2.nn_bwd_plain(*args, g, bf16)
+        for table in (None, "global"):
+            tag = ("bf16_" if bf16 else "") + (table or "auto")
+            lk = sddmm2.nn_logits_cuda(*args)
+            gk = sddmm2.nn_bwd_cuda(*args, g, bf16, table=table)
+            el, ml = max_err(lk[valid], lp[valid])
+            check(el <= 1e-5 * ml, f"B9 {tag} logits err {el} of max {ml}")
+            errs = _frac_errs(gk, gp)
+            check(max(errs) <= 1e-4, f"B9 {tag} grads (dh1, dh2, dw1, dw2) "
+                  f"err {errs} of their max")
+            l0 = sddmm2.nn_logits_cuda(torch.zeros_like(hr[0]), *args[1:])
+            check(bool((l0[pad] == 0).all()), f"B9 {tag} pad dst terms not 0")
+            rep[tag] = {"logit_max_abs_err": el, "grad_err_frac": errs}
+            worst = max(worst, el, *(max_err(a, b)[0] for a, b in zip(gk, gp)))
+    rep["max_abs_err"] = worst
+    if not timed:
+        return rep
+
+    args = (h1, h2, w1, w2, *bufs)
+    rep["ms"] = cuda_ms(lambda: sddmm2.nn_logits_cuda(*args), reps=20,
+                        primed=True)
+    rep["bwd_ms"] = cuda_ms(lambda: sddmm2.nn_bwd_cuda(*args, g), reps=20,
+                            primed=True)
+    rep["bwd_global_ms"] = cuda_ms(lambda: sddmm2.nn_bwd_cuda(
+        *args, g, table="global"), reps=20, primed=True)
+    rep["bwd_bf16_ms"] = cuda_ms(lambda: sddmm2.nn_bwd_cuda(
+        *args, g, True), reps=5, primed=True)
+    rep["plain_ms"] = cuda_ms(lambda: sddmm2.nn_logits_plain(*args), reps=3,
+                              warmup=1)
+    rep["bwd_plain_ms"] = cuda_ms(lambda: sddmm2.nn_bwd_plain(*args, g),
+                                  reps=3, warmup=1)
+    rep["library_ms"] = None  # no single PyTorch call computes it
+    slots = src2d.numel()
+    fwd = bound(nbytes(*bufs, h1, h2, w1, w2) + 4 * slots, 4 * d * slots)
+    bwd = bound(nbytes(*bufs, g, h1, h2, w1, w2) + nbytes(h1, h2, w1, w2),
+                4 * d * slots)
+    rep.update(fwd)
+    rep.update(bwd_bound_ms=bwd["bound_ms"], bwd_bound_by=bwd["bound_by"],
+               slots=slots)
+    return rep
+
+
+# name -> (the layout whose kernel checks run it, its check)
 KERNEL_CHECKS = {
     "dense_bce_sym": ("dense", check_dense_bce_sym),
     "typed_neighbor_sum": ("chunked", check_typed_neighbor_sum),
     "gcn_spmm": ("chunked", check_gcn_spmm),
     "distmult_sddmm": ("chunked", check_distmult_sddmm),
     "typed_neg_sampler": ("chunked", check_typed_neg_sampler),
+    "dense_bce_nn": ("dense", check_dense_bce_nn),
+    "nn_sddmm": ("chunked", check_nn_sddmm),
 }
 
 
@@ -557,29 +807,37 @@ def run_checks(layout: str, tag: str, graph, gs, data, dev, timed: bool = True
     return out
 
 
-def check_small_slice_cpu_vs_gpu(dev, dense_dtype) -> dict:
-    """TIP.loss and its gradients on a small graph, on the GPU (kernels) and
-    on the CPU (plain versions) with the same parameters and seed.  The
-    hashed fields (B1's cells, B10's draws) are the same on both, so only
-    f32 order and, on the strips, bf16 re-rounding of activations differ:
-    loss rtol 1e-3 and grads 2e-2 of their max on the strips, loss rtol
-    1e-5 and grads 1e-4 of their max on the chunked layout (f32 throughout)."""
+def check_small_slice_cpu_vs_gpu(dev, dense_dtype, model_kind: str = "tip"
+                                 ) -> dict:
+    """The training loss and its gradients on a small graph, on the GPU
+    (kernels) and on the CPU (plain versions) with the same parameters and
+    seed: TIP-cat (``model_kind="tip"``) or DR-NN (``"dr-nn"``).  The
+    hashed fields (B1's and B3's cells, B10's draws) are the same on both,
+    so only f32 order and, on the strips, bf16 re-rounding of activations
+    differ: loss rtol 1e-3 and grads 2e-2 of their max on the strips, loss
+    rtol 1e-5 and grads 1e-4 of their max on the chunked layout (f32
+    throughout)."""
     import torch
 
     from tip_tpu_torch import convert
     from tip_tpu_torch.config import ModelConfig
     from tip_tpu_torch.data import build_trigraph, synthetic_trigraph
+    from tip_tpu_torch.models.dd import DDConfig, DDModel, make_dd_graph_arrays
     from tip_tpu_torch.train.model import TIP, make_graph_arrays
 
     data = build_trigraph(synthetic_trigraph(
         n_drug=200, n_prot=300, n_et=7, pairs_per_et=200, seed=5), 0.9, 5)
-    cfg = ModelConfig.tip_cat()
     out = {}
     params_np = None
     for name in ("cpu", "cuda"):
-        graph, gs = make_graph_arrays(data, device=name,
-                                      dense_dtype=dense_dtype)
-        model = TIP.for_data(cfg, data, gs, device=name)
+        if model_kind == "tip":
+            graph, gs = make_graph_arrays(data, device=name,
+                                          dense_dtype=dense_dtype)
+            model = TIP.for_data(ModelConfig.tip_cat(), data, gs, device=name)
+        else:
+            graph, gs = make_dd_graph_arrays(data, name, dense_dtype=dense_dtype,
+                                             decoder="nn")
+            model = DDModel.for_data(DDConfig(decoder="nn"), gs, name)
         if params_np is None:
             params_np = convert.params_to_numpy(
                 model.init(torch.Generator().manual_seed(3)))
@@ -590,31 +848,29 @@ def check_small_slice_cpu_vs_gpu(dev, dense_dtype) -> dict:
         grads = [p.grad.cpu() for p in convert.leaves(params)]
         out[name] = (loss.item(), grads)
     (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
-    loss_tol, grad_tol = (1e-3, 2e-2) if gs.dd_layout == "strips" else (1e-5, 1e-4)
-    check(abs(lg - lc) <= loss_tol * abs(lc), f"slice loss gpu {lg} cpu {lc}")
+    loss_tol, grad_tol = (1e-5, 1e-4) if gs.dd_layout == "chunked" else (1e-3, 2e-2)
+    check(abs(lg - lc) <= loss_tol * abs(lc),
+          f"{model_kind} slice loss gpu {lg} cpu {lc}")
     worst = 0.0
     for a, b in zip(gg, gc):
         frac = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
         worst = max(worst, frac)
-    check(worst < grad_tol, f"slice grads gpu vs cpu: {worst} of max")
-    return {"layout": gs.dd_layout, "loss_gpu": lg, "loss_cpu": lc,
-            "grad_err_frac": worst}
+    check(worst < grad_tol, f"{model_kind} slice grads gpu vs cpu: {worst} of max")
+    return {"model": model_kind, "layout": gs.dd_layout, "loss_gpu": lg,
+            "loss_cpu": lc, "grad_err_frac": worst}
 
 
-def profile_steps(graph, gs, data, dev, steps: int = 3, warmup: int = 2) -> dict:
-    """Device time by kernel over a few TIP-cat training steps (the loop's
-    step: loss, backward, Adam), from torch.profiler; wall time from the
-    host clock around the synchronised window."""
+def profile_steps(model, graph, steps: int = 3, warmup: int = 2) -> dict:
+    """Device time by kernel over a few training steps of ``model`` (the
+    loops' step: loss, backward, Adam), from torch.profiler; wall time from
+    the host clock around the synchronised window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from tip_tpu_torch import convert
-    from tip_tpu_torch.config import ModelConfig
     from tip_tpu_torch.train.loop import step_seed
-    from tip_tpu_torch.train.model import TIP
 
-    model = TIP.for_data(ModelConfig.tip_cat(), data, gs, dev)
     params = model.init(torch.Generator().manual_seed(0))
     for p in convert.leaves(params):
         p.requires_grad_(True)
@@ -667,69 +923,153 @@ def graph_summary(data, build_sec: float) -> dict:
             "build_sec": build_sec}
 
 
-def expected_launches(layout: str, steps: int) -> dict:
-    """Launches of each kernel in `steps` training steps plus the final
-    eval.  Dense: B1 once a step.  Chunked: B10 once, B8 twice forward
-    (positives, negatives) and twice backward, B4 and B5 once forward and
-    once backward in each of two layers; the eval's encode adds a forward of
-    each layer of B4 and B5."""
-    if layout == "dense":
-        return {"dense_bce_sym": steps}
-    return {"typed_neg_sampler": steps, "distmult_sddmm": 4 * steps,
-            "typed_neighbor_sum": 4 * steps + 2, "gcn_spmm": 4 * steps + 2}
+def expected_launches(path: str, steps: int) -> dict:
+    """Launches of each kernel in ``steps`` training steps plus the final
+    eval, per path.  TIP dense: B1 once a step.  TIP chunked: B10 once, B8
+    twice forward (positives, negatives) and twice backward, B4 and B5 once
+    forward and once backward in each of two layers; the eval's encode adds
+    a forward of each layer of B4 and B5.  DR-NN dense: B3 once a step
+    (its fused pass).  DR-NN chunked: as TIP chunked with B9 for B8 and no
+    P-P side (no B5).  DR-DF dense: B1 once a step.  PR-HMP-NN and PP-GAE
+    run no kernel."""
+    return {
+        "tip dense": {"dense_bce_sym": steps},
+        "tip chunked": {"typed_neg_sampler": steps, "distmult_sddmm": 4 * steps,
+                        "typed_neighbor_sum": 4 * steps + 2,
+                        "gcn_spmm": 4 * steps + 2},
+        "dr-nn dense": {"dense_bce_nn": steps},
+        "dr-nn chunked": {"typed_neg_sampler": steps, "nn_sddmm": 4 * steps,
+                          "typed_neighbor_sum": 4 * steps + 2},
+        "dr-df dense": {"dense_bce_sym": steps},
+        "pr-hmp-nn flat": {},
+        "pp-gae dense": {},
+    }[path]
 
 
-def run_path(layout: str, data, dev) -> dict:
+def check_result(path: str, steps: int, n_rel: int, result, launches) -> None:
+    """Finite losses, metrics in [0, 1] per relation, and exactly the
+    expected kernel launches."""
+    import numpy as np
+
+    from tip_tpu_torch import kernels
+
+    losses = [h["loss"] for h in result["history"]]
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"{path} train losses {losses}")
+    for k in ("auprc", "auroc", "ap"):
+        v = result["final"][k]
+        check(0.0 <= v <= 1.0, f"{path} metric {k} = {v}")
+        per = result["per_relation"][k]
+        check(per.shape == (n_rel,) and np.all((per >= 0) & (per <= 1)),
+              f"{path} per-relation {k}")
+    want = expected_launches(path, steps)
+    for name in kernels.KERNELS:
+        check(launches[name] == want.get(name, 0),
+              f"{path} path launched {name} {launches[name]} times, "
+              f"expected {want.get(name, 0)}")
+
+
+def train_line(fields: dict, result, launches, peak: int) -> str:
+    step_sec = sorted(h["sec"] for h in result["history"][1:])
+    return "train: " + json.dumps({
+        **fields, "losses": [h["loss"] for h in result["history"]],
+        "final": result["final"], "launches": launches,
+        "step_ms_median": 1e3 * step_sec[len(step_sec) // 2],
+        "step_ms_all": [1e3 * h["sec"] for h in result["history"]],
+        "peak_mem_bytes": peak,
+    })
+
+
+def run_path(layout: str, data, dev, steps: int) -> dict:
     """Train TIP-cat through train() (which picks the layout for the
     graph), with every launch counter at 0 just before and read just after;
     check losses, metrics and launches; print the train and profile lines.
     Returns the launch counts."""
-    import numpy as np
     import torch
 
     from tip_tpu_torch import kernels
     from tip_tpu_torch.config import ModelConfig, TrainConfig
     from tip_tpu_torch.train.loop import train
-    from tip_tpu_torch.train.model import make_graph_arrays, preferred_dense_dtype
+    from tip_tpu_torch.train.model import (
+        TIP, make_graph_arrays, preferred_dense_dtype,
+    )
 
     check((preferred_dense_dtype(data) is None) == (layout == "chunked"),
           f"train() would not pick the {layout} layout for this graph")
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    _, result = train(ModelConfig.tip_cat(), TrainConfig(epochs=TRAIN_STEPS),
+    _, result = train(ModelConfig.tip_cat(), TrainConfig(epochs=steps),
                       data, log=print, device=dev)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    losses = [h["loss"] for h in result["history"]]
-    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
-          f"{layout} train losses {losses}")
-    for k in ("auprc", "auroc", "ap"):
-        v = result["final"][k]
-        check(0.0 <= v <= 1.0, f"{layout} metric {k} = {v}")
-        per = result["per_relation"][k]
-        check(per.shape == (data.n_et,) and np.all((per >= 0) & (per <= 1)),
-              f"{layout} per-relation {k}")
-    want = expected_launches(layout, TRAIN_STEPS)
-    for name in kernels.KERNELS:
-        check(launches[name] == want.get(name, 0),
-              f"{layout} path launched {name} {launches[name]} times, "
-              f"expected {want.get(name, 0)}")
-    step_sec = sorted(h["sec"] for h in result["history"][1:])
-    print("train:", json.dumps({
-        "path": layout, "losses": losses, "final": result["final"],
-        "launches": launches,
-        "step_ms_median": 1e3 * step_sec[len(step_sec) // 2],
-        "step_ms_all": [1e3 * h["sec"] for h in result["history"]],
-        "peak_mem_bytes": peak,
-    }))
+    path = f"tip {layout}"
+    check_result(path, steps, data.n_et, result, launches)
+    print(train_line({"variant": "tip-cat", "path": layout}, result, launches,
+                     torch.cuda.max_memory_allocated()))
     graph, gs = make_graph_arrays(data, dev,
                                   dense_dtype=preferred_dense_dtype(data))
-    print("profile:", json.dumps({"path": layout,
-                                  **profile_steps(graph, gs, data, dev)}))
+    model = TIP.for_data(ModelConfig.tip_cat(), data, gs, dev)
+    print("profile:", json.dumps({"variant": "tip-cat", "path": layout,
+                                  **profile_steps(model, graph)}))
     del graph
     torch.cuda.empty_cache()
     return launches
+
+
+def run_variant(variant: str, data, dev, steps: int,
+                profiled: bool = False) -> dict:
+    """Train one model variant at full width (the default configs) through
+    the models runner (build_variant, train_variant) on ``dev``, with every
+    launch counter at 0 just before train_variant and read just after;
+    check losses, metrics and launches; print the train line and, with
+    ``profiled``, a profile line.  Returns the launch counts."""
+    import torch
+
+    from tip_tpu_torch import kernels
+    from tip_tpu_torch.models.runner import build_variant, train_variant
+    from tip_tpu_torch.train.model import preferred_dense_dtype
+
+    t0 = time.time()
+    model, graph, test = build_variant(variant, data, dev)
+    build_sec = time.time() - t0
+    if variant.startswith("dr-"):
+        layout = "chunked" if model.gs.dd_layout == "chunked" else "dense"
+        check((preferred_dense_dtype(data) is None) == (layout == "chunked"),
+              f"{variant}: the runner did not pick the preferred layout")
+        n_rel = data.n_et
+    else:
+        layout = "flat" if variant == "pr-hmp-nn" else model.layout
+        n_rel = data.n_et if variant == "pr-hmp-nn" else 1
+    path = f"{variant} {layout}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    _, result = train_variant(model, graph, test, epochs=steps, seed=1111,
+                              log=print)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check_result(path, steps, n_rel, result, launches)
+    print(train_line({"variant": variant, "path": layout,
+                      "graph_build_sec": build_sec}, result, launches,
+                     torch.cuda.max_memory_allocated()))
+    if profiled:
+        print("profile:", json.dumps({"variant": variant, "path": layout,
+                                      **profile_steps(model, graph)}))
+    del model, graph, test
+    torch.cuda.empty_cache()
+    return launches
+
+
+# the path whose launches the kernels line reports for each kernel
+KERNEL_PATH = {
+    "dense_bce_sym": "tip dense",
+    "typed_neighbor_sum": "tip chunked",
+    "gcn_spmm": "tip chunked",
+    "distmult_sddmm": "tip chunked",
+    "typed_neg_sampler": "tip chunked",
+    "dense_bce_nn": "dr-nn dense",
+    "nn_sddmm": "dr-nn chunked",
+}
 
 
 def main() -> int:
@@ -760,9 +1100,10 @@ def main() -> int:
                 print(f"[ptxas {name}] {line.strip()}")
     print(f"built {sorted(logs)} in {time.time() - t0:.1f} s")
 
-    for dense_dtype in ("bfloat16", None):
-        print("small slice gpu vs cpu:",
-              json.dumps(check_small_slice_cpu_vs_gpu(dev, dense_dtype)))
+    for kind in ("tip", "dr-nn"):
+        for dense_dtype in ("bfloat16", None):
+            print("small slice gpu vs cpu:", json.dumps(
+                check_small_slice_cpu_vs_gpu(dev, dense_dtype, kind)))
 
     t0 = time.time()
     data = build_trigraph(synthetic_trigraph(**DECAGON_SHAPE), 0.9, 1111)
@@ -776,7 +1117,11 @@ def main() -> int:
         del graph
         torch.cuda.empty_cache()
 
-    launches = {"dense": run_path("dense", data, dev)}
+    launches = {"tip dense": run_path("dense", data, dev, TRAIN_STEPS)}
+    launches["dr-nn dense"] = run_variant("dr-nn", data, dev, VARIANT_STEPS,
+                                          profiled=True)
+    for variant in ("dr-df", "pr-hmp-nn", "pp-gae"):
+        run_variant(variant, data, dev, OTHER_STEPS)
     del data
     # the chunked kernels at the shapes of the chunked path (main) and, on
     # a graph too wide for any shared-memory table, through their
@@ -793,7 +1138,9 @@ def main() -> int:
         del graph
         torch.cuda.empty_cache()
     del wide
-    launches["chunked"] = run_path("chunked", big, dev)
+    launches["tip chunked"] = run_path("chunked", big, dev, TRAIN_STEPS)
+    launches["dr-nn chunked"] = run_variant("dr-nn", big, dev, VARIANT_STEPS,
+                                            profiled=True)
 
     entries = []
     for name, spec in kernels.KERNELS.items():
@@ -802,7 +1149,7 @@ def main() -> int:
         entries.append({
             "name": name, "route": spec.route, "source": spec.source,
             "replaces": spec.replaces,
-            "launches": launches[layout][name],
+            "launches": launches[KERNEL_PATH[name]][name],
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],

@@ -1,0 +1,161 @@
+"""Kernel B3 of the port (tip_tpu_torch/ops/dense_bce_nn.py, the NN
+decoder's fused dense BCE) against the JAX package on the CPU.
+
+The CPU runs the plain PyTorch version; chip_smoke.py holds the CUDA kernel
+against it on the card.  The JAX kernel in interpret mode draws u24 = 0 (a
+cell's count is #{k : q_k > 0}), so the plain version fed an explicit zero
+field must match it value for value and gradient for gradient.  The hashed
+field is checked in the two deterministic threshold modes (q = 0 and
+q = 2^24) against a float64 oracle, and statistically against the
+estimator's analytic expectation.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from tip_tpu.data import build_trigraph, synthetic_trigraph
+from tip_tpu.data.packing import dense_relation_adj, pad_dense_adj
+from tip_tpu.ops.pallas_dense_bce_nn import dense_bce_nn_sum
+from tip_tpu_torch import kernels
+from tip_tpu_torch.data.packing import cast_dense_adj, poisson_neg_thresholds
+from tip_tpu_torch.ops import dense_bce_nn as port
+
+L1 = 16
+
+
+@pytest.fixture(scope="module")
+def setup():
+    # n_drug > 128: the kernel's row tiles and strips are ragged
+    raw = synthetic_trigraph(n_drug=150, n_prot=16, n_et=6, pairs_per_et=120,
+                             seed=3)
+    data = build_trigraph(raw, split_rate=0.9, seed=3)
+    da = dense_relation_adj(data.dd_train, data.n_drug)
+    pages = cast_dense_adj(da, "uint8")
+    q = poisson_neg_thresholds(data.dd_train, data.n_drug)
+    rng = np.random.default_rng(0)
+    w1, w2 = (0.4 * rng.standard_normal((2, data.n_et, L1))).astype(np.float32)
+    h1, h2 = np.maximum(rng.standard_normal((2, data.n_drug, L1)),
+                        0).astype(np.float32)
+    return data, da, pages, q, (w1, w2, h1, h2)
+
+
+def _torch_value_and_grads(args, pages, q, seed, u24=None):
+    ts = [torch.tensor(a, requires_grad=True) for a in args]
+    loss = port.dense_bce_nn_sum(*ts, torch.from_numpy(pages),
+                                 torch.from_numpy(q), seed, u24=u24)
+    loss.backward()
+    return loss.item(), [t.grad.numpy() for t in ts]
+
+
+def test_plain_u24_zero_matches_jax_interpret_kernel(setup):
+    data, da, pages, _, args = setup
+    # per-relation counts #{k: q_k > 0}, every value 0..3
+    q = np.zeros((data.n_et, 3), np.int32)
+    for t, c in enumerate([0, 1, 2, 3, 1, 2]):
+        q[t, :c] = 7
+    dap = jnp.asarray(pad_dense_adj(da.astype(np.float32)))
+    with pltpu.force_tpu_interpret_mode():
+        jval, jgrads = jax.value_and_grad(
+            lambda a: dense_bce_nn_sum(*a, dap, jnp.asarray(q),
+                                       jax.random.key(3)))(
+            tuple(map(jnp.asarray, args)))
+    val, grads = _torch_value_and_grads(args, pages, q, seed=3,
+                                        u24=torch.zeros((), dtype=torch.int64))
+    # f32 sums over the n x R cells in another order.  With u24 = 0 every
+    # non-positive cell counts, so dh sums ~n * R terms of O(1) and cancels
+    # to small entries: atol is f32 rounding of the largest magnitude.
+    np.testing.assert_allclose(val, float(jval), rtol=1e-5)
+    for got, want in zip(grads, map(np.asarray, jgrads)):
+        np.testing.assert_allclose(got, want, rtol=2e-4,
+                                   atol=max(1e-5, 1e-6 * np.abs(want).max()))
+
+
+def _oracle(args, da, cnt):
+    """float64 value and grads of the estimator for a fixed count field."""
+    w1, w2, h1, h2 = (np.asarray(a, np.float64) for a in args)
+    L = (h2 @ w2.T).T[:, :, None] + (h1 @ w1.T).T[:, None, :]  # [R, i, j]
+    sp = np.logaddexp(0.0, -L)
+    val = (sp * da + (sp + L) * cnt).sum()
+    g = cnt - (da + cnt) / (1.0 + np.exp(L))
+    r, c = g.sum(2), g.sum(1)
+    return val, [c @ h1, r @ h2, c.T @ w1, r.T @ w2]
+
+
+@pytest.mark.parametrize("mode", ["positives_only", "saturated"])
+def test_plain_hashed_field_deterministic_modes_vs_oracle(setup, mode):
+    """q = 0 (no negatives) and q = 2^24 (count 3 on every non-positive
+    cell) make the hashed field irrelevant."""
+    data, da, pages, _, args = setup
+    q = np.full((data.n_et, 3), 0 if mode == "positives_only" else 1 << 24,
+                np.int32)
+    val, grads = _torch_value_and_grads(args, pages, q, seed=7)
+    dan = da.astype(np.float64)
+    cnt = 0.0 if mode == "positives_only" else 3.0 * (dan == 0)
+    oval, ograds = _oracle(args, dan, cnt)
+    assert abs(val - oval) / abs(oval) < 1e-5
+    for got, want in zip(grads, ograds):
+        np.testing.assert_allclose(got, want, atol=1e-4 * np.abs(want).max())
+
+
+def test_plain_hashed_field_mean_matches_expectation(setup):
+    """E[loss] over seeds equals the analytic expectation: each
+    non-positive cell of relation t draws min(X, 3), X ~ Bin(m_t,
+    1/nonpos_t), whose mean m_t / nonpos_t the truncation barely moves."""
+    data, da, pages, q, args = setup
+    w1, w2, h1, h2 = args
+    L = (h2 @ w2.T).T[:, :, None] + (h1 @ w1.T).T[:, None, :]
+    sp = np.logaddexp(0.0, -L)
+    nonpos = da == 0
+    m = np.bincount(data.dd_train.edge_type, minlength=data.n_et)
+    mu = m / nonpos.reshape(data.n_et, -1).sum(1)
+    expect = float((sp * da).sum() + sum(
+        mu[t] * ((sp[t] + L[t]) * nonpos[t]).sum() for t in range(data.n_et)))
+    ts = [torch.from_numpy(a) for a in (*args, pages, q)]
+    vals = np.array([float(port.dense_bce_nn_sum(*ts, seed=s))
+                     for s in range(48)])
+    se = vals.std(ddof=1) / np.sqrt(len(vals))
+    assert abs(vals.mean() - expect) < max(5 * se, 2e-3 * abs(expect)), (
+        vals.mean(), expect, se)
+
+
+def test_value_only_equals_fused_and_cpu_wrapper_launches_nothing(setup):
+    _, _, pages, q, args = setup
+    kernels.reset_launch_counts()
+    ts = [torch.from_numpy(a) for a in (*args, pages, q)]
+    value = port.dense_bce_nn_sum(*ts, seed=11)
+    fused = port.dense_bce_nn_plain(*ts, seed=11, grads=True)[0]
+    assert float(value) == float(fused)
+    # CPU tensors take the plain version: the kernel count stays at 0
+    assert kernels.LAUNCHES[port.KERNEL] == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        port.dense_bce_nn_cuda(*ts, seed=0)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "contiguous", "width", "shape",
+                                 "square", "q"])
+def test_cuda_argument_checks(setup, bad):
+    """The checks the CUDA wrapper runs before it hands pointers to the
+    kernel (they need no card)."""
+    _, _, pages, q, args = setup
+    kw = dict(zip(("w1", "w2", "h1", "h2"), map(torch.from_numpy, args)),
+              pages=torch.from_numpy(pages), q=torch.from_numpy(q))
+    port._check_cuda_args(**kw)  # the valid call passes
+    if bad == "dtype":  # the kernel reads uint8 pages
+        kw["pages"] = kw["pages"].float()
+    elif bad == "contiguous":
+        kw["h1"] = torch.from_numpy(np.asfortranarray(args[2]))
+    elif bad == "width":  # the kernel is built for l1 = 16
+        for k in ("w1", "w2", "h1", "h2"):
+            kw[k] = kw[k][:, :8].contiguous()
+    elif bad == "shape":
+        kw["w2"] = kw["w2"][:-1].contiguous()
+    elif bad == "square":
+        kw["pages"] = kw["pages"][:, :-1].contiguous()
+    else:
+        kw["q"] = kw["q"][:, :2].contiguous()
+    with pytest.raises(ValueError):
+        port._check_cuda_args(**kw)

@@ -91,6 +91,40 @@ def test_dense_layouts_identical(both):
            "bitmap")
 
 
+def test_poisson_neg_thresholds_identical(both):
+    _, jd, _, td = both
+    for split in ("dd_train", "dd_test"):
+        _equal(jpack.poisson_neg_thresholds(getattr(jd, split), jd.n_drug),
+               tpack.poisson_neg_thresholds(getattr(td, split), td.n_drug),
+               f"{split} q")
+    q = tpack.poisson_neg_thresholds(td.dd_train, td.n_drug)
+    assert q.shape == (td.n_et, 3) and q.dtype == np.int32
+    assert np.all(q[:, 0] >= q[:, 1]) and np.all(q[:, 1] >= q[:, 2])
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+def test_cast_dense_adj_exact_or_raises(both, dtype):
+    """The full pages hold the JAX package's counts exactly; a count past
+    the dtype's exact range raises instead of wrapping."""
+    _, jd, _, td = both
+    da = tpack.dense_relation_adj(td.dd_train, td.n_drug)
+    pages = tpack.cast_dense_adj(da, dtype)
+    assert pages.dtype == np.dtype(dtype) and pages.shape == da.shape
+    want = np.asarray(jpack.cast_dense_adj(
+        jpack.dense_relation_adj(jd.dd_train, jd.n_drug), np.float32))
+    assert np.array_equal(pages.astype(np.float32), want)
+    top = tpack.PAGE_EXACT_MAX[dtype]
+    if top < np.iinfo(da.dtype).max:
+        heavy = da.copy()
+        heavy[0, 0, 0] = top
+        tpack.cast_dense_adj(heavy, dtype)  # the largest exact count passes
+        heavy[0, 0, 0] = top + 1
+        with pytest.raises(ValueError, match="not exactly representable"):
+            tpack.cast_dense_adj(heavy, dtype)
+    with pytest.raises(ValueError, match="page dtype"):
+        tpack.cast_dense_adj(da, "int16")
+
+
 def test_graph_arrays_match_jax_layout(both):
     _, jd, _, td = both
     jg, jgs = j_graph_arrays(jd, dense_dtype="bfloat16")

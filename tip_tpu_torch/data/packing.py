@@ -372,6 +372,41 @@ def poisson_neg_thresholds_sym(edges: TypedEdges, n_nodes: int) -> np.ndarray:
     return np.concatenate([qs, qd], axis=1)
 
 
+def poisson_neg_thresholds(edges: TypedEdges, n_nodes: int) -> np.ndarray:
+    """Per-relation thresholds of the full-page fused dense BCE
+    (ops/dense_bce_nn.py): int32 [n_et, 3] = floor(P(X >= k) * 2^24) for
+    k = 1..3, X ~ Binomial(m_t, 1/nonpos_t).  A cell's count
+    sum_k 1[u24 < q_k] is exactly min(X, 3)."""
+    m, nonpos = _per_relation_counts(edges, n_nodes)
+    return _binom_tail_thresholds(m, 1.0 / nonpos, 3)
+
+
+# Largest count each full-page dtype holds exactly.
+PAGE_EXACT_MAX = {"uint8": 255, "float32": 1 << 24}
+
+
+def cast_dense_adj(da: np.ndarray, dtype: str = "uint8") -> np.ndarray:
+    """The count pages [R, n, n] (dense_relation_adj) in the page dtype,
+    unpadded; raises where a count is past the dtype's exact range rather
+    than cast lossily.
+
+    ``uint8`` holds counts up to 255 and is what the NN decoder's dense BCE
+    (kernel B3) reads; ``float32`` holds them up to 2^24, for graphs whose
+    counts pass 256 (the float32 full-page path of a later slice).  Page
+    bytes at Decagon shape (R = 1,097, n = 645): uint8 456 MB, float32
+    1.83 GB (bf16 would take 913 MB, and the JAX package's tile-padded
+    bf16 pages [1097, 656, 768] 1.105 GB)."""
+    name = np.dtype(dtype).name
+    if name not in PAGE_EXACT_MAX:
+        raise ValueError(f"page dtype {name} not in {sorted(PAGE_EXACT_MAX)}")
+    top = int(da.max()) if da.size else 0
+    if top > PAGE_EXACT_MAX[name]:
+        raise ValueError(
+            f"edge multiplicity {top} is not exactly representable in {name}; "
+            "use a wider page dtype or the chunked kernels")
+    return da.astype(name)
+
+
 def dense_pp_feasible(n_nodes: int) -> bool:
     """Whether the [n_nodes, n_nodes] dense int8 (A+I) fits ~1 GB."""
     return n_nodes * n_nodes * 1 <= 1.0e9

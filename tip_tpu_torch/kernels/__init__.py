@@ -64,6 +64,16 @@ KERNELS = {
         source="tip_tpu_torch/csrc/typed_neg_sampler.cu",
         replaces="tip_tpu/ops/pallas_sampler.py:262",
     ),
+    "dense_bce_nn": KernelSpec(
+        name="dense_bce_nn",
+        source="tip_tpu_torch/csrc/dense_bce_nn.cu",
+        replaces="tip_tpu/ops/pallas_dense_bce_nn.py:163",
+    ),
+    "nn_sddmm": KernelSpec(
+        name="nn_sddmm",
+        source="tip_tpu_torch/csrc/nn_sddmm.cu",
+        replaces="tip_tpu/ops/pallas_sddmm2.py:324",
+    ),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

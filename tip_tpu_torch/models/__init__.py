@@ -1,0 +1,20 @@
+"""The non-TIP model families of the reference (port of tip_tpu/models/):
+
+  * :mod:`tip_tpu_torch.models.dd` -- D-D-only R-GCN with the DistMult
+    (DR-DF) or NN (DR-NN) decoder;
+  * :mod:`tip_tpu_torch.models.pd` -- P-D-only hierarchy encoder + NN
+    decoder (PR-HMP-NN);
+  * :mod:`tip_tpu_torch.models.pp` -- P-P GAE, GCN encoder + inner-product
+    decoder;
+  * :mod:`tip_tpu_torch.models.runner` -- ``build_variant`` /
+    ``train_variant``, driven by ``python -m tip_tpu_torch.models``.
+
+TIP itself lives in tip_tpu_torch.train.model.
+"""
+
+from tip_tpu_torch.models.dd import DDConfig, DDModel
+from tip_tpu_torch.models.pd import PDConfig, PDModel
+from tip_tpu_torch.models.pp import PPConfig, PPModel
+
+__all__ = ["DDConfig", "DDModel", "PDConfig", "PDModel", "PPConfig",
+           "PPModel"]

@@ -1,6 +1,7 @@
-"""DistMult decoder (port of tip_tpu/nn/decoders.py:17,22,27): flat
-scoring of (src, dst, relation) triples, and the chunk-aligned variant of
-the chunked layout, kernel B8 (ops/sddmm2.py)."""
+"""Multi-relational decoders (port of tip_tpu/nn/decoders.py:17-53,
+110-171): DistMult and the per-relation two-layer NN decoder, each with a
+flat scorer of (src, dst, relation) triples and a chunk-aligned variant of
+the chunked layout, kernels B8 and B9 (ops/sddmm2.py)."""
 
 from __future__ import annotations
 
@@ -9,7 +10,10 @@ import math
 import torch
 
 from tip_tpu_torch.nn import initializers as init
-from tip_tpu_torch.ops.sddmm2 import distmult_logits_padded2
+from tip_tpu_torch.ops.sddmm2 import (
+    distmult_logits_padded2,
+    nn_logits_padded2,
+)
 from tip_tpu_torch.ops.segment import distmult_score
 
 
@@ -32,4 +36,47 @@ def distmult_apply_padded(params, z, src2d, dst2d, chunk_type,
     logits = distmult_logits_padded2(z, params["weight"], src2d, dst2d,
                                      chunk_type, z.shape[0],
                                      kernel_dtype).reshape(-1)
+    return torch.sigmoid(logits) if sigmoid else logits
+
+
+def nn_decoder_init(gen, in_dim: int, n_et: int, l1_dim: int = 16,
+                    device=None):
+    """Shared L1 per endpoint ~ N(0, 1), per-relation L2 rows
+    ~ N(0, 1/sqrt(l1_dim))."""
+    s2 = 1.0 / math.sqrt(l1_dim)
+    return {
+        "w1_l1": init.normal(gen, (in_dim, l1_dim), device=device),
+        "w2_l1": init.normal(gen, (in_dim, l1_dim), device=device),
+        "w1_l2": init.normal(gen, (n_et, l1_dim), std=s2, device=device),
+        "w2_l2": init.normal(gen, (n_et, l1_dim), std=s2, device=device),
+    }
+
+
+def nn_hiddens(params, z):
+    """The endpoint hiddens (relu(z W1), relu(z W2)), [n, l1] each."""
+    return (torch.relu(z @ params["w1_l1"]), torch.relu(z @ params["w2_l1"]))
+
+
+def nn_decoder_apply(params, z, src, dst, edge_type, sigmoid: bool = True):
+    """logit_e = h1[src] . w1_l2[et] + h2[dst] . w2_l2[et], through the
+    dense (node, relation) score tables s = h @ w_l2^T, each edge reading
+    one scalar of each."""
+    h1, h2 = nn_hiddens(params, z)
+    s1 = h1 @ params["w1_l2"].T  # [n, n_et]
+    s2 = h2 @ params["w2_l2"].T
+    et = edge_type.long()
+    logits = s1[src.long(), et] + s2[dst.long(), et]
+    return torch.sigmoid(logits) if sigmoid else logits
+
+
+def nn_decoder_apply_padded(params, z, src2d, dst2d, chunk_type,
+                            sigmoid: bool = True,
+                            kernel_dtype: str = "float32"):
+    """Chunk-aligned NN decoder returning flat scores [n_chunks * chunk]
+    (kernel B9); pad slots score their pad src, so the caller masks
+    them."""
+    h1, h2 = nn_hiddens(params, z)
+    logits = nn_logits_padded2(h1, h2, params["w1_l2"], params["w2_l2"],
+                               src2d, dst2d, chunk_type, z.shape[0],
+                               kernel_dtype).reshape(-1)
     return torch.sigmoid(logits) if sigmoid else logits

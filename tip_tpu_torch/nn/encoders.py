@@ -1,14 +1,17 @@
-"""Tri-graph encoder (port of tip_tpu/nn/encoders.py:36, 51, 60, 80 and
-100-218 without the sharded branches).
+"""Encoders (port of tip_tpu/nn/encoders.py:36-100, 100-218 without the
+sharded branches, and 226-242).
 
 P-P: two GCN layers, dense over the int8 (A+I) where the graph ships it,
 else windowed over the P-P edge buffers (kernel B5, the JAX package's
 ``backend="pallas"`` branch); P->D: the mean hierarchy conv; the drug
 embedding joined by concatenation (TIP-cat) or sum (TIP-add); D-D: both
 R-GCN layers from one M-first contraction over the symmetric strips where
-the graph ships them, else two chunked layers (kernel B4).  The COO P-P
-path of the JAX package's XLA backend has no counterpart here: the
-windowed kernel covers the same graphs.
+the graph ships them, else two chunked layers (kernel B4).  The tri-graph
+encoder takes the windowed P-P path where the JAX package's XLA backend
+takes the COO one; the COO path (:func:`pp_encoder_apply`, plain
+``index_add_``) serves PP-GAE where its dense (A+I) cannot be built.
+The P-D-only hierarchy encoder (PR-HMP-NN) embeds drugs from their
+protein targets alone.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 from tip_tpu_torch.config import ModelConfig
 from tip_tpu_torch.nn import initializers as init
 from tip_tpu_torch.nn.gcn import (
+    gcn_conv_apply,
     gcn_conv_apply_dense,
     gcn_conv_apply_windowed,
     gcn_conv_init,
@@ -37,6 +41,14 @@ def pp_encoder_init(gen, in_dim: int, hid1: int = 32, hid2: int = 16,
         "conv1": gcn_conv_init(gen, in_dim, hid1, device=device),
         "conv2": gcn_conv_init(gen, hid1, hid2, device=device),
     }
+
+
+def pp_encoder_apply(params, x_prot, norm_index, norm_weight, n_prot: int):
+    """Two GCN layers over the COO cached normalization; x_prot=None is the
+    identity-feature fast path."""
+    h = torch.relu(gcn_conv_apply(params["conv1"], x_prot, norm_index,
+                                  norm_weight, n_prot))
+    return gcn_conv_apply(params["conv2"], h, norm_index, norm_weight, n_prot)
 
 
 def pp_encoder_apply_dense(params, x_prot, a1, dinv):
@@ -99,3 +111,22 @@ def fm_encoder_apply(params, graph, cfg: ModelConfig, gs, x_drug=None,
                                      kernel_dtype=cfg.kernel_dtype))
     return rgcn_apply_padded(params["rgcn2"], x, *dd,
                              kernel_dtype=cfg.kernel_dtype)
+
+
+def hier_encoder_init(gen, source_dim: int, embed_dim: int, target_dim: int,
+                      device=None):
+    return {
+        "embed": init.normal(gen, (source_dim, embed_dim), device=device),
+        "hier": hierarchy_conv_init(gen, embed_dim, target_dim,
+                                    device=device),
+    }
+
+
+def hier_encoder_apply(params, graph, n_drug: int, x_src=None, x_norm=None):
+    """Drug embeddings [n_drug, target_dim] from the protein embedding
+    table (or ``x_src @ embed``) through the P->D mean hierarchy conv."""
+    x = params["embed"] if x_src is None else x_src @ params["embed"]
+    if x_norm is not None:
+        x = x / x_norm[:, None]
+    return hierarchy_conv_apply(params["hier"], x, graph["dp_src"],
+                                graph["dp_dst"], graph["dp_deg"], n_drug)

@@ -1,7 +1,9 @@
-"""GCN convolution over the protein graph, dense or windowed.
+"""GCN convolution over the protein graph: COO, dense or windowed.
 
-Port of tip_tpu/nn/gcn.py's ``gcn_conv_apply_dense`` and
-``gcn_conv_apply_windowed``.  Dense: out = dinv * ((A+I) @ (dinv * (x W)))
+Port of tip_tpu/nn/gcn.py's ``gcn_conv_apply``, ``gcn_conv_apply_dense``
+and ``gcn_conv_apply_windowed``.  COO: out = A_hat @ (x W) + b as a
+segment sum over the cached normalized edge list (``index_add_``; the JAX
+package runs it in XLA).  Dense: out = dinv * ((A+I) @ (dinv * (x W)))
 + b, the cached D^-1/2 (A+I) D^-1/2 normalization with the
 non-representable edge weights factored out of the streamed operand
 (data/packing.py:dense_pp_parts); the product takes bf16-rounded operands
@@ -18,6 +20,7 @@ import torch
 
 from tip_tpu_torch.nn import initializers as init
 from tip_tpu_torch.ops.matmul import bf16_round
+from tip_tpu_torch.ops.segment import weighted_gather_sum
 from tip_tpu_torch.ops.typed_segment import gcn_spmm_padded
 
 
@@ -28,6 +31,17 @@ def gcn_conv_init(gen, in_dim: int, out_dim: int, bias: bool = True,
         params["bias"] = torch.zeros((out_dim,), dtype=torch.float32,
                                      device=device)
     return params
+
+
+def gcn_conv_apply(params, x, norm_index, norm_weight, n_nodes: int):
+    """x [N, in] or None; norm_index [2, E] (src, dst) and norm_weight [E]
+    from data/packing.py:gcn_normalize."""
+    h = params["weight"] if x is None else x @ params["weight"]
+    out = weighted_gather_sum(h, norm_index[0], norm_index[1], norm_weight,
+                              n_nodes)
+    if "bias" in params:
+        out = out + params["bias"]
+    return out
 
 
 def gcn_conv_apply_dense(params, x, a1, dinv):

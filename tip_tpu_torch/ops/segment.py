@@ -1,9 +1,10 @@
 """Segment reductions and edge scoring on tensors.
 
-Port of tip_tpu/ops/segment.py:24,55,67: ``segment_sum_sorted`` is an
+Port of tip_tpu/ops/segment.py:24,31,55,67: ``segment_sum_sorted`` is an
 ``index_add_`` (the ids need not be sorted here; the name keeps the
-counterpart's), ``mean_from_sum`` divides by in-degree with empty means at
-zero (torch-scatter's scatter_mean convention), ``distmult_score`` is the
+counterpart's), ``weighted_gather_sum`` the COO SpMM over it,
+``mean_from_sum`` divides by in-degree with empty means at zero
+(torch-scatter's scatter_mean convention), ``distmult_score`` is the
 DistMult gather-multiply-reduce.
 """
 
@@ -18,6 +19,12 @@ def segment_sum_sorted(data: torch.Tensor, segment_ids: torch.Tensor,
     out = torch.zeros((num_segments,) + tuple(data.shape[1:]),
                       dtype=data.dtype, device=data.device)
     return out.index_add(0, segment_ids.long(), data)
+
+
+def weighted_gather_sum(x, src, dst, weight, n_nodes: int) -> torch.Tensor:
+    """out[d] = sum over edges e with dst_e = d of weight_e * x[src_e]; with
+    the cached GCN normalization this is A_hat @ x."""
+    return segment_sum_sorted(x[src.long()] * weight[:, None], dst, n_nodes)
 
 
 def mean_from_sum(summed: torch.Tensor, degree: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,15 @@
 """Typed negative sampling against a relation-strided membership bitmap
 (port of tip_tpu/sampling/negative.py:43-157).
 
-:func:`typed_negative_sampling` (the test negatives): one uniform pair per
-positive edge over [0, n)^2 for the edge's relation, tested against that
-relation's positives by one bitmap word lookup; a fixed number of masked
-resampling rounds, leftovers accepted after the last.  Draws come from a
-``torch.Generator`` (CPU draws moved to the device, so a seed gives the
-same pairs on either device).
+:func:`typed_negative_sampling` (the test negatives, and the flat training
+negatives of PR-HMP-NN and PP-GAE): one uniform pair per positive edge over
+[0, n)^2 for the edge's relation, tested against that relation's positives
+by one bitmap word lookup; a fixed number of masked resampling rounds,
+leftovers accepted after the last.  Draws come from a ``torch.Generator``
+on the generator's device: a CPU generator draws on the host and the pairs
+are moved to the device (a seed gives the same pairs on either device, as
+the test negatives want), a CUDA generator draws on the card (no host
+draws or copies in a training step).
 
 :func:`typed_negative_sampling_chunked` (the training negatives of the
 chunked layout): one draw per slot of the chunk-aligned buffer, kernel B10
@@ -38,13 +41,15 @@ def typed_negative_sampling(gen: torch.Generator, edge_type, bitmap,
                             n_nodes: int, rounds: int = 4):
     """One negative (src, dst) per positive edge, per relation.
 
-    edge_type [E] relation ids; bitmap: int32 words (:func:`bitmap_tensor`).
-    Returns (src, dst) int64 tensors [E]."""
+    edge_type [E] relation ids; bitmap: int32 words (:func:`bitmap_tensor`)
+    on edge_type's device; ``gen`` draws on its own device (the CPU, or
+    edge_type's).  Returns (src, dst) int64 tensors [E]."""
     e = edge_type.shape[0]
 
     def draw():
         pair = torch.randint(0, n_nodes * n_nodes, (e,), generator=gen,
-                             dtype=torch.int64).to(edge_type.device)
+                             dtype=torch.int64, device=gen.device
+                             ).to(edge_type.device)
         return pair, collides(pair, edge_type, bitmap, n_nodes)
 
     pair, hit = draw()

@@ -89,8 +89,13 @@ class GraphStatic:
     dd_n_chunks: int = 0
     pp_window: int = 1024
     pp_n_windows: int = 0
-    dd_layout: str = "strips"  # 'strips' (kernel B1) | 'chunked' (B4, B8, B10)
-    pp_layout: str = "dense"  # 'dense' (pp_a1, pp_dinv) | 'windowed' (ppw_*, B5)
+    # 'strips' (kernel B1) | 'chunked' (B4, B8 or B9, B10) | 'strips_pages'
+    # (strips for the encoder, full pages for the NN decoder's loss, B3;
+    # models/dd.py only)
+    dd_layout: str = "strips"
+    # 'dense' (pp_a1, pp_dinv) | 'windowed' (ppw_*, B5) | 'none' (no P-P
+    # side: models/dd.py)
+    pp_layout: str = "dense"
 
 
 def dense_rgcn_feasible(n_drug: int, n_et: int, itemsize: int = 2) -> bool:
