@@ -7,22 +7,28 @@ Phases, each fatal on failure:
   1. print the card (nvidia-smi name and power limit) and torch/CUDA versions;
   2. build every CUDA kernel from tip_tpu_torch/csrc with nvcc, in parallel;
   3. hold the whole training loss and its gradients on the GPU against the
-     same slice on the CPU, on a small graph, for both D-D layouts, for
-     TIP-cat and for DR-NN;
+     same slice on the CPU, on a small graph: TIP-cat and DR-NN on the
+     strips and the chunked layout, TIP-cat and DR-DF on the float32 full
+     pages, TIP-cat with sampled negatives on the strips;
   4. build a Decagon-shaped synthetic tri-graph (645 drugs, 19,081
      proteins, 1,097 relations), pack it in both layouts, and hold each
      kernel against its plain PyTorch version (KERNEL_CHECKS: B1 on the
-     dense strips and B3 on DR-NN's full pages, the dense paths' shapes;
-     B4, B5, B8, B9, B10 on the chunked buffers);
-  5. the dense TIP path: train TIP-cat at full width for a few Adam steps
+     dense strips, B2 on the full float32 and bf16 pages and B3 on DR-NN's
+     uint8 pages, the dense paths' shapes; B4, B5, B8, B9, B10 on the
+     chunked buffers);
+  5. the dense TIP paths: train TIP-cat at full width for a few Adam steps
      on the Decagon-shaped graph through tip_tpu_torch.train.loop.train,
      then the final eval, with every kernel launch counter set to 0 just
      before and read just after; then profile a few more steps (device
-     time by kernel, idle share);
+     time by kernel, idle share).  "tip dense" on the strips (B1), "tip
+     pages" with float32 matmuls pinned (train(..., matmul_precision=
+     "highest")), which takes the float32 full pages (B2), and "tip strips
+     sampled" with sampled negatives on the strips (B10, B8; unprofiled);
   6. the model variants through the models runner (build_variant,
      train_variant) on the same graph, each at the default widths, counters
      as in 5: DR-NN on the strips and pages (B3; profiled), then DR-DF
-     (B1), PR-HMP-NN and PP-GAE (no kernel);
+     (B1), PR-HMP-NN and PP-GAE (no kernel), and DR-DF with float32
+     matmuls pinned ("dr-df pages", B2);
   7. hold B4, B5, B8, B9 and B10 against their plain versions again on the
      graph beyond the dense budget (BEYOND_DENSE: the chunked paths' own
      shapes, timed) and on a graph too wide for any shared-memory table
@@ -116,18 +122,14 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def dense_bce_sym_oracle(w, z, da, mode: str, chunk: int = 64):
-    """float64 full-matrix oracle of the symmetric estimator in its two
-    deterministic threshold modes (tests/test_tpu_kernels.py): q = 0 (no
-    negatives) and q = 2^24 (count 4 on every valid non-positive stored
-    cell, i.e. 4 inside diagonal 128-blocks and 2 per mirrored cell
-    elsewhere).  da: uint16 numpy [R, n, n]."""
+def distmult_bce_oracle(w, z, da, count, chunk: int = 64):
+    """float64 value and gradients (dw, dz) of the DistMult estimator
+    (B1, B2) for a fixed count field: ``count(dac)`` gives the counts of a
+    chunk of pages ``dac`` (float64 [chunk, n, n]).  da: numpy counts
+    [R, n, n]."""
     import torch
 
     wn, zn = w.double(), z.double()
-    n = zn.shape[0]
-    ii = torch.arange(n, device=z.device)
-    same_block = (ii[:, None] // 128) == (ii[None, :] // 128)
     val = torch.zeros((), dtype=torch.float64, device=z.device)
     dw = torch.zeros_like(wn)
     dz = torch.zeros_like(zn)
@@ -137,16 +139,40 @@ def dense_bce_sym_oracle(w, z, da, mode: str, chunk: int = 64):
         wc = wn[c0:c0 + chunk]
         L = torch.einsum("nf,tf,mf->tnm", zn, wc, zn)
         sp = torch.nn.functional.softplus(-L, threshold=1e9)
-        if mode == "positives_only":
-            cnt = torch.zeros_like(L)
-        else:
-            cnt = torch.where(same_block, 4.0, 2.0) * (dac == 0)
+        cnt = count(dac)
         val += (sp * dac + (sp + L) * cnt).sum()
         g = cnt - (dac + cnt) * torch.sigmoid(-L)
         dw[c0:c0 + chunk] = torch.einsum("tnm,nf,mf->tf", g, zn, zn)
         dz += (torch.einsum("tf,tnm,mf->nf", wc, g, zn)
                + torch.einsum("tf,tnm,nf->mf", wc, g, zn))
     return val, dw, dz
+
+
+def dense_bce_sym_oracle(w, z, da, mode: str):
+    """float64 full-matrix oracle of the symmetric estimator in its two
+    deterministic threshold modes (tests/test_tpu_kernels.py): q = 0 (no
+    negatives) and q = 2^24 (count 4 on every valid non-positive stored
+    cell, i.e. 4 inside diagonal 128-blocks and 2 per mirrored cell
+    elsewhere).  da: uint16 numpy [R, n, n]."""
+    import torch
+
+    ii = torch.arange(z.shape[0], device=z.device)
+    same_block = (ii[:, None] // 128) == (ii[None, :] // 128)
+    if mode == "positives_only":
+        return distmult_bce_oracle(w, z, da, torch.zeros_like)
+    return distmult_bce_oracle(
+        w, z, da, lambda dac: torch.where(same_block, 4.0, 2.0) * (dac == 0))
+
+
+def dense_bce_oracle(w, z, da, mode: str):
+    """float64 oracle of B2's estimator over the full pages in its two
+    deterministic threshold modes: q = 0 (no negatives) and q = 2^24 (count
+    3 on every non-positive cell, self-pairs included)."""
+    import torch
+
+    if mode == "positives_only":
+        return distmult_bce_oracle(w, z, da, torch.zeros_like)
+    return distmult_bce_oracle(w, z, da, lambda dac: 3.0 * (dac == 0))
 
 
 def check_dense_bce_sym_widths(dev) -> list:
@@ -267,6 +293,129 @@ def check_dense_bce_sym(graph, gs, data, dev, timed: bool = True) -> dict:
     rep.update(bound_ms=1e3 * max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                cells=cells, bytes=nbytes, flops=flops, library_ms=None)
+    return rep
+
+
+def check_dense_bce_shapes(dev) -> list:
+    """B2 against its plain version on small random pages in both page
+    dtypes, at its other feature widths and with ragged tiles (n = 100: one
+    partial tile; n = 1,000: eight tiles a side, the last partial), with
+    the main check's tolerances."""
+    import numpy as np
+    import torch
+
+    from tip_tpu_torch.ops import dense_bce as bce
+    from tip_tpu_torch.train.model import pages_tensor
+
+    rng = np.random.default_rng(13)
+    out = []
+    for d, n, r in ((8, 100, 5), (16, 1000, 3), (32, 300, 3)):
+        da = rng.poisson(0.05, (r, n, n)).astype(np.uint16)
+        q = torch.from_numpy(
+            rng.integers(0, 1 << 22, (r, 3)).astype(np.int32)).to(dev)
+        w = torch.from_numpy(0.3 * rng.standard_normal((r, d))).float().to(dev)
+        z = torch.from_numpy(0.5 * rng.standard_normal((n, d))).float().to(dev)
+        for dtype in ("float32", "bfloat16"):
+            pages = pages_tensor(da, dtype, dev)
+            lk, dwk, dzk = bce.dense_bce_cuda(w, z, pages, q, 5, True)
+            lp, dwp, dzp = bce.dense_bce_plain(w, z, pages, q, 5, True)
+            vk = bce.dense_bce_cuda(w, z, pages, q, 5, False)
+            rel = abs(float(lk) - float(lp)) / abs(float(lp))
+            errs = _frac_errs((dwk, dzk), (dwp, dzp))
+            shape = f"d={d} n={n} R={r} {dtype}"
+            check(rel < 1e-5, f"B2 {shape} loss rel err {rel}")
+            check(max(errs) <= 1e-3, f"B2 {shape} grads {errs}")
+            check(float(vk) == float(lk), f"B2 {shape} value-only != fused")
+            out.append({"shape": shape, "loss_rel_err": rel,
+                        "grad_err_frac": errs})
+    return out
+
+
+def check_dense_bce(graph, gs, data, dev, timed: bool = True) -> dict:
+    """Kernel B2 against its plain version and the float64 oracle on the
+    full count pages of the Decagon-shaped graph (R = 1097, n = 645,
+    d = 16), in both page dtypes: the float32 pages the "tip pages" path
+    trains on, then the bf16 pages a graph whose strips cannot be built
+    falls back to.  Per-block partial sums vs torch reductions: f32 order
+    only (loss rel. err 1e-5, grads 1e-3 of their max)."""
+    import torch
+
+    from tip_tpu_torch.data.packing import (
+        dense_relation_adj, poisson_neg_thresholds,
+    )
+    from tip_tpu_torch.ops import dense_bce as bce
+    from tip_tpu_torch.train.model import pages_tensor
+
+    n = data.n_drug
+    da = dense_relation_adj(data.dd_train, n)
+    q = torch.from_numpy(poisson_neg_thresholds(data.dd_train, n)).to(dev)
+    n_et, d = data.n_et, 16
+    gen = torch.Generator().manual_seed(9)
+    w = (0.3 * torch.randn(n_et, d, generator=gen)).to(dev)
+    z = (0.5 * torch.randn(n, d, generator=gen)).to(dev)
+    seed = 12345
+    rep = {}
+    worst = 0.0
+    for dtype in ("float32", "bfloat16"):
+        pages = pages_tensor(da, dtype, dev)
+        r = {}
+        loss_k, dw_k, dz_k = bce.dense_bce_cuda(w, z, pages, q, seed, True)
+        loss_p, dw_p, dz_p = bce.dense_bce_plain(w, z, pages, q, seed, True)
+        rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+        errs = _frac_errs((dw_k, dz_k), (dw_p, dz_p))
+        check(rel < 1e-5, f"B2 {dtype} loss vs plain: rel err {rel}")
+        check(max(errs) <= 1e-3, f"B2 {dtype} grads vs plain (dw, dz): {errs}")
+        worst = max(worst, max_err(dw_k, dw_p)[0], max_err(dz_k, dz_p)[0])
+        r.update(loss=float(loss_k), loss_rel_err=rel, grad_err_frac=errs)
+        # value-only equals fused bit for bit; launches are deterministic
+        val_only = bce.dense_bce_cuda(w, z, pages, q, seed, False)
+        check(float(val_only) == float(loss_k),
+              f"B2 {dtype} value-only {float(val_only)!r} != fused "
+              f"{float(loss_k)!r}")
+        again = bce.dense_bce_cuda(w, z, pages, q, seed, True)
+        check(all(torch.equal(a, b) for a, b in zip(again, (loss_k, dw_k, dz_k))),
+              f"B2 {dtype} is not deterministic")
+        # deterministic modes against the float64 oracle
+        for mode, qv in (("positives_only", 0), ("saturated", 1 << 24)):
+            lk, dwk, dzk = bce.dense_bce_cuda(w, z, pages, torch.full_like(q, qv),
+                                              seed, True)
+            ov, odw, odz = dense_bce_oracle(w, z, da, mode)
+            vrel = abs(float(lk) - float(ov)) / abs(float(ov))
+            e = _frac_errs((dwk, dzk), (odw, odz))
+            check(vrel < 1e-4, f"B2 {dtype} {mode} value rel err {vrel}")
+            check(max(e) < 1e-3, f"B2 {dtype} {mode} grads {e}")
+            r[mode] = {"value_rel_err": vrel, "grad_err_frac": e}
+        # first-order descent: the fused gradients predict the value-only drop
+        g2 = float((dw_k.double() ** 2).sum() + (dz_k.double() ** 2).sum())
+        lr = 1e-4 * abs(float(loss_k)) / g2  # a predicted drop of 1e-4 of the loss
+        after = bce.dense_bce_cuda(w - lr * dw_k, z - lr * dz_k, pages, q,
+                                   seed, False)
+        drop = float(loss_k) - float(after)
+        check(abs(drop - lr * g2) < 0.2 * lr * g2,
+              f"B2 {dtype} descent {drop} vs {lr * g2}")
+        r["descent"] = {"drop": drop, "predicted": lr * g2}
+        if timed:
+            r["ms"] = cuda_ms(lambda: bce.dense_bce_cuda(
+                w, z, pages, q, seed, True), reps=20, primed=True)
+            r["value_only_ms"] = cuda_ms(lambda: bce.dense_bce_cuda(
+                w, z, pages, q, seed, False), reps=20, primed=True)
+            r["plain_ms"] = cuda_ms(lambda: bce.dense_bce_plain(
+                w, z, pages, q, seed, True), reps=3, warmup=1)
+            # bound: each input read once, each output written once; three
+            # d-long dots and ~20 elementwise float operations a cell
+            cells = n_et * n * n
+            r.update(bound(nbytes(pages, w, z, q) + 4 * (1 + w.numel() + z.numel()),
+                           cells * (6 * d + 20)))
+            r["cells"] = cells
+        rep[dtype] = r
+        del pages
+        torch.cuda.empty_cache()
+    rep["other_shapes"] = check_dense_bce_shapes(dev)
+    rep["max_abs_err"] = worst
+    if timed:  # the kernels line reports the float32 pages of "tip pages"
+        main = rep["float32"]
+        rep.update({k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+        rep["library_ms"] = None  # no single PyTorch call computes it
     return rep
 
 
@@ -786,6 +935,7 @@ def check_nn_sddmm(graph, gs, data, dev, timed: bool = True) -> dict:
 # name -> (the layout whose kernel checks run it, its check)
 KERNEL_CHECKS = {
     "dense_bce_sym": ("dense", check_dense_bce_sym),
+    "dense_bce": ("dense", check_dense_bce),
     "typed_neighbor_sum": ("chunked", check_typed_neighbor_sum),
     "gcn_spmm": ("chunked", check_gcn_spmm),
     "distmult_sddmm": ("chunked", check_distmult_sddmm),
@@ -807,16 +957,23 @@ def run_checks(layout: str, tag: str, graph, gs, data, dev, timed: bool = True
     return out
 
 
-def check_small_slice_cpu_vs_gpu(dev, dense_dtype, model_kind: str = "tip"
-                                 ) -> dict:
+def check_small_slice_cpu_vs_gpu(dev, dense_dtype, model_kind: str = "tip",
+                                 negatives: str = "auto",
+                                 pp_dense=None) -> dict:
     """The training loss and its gradients on a small graph, on the GPU
     (kernels) and on the CPU (plain versions) with the same parameters and
-    seed: TIP-cat (``model_kind="tip"``) or DR-NN (``"dr-nn"``).  The
-    hashed fields (B1's and B3's cells, B10's draws) are the same on both,
-    so only f32 order and, on the strips, bf16 re-rounding of activations
-    differ: loss rtol 1e-3 and grads 2e-2 of their max on the strips, loss
-    rtol 1e-5 and grads 1e-4 of their max on the chunked layout (f32
-    throughout)."""
+    seed: TIP-cat (``model_kind="tip"``), DR-NN (``"dr-nn"``) or DR-DF
+    (``"dr-df"``), with ``negatives``.  The hashed fields (B1's, B2's and
+    B3's cells, B10's draws) are the same on both, so only f32 order and,
+    on the strips, bf16 re-rounding of activations differ: loss rtol 1e-3
+    and grads 2e-2 of their max on the strips, loss rtol 1e-5 and grads
+    1e-4 of their max on the float32 pages and the chunked layout (f32
+    throughout).  TIP's dense P-P GCN rounds its operands to bf16 on any
+    D-D layout, as the JAX package's does, so TIP on the float32 pages is
+    f32 throughout only with the windowed P-P side (``pp_dense=False``,
+    kernel B5); ``pp_dense`` goes to make_graph_arrays."""
+    import dataclasses
+
     import torch
 
     from tip_tpu_torch import convert
@@ -827,17 +984,22 @@ def check_small_slice_cpu_vs_gpu(dev, dense_dtype, model_kind: str = "tip"
 
     data = build_trigraph(synthetic_trigraph(
         n_drug=200, n_prot=300, n_et=7, pairs_per_et=200, seed=5), 0.9, 5)
+    sampled = negatives == "sampled"
     out = {}
     params_np = None
     for name in ("cpu", "cuda"):
         if model_kind == "tip":
             graph, gs = make_graph_arrays(data, device=name,
-                                          dense_dtype=dense_dtype)
-            model = TIP.for_data(ModelConfig.tip_cat(), data, gs, device=name)
+                                          dense_dtype=dense_dtype,
+                                          sampled=sampled, pp_dense=pp_dense)
+            cfg = dataclasses.replace(ModelConfig.tip_cat(), negatives=negatives)
+            model = TIP.for_data(cfg, data, gs, device=name)
         else:
+            decoder = "nn" if model_kind == "dr-nn" else "distmult"
             graph, gs = make_dd_graph_arrays(data, name, dense_dtype=dense_dtype,
-                                             decoder="nn")
-            model = DDModel.for_data(DDConfig(decoder="nn"), gs, name)
+                                             decoder=decoder, sampled=sampled)
+            model = DDModel.for_data(DDConfig(decoder=decoder,
+                                              negatives=negatives), gs, name)
         if params_np is None:
             params_np = convert.params_to_numpy(
                 model.init(torch.Generator().manual_seed(3)))
@@ -848,16 +1010,18 @@ def check_small_slice_cpu_vs_gpu(dev, dense_dtype, model_kind: str = "tip"
         grads = [p.grad.cpu() for p in convert.leaves(params)]
         out[name] = (loss.item(), grads)
     (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
-    loss_tol, grad_tol = (1e-5, 1e-4) if gs.dd_layout == "chunked" else (1e-3, 2e-2)
-    check(abs(lg - lc) <= loss_tol * abs(lc),
-          f"{model_kind} slice loss gpu {lg} cpu {lc}")
+    f32 = gs.dd_layout == "chunked" or dense_dtype == "float32"
+    loss_tol, grad_tol = (1e-5, 1e-4) if f32 else (1e-3, 2e-2)
+    what = f"{model_kind} {gs.dd_layout} {negatives}"
+    check(abs(lg - lc) <= loss_tol * abs(lc), f"{what} slice loss gpu {lg} cpu {lc}")
     worst = 0.0
     for a, b in zip(gg, gc):
         frac = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
         worst = max(worst, frac)
-    check(worst < grad_tol, f"{model_kind} slice grads gpu vs cpu: {worst} of max")
-    return {"model": model_kind, "layout": gs.dd_layout, "loss_gpu": lg,
-            "loss_cpu": lc, "grad_err_frac": worst}
+    check(worst < grad_tol, f"{what} slice grads gpu vs cpu: {worst} of max")
+    return {"model": model_kind, "layout": gs.dd_layout, "negatives": negatives,
+            "pp_layout": gs.pp_layout, "loss_gpu": lg, "loss_cpu": lc,
+            "grad_err_frac": worst}
 
 
 def profile_steps(model, graph, steps: int = 3, warmup: int = 2) -> dict:
@@ -925,15 +1089,21 @@ def graph_summary(data, build_sec: float) -> dict:
 
 def expected_launches(path: str, steps: int) -> dict:
     """Launches of each kernel in ``steps`` training steps plus the final
-    eval, per path.  TIP dense: B1 once a step.  TIP chunked: B10 once, B8
-    twice forward (positives, negatives) and twice backward, B4 and B5 once
-    forward and once backward in each of two layers; the eval's encode adds
-    a forward of each layer of B4 and B5.  DR-NN dense: B3 once a step
-    (its fused pass).  DR-NN chunked: as TIP chunked with B9 for B8 and no
-    P-P side (no B5).  DR-DF dense: B1 once a step.  PR-HMP-NN and PP-GAE
-    run no kernel."""
+    eval, per path.  TIP dense: B1 once a step.  TIP pages: B2 once a step.
+    TIP strips sampled: B10 once and B8 twice (the negatives' forward and
+    backward; the positives are scored over the full pages in PyTorch).
+    TIP chunked: B10 once, B8 twice forward (positives, negatives) and
+    twice backward, B4 and B5 once forward and once backward in each of two
+    layers; the eval's encode adds a forward of each layer of B4 and B5.
+    DR-NN dense: B3 once a step (its fused pass).  DR-NN chunked: as TIP
+    chunked with B9 for B8 and no P-P side (no B5).  DR-DF dense: B1 once a
+    step; DR-DF pages: B2 once a step.  PR-HMP-NN and PP-GAE run no
+    kernel."""
     return {
         "tip dense": {"dense_bce_sym": steps},
+        "tip pages": {"dense_bce": steps},
+        "tip strips sampled": {"typed_neg_sampler": steps,
+                               "distmult_sddmm": 2 * steps},
         "tip chunked": {"typed_neg_sampler": steps, "distmult_sddmm": 4 * steps,
                         "typed_neighbor_sum": 4 * steps + 2,
                         "gcn_spmm": 4 * steps + 2},
@@ -941,6 +1111,7 @@ def expected_launches(path: str, steps: int) -> dict:
         "dr-nn chunked": {"typed_neg_sampler": steps, "nn_sddmm": 4 * steps,
                           "typed_neighbor_sum": 4 * steps + 2},
         "dr-df dense": {"dense_bce_sym": steps},
+        "dr-df pages": {"dense_bce": steps},
         "pr-hmp-nn flat": {},
         "pp-gae dense": {},
     }[path]
@@ -980,11 +1151,20 @@ def train_line(fields: dict, result, launches, peak: int) -> str:
     })
 
 
-def run_path(layout: str, data, dev, steps: int) -> dict:
-    """Train TIP-cat through train() (which picks the layout for the
-    graph), with every launch counter at 0 just before and read just after;
-    check losses, metrics and launches; print the train and profile lines.
-    Returns the launch counts."""
+DD_DENSE_KEYS = ("dd_adj_sym", "dd_adj_t", "dd_adj_u8")
+
+
+def run_path(path: str, data, dev, steps: int, dense_dtype,
+             negatives: str = "auto", matmul_precision: str = "default",
+             profiled: bool = True) -> dict:
+    """Train TIP-cat through train(), which picks the D-D layout for the
+    graph and ``matmul_precision`` (``dense_dtype`` is the pick expected),
+    with every launch counter at 0 just before and read just after; check
+    losses, metrics and launches; print the train line (with the bytes of
+    the graph's dense D-D tensors) and, with ``profiled``, the profile
+    line.  Returns the launch counts."""
+    import dataclasses
+
     import torch
 
     from tip_tpu_torch import kernels
@@ -994,35 +1174,43 @@ def run_path(layout: str, data, dev, steps: int) -> dict:
         TIP, make_graph_arrays, preferred_dense_dtype,
     )
 
-    check((preferred_dense_dtype(data) is None) == (layout == "chunked"),
-          f"train() would not pick the {layout} layout for this graph")
+    cfg = dataclasses.replace(ModelConfig.tip_cat(), negatives=negatives)
+    check(preferred_dense_dtype(data, cfg.kernel_dtype, matmul_precision)
+          == dense_dtype, f"train() would not pick {dense_dtype} for {path}")
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    _, result = train(ModelConfig.tip_cat(), TrainConfig(epochs=steps),
-                      data, log=print, device=dev)
+    _, result = train(cfg, TrainConfig(epochs=steps), data, log=print,
+                      device=dev, matmul_precision=matmul_precision)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    path = f"tip {layout}"
+    peak = torch.cuda.max_memory_allocated()
     check_result(path, steps, data.n_et, result, launches)
-    print(train_line({"variant": "tip-cat", "path": layout}, result, launches,
-                     torch.cuda.max_memory_allocated()))
-    graph, gs = make_graph_arrays(data, dev,
-                                  dense_dtype=preferred_dense_dtype(data))
-    model = TIP.for_data(ModelConfig.tip_cat(), data, gs, dev)
-    print("profile:", json.dumps({"variant": "tip-cat", "path": layout,
-                                  **profile_steps(model, graph)}))
+    graph, gs = make_graph_arrays(data, dev, dense_dtype=dense_dtype,
+                                  sampled=negatives == "sampled")
+    fields = {"variant": "tip-cat", "path": path.split(" ", 1)[1],
+              "dd_layout": gs.dd_layout,
+              "dd_dense_bytes": nbytes(*(graph[k] for k in DD_DENSE_KEYS
+                                         if k in graph))}
+    print(train_line(fields, result, launches, peak))
+    if profiled:
+        model = TIP.for_data(cfg, data, gs, dev)
+        print("profile:", json.dumps({"variant": "tip-cat",
+                                      "path": fields["path"],
+                                      **profile_steps(model, graph)}))
     del graph
     torch.cuda.empty_cache()
     return launches
 
 
 def run_variant(variant: str, data, dev, steps: int,
-                profiled: bool = False) -> dict:
+                profiled: bool = False,
+                matmul_precision: str = "default") -> dict:
     """Train one model variant at full width (the default configs) through
-    the models runner (build_variant, train_variant) on ``dev``, with every
-    launch counter at 0 just before train_variant and read just after;
-    check losses, metrics and launches; print the train line and, with
-    ``profiled``, a profile line.  Returns the launch counts."""
+    the models runner (build_variant, train_variant, with
+    ``matmul_precision``) on ``dev``, with every launch counter at 0 just
+    before train_variant and read just after; check losses, metrics and
+    launches; print the train line and, with ``profiled``, a profile line.
+    Returns the launch counts."""
     import torch
 
     from tip_tpu_torch import kernels
@@ -1030,12 +1218,16 @@ def run_variant(variant: str, data, dev, steps: int,
     from tip_tpu_torch.train.model import preferred_dense_dtype
 
     t0 = time.time()
-    model, graph, test = build_variant(variant, data, dev)
+    model, graph, test = build_variant(variant, data, dev,
+                                       matmul_precision=matmul_precision)
     build_sec = time.time() - t0
     if variant.startswith("dr-"):
-        layout = "chunked" if model.gs.dd_layout == "chunked" else "dense"
-        check((preferred_dense_dtype(data) is None) == (layout == "chunked"),
+        want = {None: "chunked", "bfloat16": "strips", "float32": "pages"}[
+            preferred_dense_dtype(data, "float32", matmul_precision)]
+        # DR-NN's strips layout is 'strips_pages'
+        check(model.gs.dd_layout.startswith(want),
               f"{variant}: the runner did not pick the preferred layout")
+        layout = "dense" if want == "strips" else want
         n_rel = data.n_et
     else:
         layout = "flat" if variant == "pr-hmp-nn" else model.layout
@@ -1063,6 +1255,7 @@ def run_variant(variant: str, data, dev, steps: int,
 # the path whose launches the kernels line reports for each kernel
 KERNEL_PATH = {
     "dense_bce_sym": "tip dense",
+    "dense_bce": "tip pages",
     "typed_neighbor_sum": "tip chunked",
     "gcn_spmm": "tip chunked",
     "distmult_sddmm": "tip chunked",
@@ -1100,10 +1293,13 @@ def main() -> int:
                 print(f"[ptxas {name}] {line.strip()}")
     print(f"built {sorted(logs)} in {time.time() - t0:.1f} s")
 
-    for kind in ("tip", "dr-nn"):
-        for dense_dtype in ("bfloat16", None):
-            print("small slice gpu vs cpu:", json.dumps(
-                check_small_slice_cpu_vs_gpu(dev, dense_dtype, kind)))
+    for kind, dense_dtype, negatives, pp_dense in (
+            ("tip", "bfloat16", "auto", None), ("tip", None, "auto", None),
+            ("dr-nn", "bfloat16", "auto", None), ("dr-nn", None, "auto", None),
+            ("tip", "float32", "auto", False), ("dr-df", "float32", "auto", None),
+            ("tip", "bfloat16", "sampled", None)):
+        print("small slice gpu vs cpu:", json.dumps(check_small_slice_cpu_vs_gpu(
+            dev, dense_dtype, kind, negatives, pp_dense)))
 
     t0 = time.time()
     data = build_trigraph(synthetic_trigraph(**DECAGON_SHAPE), 0.9, 1111)
@@ -1117,11 +1313,19 @@ def main() -> int:
         del graph
         torch.cuda.empty_cache()
 
-    launches = {"tip dense": run_path("dense", data, dev, TRAIN_STEPS)}
+    launches = {"tip dense": run_path("tip dense", data, dev, TRAIN_STEPS,
+                                      "bfloat16")}
+    # float32 matmuls pinned: train() and the runner take the float32 pages
+    launches["tip pages"] = run_path("tip pages", data, dev, TRAIN_STEPS,
+                                     "float32", matmul_precision="highest")
+    launches["tip strips sampled"] = run_path(
+        "tip strips sampled", data, dev, OTHER_STEPS, "bfloat16",
+        negatives="sampled", profiled=False)
     launches["dr-nn dense"] = run_variant("dr-nn", data, dev, VARIANT_STEPS,
                                           profiled=True)
     for variant in ("dr-df", "pr-hmp-nn", "pp-gae"):
         run_variant(variant, data, dev, OTHER_STEPS)
+    run_variant("dr-df", data, dev, OTHER_STEPS, matmul_precision="highest")
     del data
     # the chunked kernels at the shapes of the chunked path (main) and, on
     # a graph too wide for any shared-memory table, through their
@@ -1138,7 +1342,8 @@ def main() -> int:
         del graph
         torch.cuda.empty_cache()
     del wide
-    launches["tip chunked"] = run_path("chunked", big, dev, TRAIN_STEPS)
+    launches["tip chunked"] = run_path("tip chunked", big, dev, TRAIN_STEPS,
+                                       None)
     launches["dr-nn chunked"] = run_variant("dr-nn", big, dev, VARIANT_STEPS,
                                             profiled=True)
 

@@ -148,7 +148,8 @@ def test_train_routes_a_graph_beyond_the_dense_budget_to_chunked(
 
 def test_float32_page_graph_raises_naming_b2(setup):
     """Counts beyond bf16's exact range (> 256 copies of one edge) send the
-    JAX package to the float32 full pages: the port refuses such a graph."""
+    JAX package to the float32 full pages, and train() takes them too: the
+    fused dense BCE over the pages, kernel B2."""
     jdata, tdata, *_ = setup
     tr = tdata.dd_train
     s, d = tr.edge_index[:, 0]
@@ -162,9 +163,12 @@ def test_float32_page_graph_raises_naming_b2(setup):
     jheavy = dataclasses.replace(jdata, dd_train=heavy.dd_train)
     assert j_preferred(jheavy) == "float32"
     assert tmodel.preferred_dense_dtype(heavy) == "float32"
-    with pytest.raises(NotImplementedError, match="B2"):
-        loop.train(ModelConfig(**WIDTHS), TrainConfig(epochs=1), heavy,
-                   device="cpu")
+    graph, gs = make_graph_arrays(heavy, "cpu", dense_dtype="float32")
+    assert gs.dd_layout == "pages" and graph["dd_adj_t"].dtype == torch.float32
+    assert float(graph["dd_adj_t"].max()) > 256.0
+    _, res = loop.train(ModelConfig(**WIDTHS), TrainConfig(epochs=1), heavy,
+                        log=lambda s: None, device="cpu")
+    assert all(np.isfinite(h["loss"]) for h in res["history"])
 
 
 def test_negatives_options_per_layout(setup):
@@ -175,11 +179,20 @@ def test_negatives_options_per_layout(setup):
     TIP.for_data(ModelConfig(negatives="sampled", **WIDTHS), tdata, model.gs,
                  "cpu")
     _, strips = make_graph_arrays(tdata, "cpu", dense_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="B2"):
+    # sampled negatives read the chunk buffers, which a graph packed for the
+    # Poissonized route does not ship
+    with pytest.raises(ValueError, match="sampled=True"):
         TIP.for_data(ModelConfig(negatives="sampled", **WIDTHS), tdata, strips,
                      "cpu")
-    with pytest.raises(NotImplementedError, match="B2"):
-        make_graph_arrays(tdata, "cpu", dense_dtype="float32")
+    _, sampled = make_graph_arrays(tdata, "cpu", dense_dtype="bfloat16",
+                                   sampled=True, **SMALL)
+    assert (sampled.dd_layout, sampled.dd_sampled) == ("strips", True)
+    TIP.for_data(ModelConfig(negatives="sampled", **WIDTHS), tdata, sampled,
+                 "cpu")
+    _, pages = make_graph_arrays(tdata, "cpu", dense_dtype="float32")
+    assert pages.dd_layout == "pages"
+    TIP.for_data(ModelConfig(negatives="poisson", **WIDTHS), tdata, pages,
+                 "cpu")
 
 
 def test_int32_key_space_check(setup):

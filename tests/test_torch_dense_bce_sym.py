@@ -59,11 +59,21 @@ def test_plain_u24_zero_matches_jax_interpret_kernel(setup):
     for t, (cs, cd) in enumerate(zip([0, 1, 2, 3, 1], [1, 2, 0, 4, 3])):
         q8[t, :cs] = 7
         q8[t, 4:4 + cd] = 7
-    with pltpu.force_tpu_interpret_mode():
-        jval, (jdw, jdz) = jax.value_and_grad(
+    # TPU interpret mode keeps one process-wide simulated memory: start
+    # from a fresh one, whatever an earlier test in this process left
+    # behind, and run the fused kernel as one jitted program to its end
+    pltpu.reset_tpu_interpret_mode_state()
+
+    @jax.jit
+    def value_and_grad(w, z):
+        return jax.value_and_grad(
             lambda wz: dense_bce_sym_sum(wz[0], wz[1], jnp.asarray(pages),
                                          jnp.asarray(q8), jax.random.key(5)),
-        )((jnp.asarray(w), jnp.asarray(z)))
+        )((w, z))
+
+    with pltpu.force_tpu_interpret_mode():
+        jval, (jdw, jdz) = jax.block_until_ready(
+            value_and_grad(jnp.asarray(w), jnp.asarray(z)))
     val, dw, dz = _torch_value_and_grads(w, z, pages, q8, seed=5,
                                          u24=torch.zeros((), dtype=torch.int64))
     # f32 sums in another order: the repo's own kernel tolerances

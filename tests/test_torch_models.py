@@ -212,15 +212,18 @@ def test_dd_routing_and_raises(datas):
     chunked = make_dd_graph_arrays(tdata, "cpu", chunk=CHUNK, decoder="nn")
     # each layout ships only what its route reads
     assert set(strips[0]) == {"dd_deg", "dd_adj_sym", "dd_neg_q8"}
-    assert set(pages[0]) == {"dd_deg", "dd_adj_sym", "dd_adj_t", "dd_neg_q"}
-    assert pages[0]["dd_adj_t"].dtype == torch.uint8
+    assert set(pages[0]) == {"dd_deg", "dd_adj_sym", "dd_adj_u8", "dd_neg_q"}
+    assert pages[0]["dd_adj_u8"].dtype == torch.uint8
+    assert pages[1].dd_layout == "strips_pages"
     assert {"dd_src2d", "dd_bitmap"} <= set(chunked[0])
     assert "dd_adj_sym" not in chunked[0]
-    with pytest.raises(NotImplementedError, match="B2"):
-        make_dd_graph_arrays(tdata, "cpu", dense_dtype="float32")
-    with pytest.raises(NotImplementedError, match="B2"):
+    f32 = make_dd_graph_arrays(tdata, "cpu", dense_dtype="float32")
+    assert f32[1].dd_layout == "pages"
+    assert set(f32[0]) == {"dd_deg", "dd_adj_t", "dd_neg_q"}
+    # a graph packed for the Poissonized route refuses sampled negatives
+    with pytest.raises(ValueError, match="sampled=True"):
         DDModel.for_data(DDConfig(negatives="sampled"), strips[1], "cpu")
-    with pytest.raises(NotImplementedError, match="B2"):
+    with pytest.raises(ValueError, match="sampled=True"):
         DDModel.for_data(DDConfig(decoder="nn", negatives="sampled"),
                          pages[1], "cpu")
     with pytest.raises(ValueError, match="negatives='poisson'"):
@@ -235,7 +238,8 @@ def test_dd_routing_and_raises(datas):
 
 def test_dd_float32_page_graph_raises_naming_b2(datas):
     """Counts past bf16's exact range send the JAX package to float32 full
-    pages; build_variant refuses such a graph, naming that slice."""
+    pages: DR-DF takes them (kernel B2), DR-NN refuses the graph, naming
+    the uint8 pages its kernel B3 reads."""
     _, tdata = datas
     tr = tdata.dd_train
     s, d = tr.edge_index[:, 0]
@@ -245,7 +249,11 @@ def test_dd_float32_page_graph_raises_naming_b2(datas):
         np.concatenate([np.zeros(extra.shape[1], np.int32), tr.edge_type]),
         tr.range_list + np.where(np.arange(tr.n_et)[:, None] == 0,
                                  [0, extra.shape[1]], extra.shape[1])))
-    with pytest.raises(NotImplementedError, match="B2"):
+    model, graph, _ = runner.build_variant("dr-df", heavy, "cpu")
+    assert model.gs.dd_layout == "pages"
+    assert graph["dd_adj_t"].dtype == torch.float32
+    assert float(graph["dd_adj_t"].max()) > 256.0
+    with pytest.raises(ValueError, match="B3.*uint8"):
         runner.build_variant("dr-nn", heavy, "cpu")
 
 

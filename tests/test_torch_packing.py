@@ -102,14 +102,19 @@ def test_poisson_neg_thresholds_identical(both):
     assert np.all(q[:, 0] >= q[:, 1]) and np.all(q[:, 1] >= q[:, 2])
 
 
-@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+@pytest.mark.parametrize("dtype", ["uint8", "bfloat16", "float32"])
 def test_cast_dense_adj_exact_or_raises(both, dtype):
     """The full pages hold the JAX package's counts exactly; a count past
     the dtype's exact range raises instead of wrapping."""
     _, jd, _, td = both
     da = tpack.dense_relation_adj(td.dd_train, td.n_drug)
     pages = tpack.cast_dense_adj(da, dtype)
-    assert pages.dtype == np.dtype(dtype) and pages.shape == da.shape
+    if dtype == "bfloat16":  # bf16 bit patterns: a float32's upper half
+        assert pages.dtype == np.uint16
+        pages = (pages.astype(np.uint32) << 16).view(np.float32)
+    else:
+        assert pages.dtype == np.dtype(dtype)
+    assert pages.shape == da.shape
     want = np.asarray(jpack.cast_dense_adj(
         jpack.dense_relation_adj(jd.dd_train, jd.n_drug), np.float32))
     assert np.array_equal(pages.astype(np.float32), want)
@@ -149,8 +154,13 @@ def test_asymmetric_pages_raise_naming_later_slice(both):
             td.dd_train.edge_index[:, keep], td.dd_train.edge_type[keep],
             tpack._ranges_from_counts(np.bincount(
                 td.dd_train.edge_type[keep], minlength=td.n_et))))
-    with pytest.raises(NotImplementedError, match="float32 full-page"):
-        t_graph_arrays(broken, device="cpu", dense_dtype="bfloat16")
+    # the strips cannot be built: the full bf16 pages, as the JAX package
+    # falls back
+    graph, gs = t_graph_arrays(broken, device="cpu", dense_dtype="bfloat16")
+    assert gs.dd_layout == "pages" and "dd_adj_sym" not in graph
+    assert graph["dd_adj_t"].dtype == torch.bfloat16
+    want = tpack.dense_relation_adj(broken.dd_train, broken.n_drug)
+    assert np.array_equal(graph["dd_adj_t"].float().numpy(), want)
 
 
 @pytest.mark.parametrize("chunk", [32, 1024])

@@ -36,8 +36,9 @@ class ModelConfig:
     decoder: str = "distmult"  # 'distmult' | 'nn'
     nn_decoder_l1_dim: int = 16  # reference: src/layers.py:601
     # Input precision ('float32' | 'bfloat16') of the chunked path's kernels
-    # (B4, B5, B8); the dense-strip path takes bf16-rounded operands either
-    # way, as the JAX package's does.
+    # (B4, B5, B8); the dense strips and bf16 pages take bf16-rounded
+    # operands either way, the float32 pages float32 ones, as the JAX
+    # package's do.
     kernel_dtype: str = "float32"
     # Negative-sampling estimator: 'sampled' draws one negative per positive
     # slot (the reference's estimator, src/neg_sampling.py);

@@ -15,7 +15,7 @@
 //   dw1[t] = c_t . h1,  dh1 = sum_t c_t (x) w1[t],
 // so the O(R n^2) work is elementwise plus two reductions, and the
 // O(R n 16) contractions run after it (contract.cuh).  u24 is the counter
-// hash of (seed, t, i, j) -- cell_u24 below, the same function as
+// hash of (seed, t, i, j) -- cell_u24 of bce_cell.cuh, the same function as
 // ops/dense_bce_sym.py:u24_field over the [n, n] plane -- so the kernel and
 // its plain version (ops/dense_bce_nn.py) see identical counts.
 //
@@ -42,9 +42,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bce_cell.cuh"
 #include "contract.cuh"
 
 namespace {
+
+using bce_cell::cell_u24;  // cell = row * n + col of relation t's plane
+using bce_cell::relation_key;
+using bce_cell::softplus;
 
 constexpr int D = 16;                // the hidden width l1
 constexpr int THREADS = 256;         // 8 warps
@@ -53,28 +58,6 @@ constexpr int ROWS = 128;            // page rows per block
 constexpr int CPT = 3;               // columns per thread in a strip
 constexpr int STRIP = THREADS * CPT;
 constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7feb352dU;
-  x ^= x >> 15;
-  x *= 0x846ca68bU;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ uint32_t relation_key(uint32_t seed, uint32_t t) {
-  return mix32(seed + mix32(t + 0x9e3779b9U));
-}
-
-// 24 uniform bits for cell = row * n + col of relation t's plane.
-__device__ __forceinline__ int cell_u24(uint32_t key, uint32_t cell) {
-  return (int)(mix32(key ^ mix32(cell)) >> 8);
-}
-
-__device__ __forceinline__ float softplus(float x) {
-  return __fadd_rn(fmaxf(x, 0.f), log1pf(expf(-fabsf(x))));
-}
 
 __device__ __forceinline__ float dot16(const float* __restrict__ a,
                                        const float* b) {

@@ -14,7 +14,8 @@
 //   dw_t += sum_r z_I[r] * (G z_J)[r];  dz[I] += w_t * (G z_J);
 //   dz[J] += w_t * (G^T z_I)
 // The TPU kernel draws u24 from the on-chip PRNG in strip order.  Here u24
-// is a counter-based hash of (seed, t, row, col) -- cell_u24 below -- and
+// is a counter-based hash of (seed, t, row, col) -- cell_u24 of
+// bce_cell.cuh, shared with B2 and B3 -- and
 // ops/dense_bce_sym.py computes the same field in PyTorch, so the kernel
 // and its plain version see identical counts.
 //
@@ -43,35 +44,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bce_cell.cuh"
+
 namespace {
+
+using bce_cell::cell_u24;  // cell = row * npad + col of the padded plane
+using bce_cell::relation_key;
+using bce_cell::softplus;
 
 constexpr int B = 128;          // block edge of the strip layout
 constexpr int THREADS = 256;    // 8 warps
 constexpr int WARPS = THREADS / 32;
 constexpr int GSTRIDE = B + 1;  // padded row stride of the G tile
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7feb352dU;
-  x ^= x >> 15;
-  x *= 0x846ca68bU;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ uint32_t relation_key(uint32_t seed, uint32_t t) {
-  return mix32(seed + mix32(t + 0x9e3779b9U));
-}
-
-// 24 uniform bits for cell (row, col) of relation t's padded plane; cell =
-// row * npad + col.  Same function as ops/dense_bce_sym.py:u24_field.
-__device__ __forceinline__ int cell_u24(uint32_t key, uint32_t cell) {
-  return (int)(mix32(key ^ mix32(cell)) >> 8);
-}
-
-__device__ __forceinline__ float softplus(float x) {
-  return __fadd_rn(fmaxf(x, 0.f), log1pf(expf(-fabsf(x))));
-}
 
 __host__ __device__ __forceinline__ int smem_floats(int d, bool grads) {
   // zi [B][d], ziw [B][d], zjT [d][B]; with grads also red [B][d] and G

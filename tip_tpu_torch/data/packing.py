@@ -382,7 +382,7 @@ def poisson_neg_thresholds(edges: TypedEdges, n_nodes: int) -> np.ndarray:
 
 
 # Largest count each full-page dtype holds exactly.
-PAGE_EXACT_MAX = {"uint8": 255, "float32": 1 << 24}
+PAGE_EXACT_MAX = {"uint8": 255, "bfloat16": 256, "float32": 1 << 24}
 
 
 def cast_dense_adj(da: np.ndarray, dtype: str = "uint8") -> np.ndarray:
@@ -391,12 +391,15 @@ def cast_dense_adj(da: np.ndarray, dtype: str = "uint8") -> np.ndarray:
     than cast lossily.
 
     ``uint8`` holds counts up to 255 and is what the NN decoder's dense BCE
-    (kernel B3) reads; ``float32`` holds them up to 2^24, for graphs whose
-    counts pass 256 (the float32 full-page path of a later slice).  Page
-    bytes at Decagon shape (R = 1,097, n = 645): uint8 456 MB, float32
-    1.83 GB (bf16 would take 913 MB, and the JAX package's tile-padded
-    bf16 pages [1097, 656, 768] 1.105 GB)."""
-    name = np.dtype(dtype).name
+    (kernel B3) reads; ``bfloat16`` holds them up to 256 and ``float32`` up
+    to 2^24: the full pages of the encoder and of kernel B2.  numpy has no
+    bfloat16, so those pages come back as their bit patterns in uint16
+    (the upper half of each float32, exact for these counts);
+    ``torch.from_numpy(p).view(torch.bfloat16)`` reads them.  Page bytes
+    at Decagon shape (R = 1,097, n = 645): uint8 456 MB, bf16 913 MB,
+    float32 1.83 GB (the JAX package's tile-padded bf16 pages [1097, 656,
+    768] take 1.105 GB)."""
+    name = "bfloat16" if str(dtype) == "bfloat16" else np.dtype(dtype).name
     if name not in PAGE_EXACT_MAX:
         raise ValueError(f"page dtype {name} not in {sorted(PAGE_EXACT_MAX)}")
     top = int(da.max()) if da.size else 0
@@ -404,6 +407,8 @@ def cast_dense_adj(da: np.ndarray, dtype: str = "uint8") -> np.ndarray:
         raise ValueError(
             f"edge multiplicity {top} is not exactly representable in {name}; "
             "use a wider page dtype or the chunked kernels")
+    if name == "bfloat16":
+        return (da.astype(np.float32).view(np.uint32) >> 16).astype(np.uint16)
     return da.astype(name)
 
 

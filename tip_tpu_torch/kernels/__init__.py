@@ -44,6 +44,11 @@ KERNELS = {
         source="tip_tpu_torch/csrc/dense_bce_sym.cu",
         replaces="tip_tpu/ops/pallas_dense_bce_sym.py:264",
     ),
+    "dense_bce": KernelSpec(
+        name="dense_bce",
+        source="tip_tpu_torch/csrc/dense_bce.cu",
+        replaces="tip_tpu/ops/pallas_dense_bce.py:225",
+    ),
     "typed_neighbor_sum": KernelSpec(
         name="typed_neighbor_sum",
         source="tip_tpu_torch/csrc/typed_neighbor_sum.cu",

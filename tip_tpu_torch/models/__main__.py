@@ -4,8 +4,11 @@ Trains and evaluates one of the reference's experiment variants (DR-DF,
 DR-NN, PR-HMP-NN, PP-GAE) on the GPU (``cuda``) unless ``--cpu`` is given;
 without a GPU and without ``--cpu`` it stops with an error.  ``--synthetic``
 trains on a small random tri-graph; otherwise the Decagon files are read
-from ``--data-dir`` (or ``$TIP_DATA_DIR``).  The JAX package's ``--et-band``,
-``--report`` and ``--backend`` flags are not ported yet.
+from ``--data-dir`` (or ``$TIP_DATA_DIR``).  ``$JAX_DEFAULT_MATMUL_PRECISION``
+set to ``float32`` or ``highest`` asks for exact float32 matmuls, as it does
+of the JAX package's CLI: DR-DF and DR-NN then take the float32 pages.  The
+JAX package's ``--et-band``, ``--report`` and ``--backend`` flags are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 
 import numpy as np
 
@@ -71,9 +75,11 @@ def main(argv=None) -> None:
     dim_over = {name: getattr(args, name)
                 for name in ("n_embed", "n_hid1", "n_hid2", "num_base")
                 if getattr(args, name) is not None}
-    model, graph, test = build_variant(args.variant, data, device,
-                                       kernel_dtype=args.kernel_dtype,
-                                       dims=dim_over or None)
+    model, graph, test = build_variant(
+        args.variant, data, device, kernel_dtype=args.kernel_dtype,
+        matmul_precision=os.environ.get("JAX_DEFAULT_MATMUL_PRECISION",
+                                        "default"),
+        dims=dim_over or None)
     _, result = train_variant(model, graph, test, epochs=args.epochs,
                               lr=args.lr, seed=args.seed,
                               eval_every=args.eval_every)

@@ -3,22 +3,26 @@
 
 Port of tip_tpu/models/dd.py.  As in the reference variants, a ReLU also
 follows the second R-GCN layer (``final_relu``).  The graph is packed in
-one of three D-D layouts, recorded in ``GraphStatic.dd_layout``, and each
-ships only what its route reads:
+one of four D-D layouts, recorded in ``GraphStatic.dd_layout``, and each
+ships only what its route reads (train/model.py:dense_dd_arrays):
 
   * ``strips`` (DR-DF within the dense budget): the symmetric int8 strips
     for the M-first encoder and the fused symmetric dense BCE (kernel B1);
   * ``strips_pages`` (DR-NN within the dense budget): the strips for the
     encoder, plus the full uint8 relation pages and their 3-threshold field
     for the NN decoder's fused dense BCE (kernel B3);
+  * ``pages`` (float32 pages where float32 matmuls are pinned or a count
+    passes 256; bf16 pages where the strips cannot be built): the encoder
+    contracts the full pages M-first; DR-DF's loss is the fused dense BCE
+    over them (kernel B2), DR-NN's is B3 over a uint8 copy;
   * ``chunked`` (either decoder beyond the budget): the chunk-aligned
     buffers; the encoder runs on kernel B4, the loss draws one negative a
     slot (kernel B10) and scores positives and negatives with B8 (DistMult)
     or B9 (NN).
 
-Routes the JAX package would send to float32 full pages raise, naming that
-slice, and so do sampled negatives on the strips (the JAX package scores
-their positives against the full pages).
+``negatives="sampled"`` on the dense layouts keeps their encoder and takes
+the chunked loss, except that DR-DF scores its positives over the full
+pages, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -28,20 +32,13 @@ from typing import Optional
 
 import torch
 
-from tip_tpu_torch.data.packing import (
-    TriGraphData,
-    cast_dense_adj,
-    dense_relation_adj,
-    pad_typed_edges,
-    poisson_neg_thresholds,
-    poisson_neg_thresholds_sym,
-    sym_strip_pack,
-)
+from tip_tpu_torch.data.packing import TriGraphData
 from tip_tpu_torch.metrics import grouped_ranking_metrics, macro_average
 from tip_tpu_torch.nn import initializers as init
 from tip_tpu_torch.nn.decoders import (
     distmult_apply,
     distmult_apply_padded,
+    distmult_dense_pos_bce_sum,
     distmult_init,
     nn_decoder_apply,
     nn_decoder_apply_padded,
@@ -49,26 +46,28 @@ from tip_tpu_torch.nn.decoders import (
     nn_hiddens,
 )
 from tip_tpu_torch.nn.rgcn import (
+    dense_rgcn_pair_apply,
     dense_rgcn_pair_apply_sym,
     rgcn_apply_padded,
     rgcn_init,
 )
+from tip_tpu_torch.ops.dense_bce import dense_bce_sum
 from tip_tpu_torch.ops.dense_bce_nn import dense_bce_nn_sum
 from tip_tpu_torch.ops.dense_bce_sym import dense_bce_sym_sum, softplus
 from tip_tpu_torch.sampling import (
-    bitmap_tensor,
     typed_negative_sampling,
     typed_negative_sampling_chunked,
 )
 from tip_tpu_torch.train.model import (
-    LATER_SLICE,
-    POISSON_NEEDS_DENSE,
     GraphStatic,
+    check_negatives,
+    chunk_arrays,
+    dense_dd_arrays,
     resolve_device,
 )
 
-LAYOUTS = {"distmult": ("strips", "chunked"),
-           "nn": ("strips_pages", "chunked")}
+LAYOUTS = {"distmult": ("strips", "pages", "chunked"),
+           "nn": ("strips_pages", "pages", "chunked")}
 
 
 @dataclass(frozen=True)
@@ -81,7 +80,8 @@ class DDConfig:
     nn_decoder_l1_dim: int = 16
     final_relu: bool = True  # reference: model/ddm-df_rgcn.py:59
     kernel_dtype: str = "float32"  # inputs of the chunked kernels B4, B8, B9
-    # 'auto': the fused dense BCE on the strips, sampled negatives chunked
+    # 'auto': the fused dense BCE on the strips or pages, sampled negatives
+    # chunked
     negatives: str = "auto"
 
     def __post_init__(self) -> None:
@@ -93,52 +93,31 @@ class DDConfig:
 
 def make_dd_graph_arrays(data: TriGraphData, device=None, chunk: int = 1024,
                          dense_dtype: Optional[str] = None,
-                         decoder: str = "distmult"):
+                         decoder: str = "distmult", sampled: bool = False):
     """Pack the D-D training graph for ``decoder`` into tensors on
     ``device`` + static metadata.  ``dense_dtype="bfloat16"`` (which
     ``preferred_dense_dtype`` picks within the dense budget) ships the
-    strips layout of the decoder, None the chunked buffers with relation
-    bins padded to ``chunk``; "float32" raises."""
+    strips layout of the decoder, or the bf16 pages where the strips
+    cannot be built; "float32" the float32 pages; None the chunked buffers
+    with relation bins padded to ``chunk``.  ``sampled`` packs a dense
+    layout for ``negatives="sampled"`` (the chunk buffers beside it)."""
     if decoder not in LAYOUTS:
         raise ValueError(f"unknown decoder {decoder!r}")
-    if dense_dtype not in (None, "bfloat16"):
-        raise NotImplementedError(
-            f"dense_dtype={dense_dtype!r} needs the float32 full pages; "
-            + LATER_SLICE)
+    if dense_dtype not in (None, "bfloat16", "float32"):
+        raise ValueError(f"dense_dtype {dense_dtype!r}: None, 'bfloat16' or "
+                         "'float32'")
 
     def t(x):
         return torch.from_numpy(x).to(device)
 
     graph = {"dd_deg": t(data.dd_train_deg)}
-    n_chunks = 0
-    if dense_dtype is None:
-        layout = "chunked"
-        padded = pad_typed_edges(data.dd_train, data.n_drug, chunk=chunk)
-        n_chunks = padded.chunk_type.shape[0]
-        graph.update(
-            dd_src2d=t(padded.src.reshape(n_chunks, chunk)),
-            dd_dst2d=t(padded.dst.reshape(n_chunks, chunk)),
-            dd_valid=t(padded.valid.astype("float32")),
-            dd_chunk_type=t(padded.chunk_type),
-            dd_bitmap=bitmap_tensor(data.dd_train_bitmap, device),
-        )
-    else:
-        layout = LAYOUTS[decoder][0]
-        da = dense_relation_adj(data.dd_train, data.n_drug)
-        try:
-            graph["dd_adj_sym"] = t(sym_strip_pack(da))
-        except ValueError as e:
-            raise NotImplementedError(
-                f"symmetric strips cannot be built ({e}); " + LATER_SLICE
-            ) from e
-        if layout == "strips":
-            graph["dd_neg_q8"] = t(poisson_neg_thresholds_sym(data.dd_train,
-                                                              data.n_drug))
-        else:
-            graph["dd_adj_t"] = t(cast_dense_adj(da, "uint8"))
-            graph["dd_neg_q"] = t(poisson_neg_thresholds(data.dd_train,
-                                                         data.n_drug))
-        del da
+    layout = "chunked"
+    if dense_dtype is not None:
+        layout, dd = dense_dd_arrays(data, dense_dtype, device, sampled,
+                                     decoder)
+        graph.update(dd)
+    if layout == "chunked" or sampled:
+        graph.update(chunk_arrays(data, chunk, device))
     if data.drug_feat is not None:
         graph["drug_feat"] = t(data.drug_feat)
     if data.d_norm is not None:
@@ -147,8 +126,10 @@ def make_dd_graph_arrays(data: TriGraphData, device=None, chunk: int = 1024,
         n_drug=data.n_drug, n_prot=data.n_prot, n_et=data.n_et,
         dd_n_valid=data.dd_train.n_edges,
         drug_feat_dim=0 if data.drug_feat is None else data.drug_feat.shape[1],
-        dd_chunk=chunk, dd_n_chunks=n_chunks, pp_window=0, pp_n_windows=0,
-        dd_layout=layout, pp_layout="none",
+        dd_chunk=chunk, pp_window=0, pp_n_windows=0,
+        dd_n_chunks=graph["dd_src2d"].shape[0] if "dd_src2d" in graph else 0,
+        dd_layout=layout, dd_sampled=sampled and layout != "chunked",
+        pp_layout="none",
     )
     return graph, gs
 
@@ -167,12 +148,7 @@ class DDModel:
             raise ValueError(f"a {gs.dd_layout!r} graph has no route for the "
                              f"{cfg.decoder} decoder; pack it with "
                              f"decoder={cfg.decoder!r}")
-        if gs.dd_layout == "chunked" and cfg.negatives == "poisson":
-            raise ValueError(POISSON_NEEDS_DENSE)
-        if gs.dd_layout != "chunked" and cfg.negatives == "sampled":
-            raise NotImplementedError(
-                "sampled negatives on the strip layout score their positives "
-                "against the full pages; " + LATER_SLICE)
+        check_negatives(cfg.negatives, gs)
         return DDModel(cfg=cfg, gs=gs, device=resolve_device(device))
 
     def init(self, gen: torch.Generator) -> dict:
@@ -209,6 +185,9 @@ class DDModel:
                                              kernel_dtype=self.cfg.kernel_dtype))
             x = rgcn_apply_padded(params["rgcn2"], x, *dd,
                                   kernel_dtype=self.cfg.kernel_dtype)
+        elif gs.dd_layout == "pages":
+            x = dense_rgcn_pair_apply(params["rgcn1"], params["rgcn2"], x,
+                                      graph["dd_adj_t"], graph["dd_deg"])
         else:
             x = dense_rgcn_pair_apply_sym(params["rgcn1"], params["rgcn2"], x,
                                           graph["dd_adj_sym"], graph["dd_deg"])
@@ -230,31 +209,41 @@ class DDModel:
     def loss(self, params, graph, seed: int, u24=None):
         """Mean BCE over the train edges.  ``seed`` (uint32) keys the
         negatives; ``u24`` (CPU only) replaces their random bits: the cell
-        field of B1 or B3 on the strips, the sampler's draws chunked."""
-        gs = self.gs
+        field of B1, B2 or B3 on the dense layouts, the sampler's draws on
+        the chunked layout and with ``negatives="sampled"``."""
+        gs, cfg = self.gs, self.cfg
         z = self.encode(params, graph)
         dec = params["decoder"]
-        if gs.dd_layout == "strips":
-            total = dense_bce_sym_sum(dec["weight"], z, graph["dd_adj_sym"],
-                                      graph["dd_neg_q8"], seed, u24=u24)
-            return total / float(gs.dd_n_valid)
-        if gs.dd_layout == "strips_pages":
-            h1, h2 = nn_hiddens(dec, z)
-            total = dense_bce_nn_sum(dec["w1_l2"], dec["w2_l2"], h1, h2,
-                                     graph["dd_adj_t"], graph["dd_neg_q"],
-                                     seed, u24=u24)
+        if gs.dd_layout != "chunked" and cfg.negatives != "sampled":
+            if cfg.decoder == "nn":
+                h1, h2 = nn_hiddens(dec, z)
+                total = dense_bce_nn_sum(dec["w1_l2"], dec["w2_l2"], h1, h2,
+                                         graph["dd_adj_u8"],
+                                         graph["dd_neg_q"], seed, u24=u24)
+            elif gs.dd_layout == "strips":
+                total = dense_bce_sym_sum(dec["weight"], z,
+                                          graph["dd_adj_sym"],
+                                          graph["dd_neg_q8"], seed, u24=u24)
+            else:
+                total = dense_bce_sum(dec["weight"], z, graph["dd_adj_t"],
+                                      graph["dd_neg_q"], seed, u24=u24)
             return total / float(gs.dd_n_valid)
         ct = graph["dd_chunk_type"]
         neg_src2d, neg_dst2d = typed_negative_sampling_chunked(
             seed, ct, graph["dd_bitmap"], gs.n_drug, gs.n_et, gs.dd_chunk,
             u24=u24)
         valid = graph["dd_valid"]
-        pos = self.score_padded(params, z, graph["dd_src2d"],
-                                graph["dd_dst2d"], ct, sigmoid=False)
+        if gs.dd_layout != "chunked" and cfg.decoder == "distmult":
+            pos_sum = distmult_dense_pos_bce_sum(
+                dec["weight"], z, graph["dd_adj_t"],
+                kernel_dtype=cfg.kernel_dtype)
+        else:
+            pos = self.score_padded(params, z, graph["dd_src2d"],
+                                    graph["dd_dst2d"], ct, sigmoid=False)
+            pos_sum = torch.sum(softplus(-pos) * valid)
         neg = self.score_padded(params, z, neg_src2d, neg_dst2d, ct,
                                 sigmoid=False)
-        total = (torch.sum(softplus(-pos) * valid)
-                 + torch.sum(softplus(neg) * valid))
+        total = pos_sum + torch.sum(softplus(neg) * valid)
         return total / float(gs.dd_n_valid)
 
     def sample_test_negatives(self, gen: torch.Generator, test):

@@ -35,21 +35,28 @@ VARIANTS = ("dr-df", "dr-nn", "pr-hmp-nn", "pp-gae")
 
 
 def build_variant(variant: str, data: TriGraphData, device=None,
-                  kernel_dtype: str = "float32", dims: Optional[dict] = None):
+                  kernel_dtype: str = "float32",
+                  matmul_precision: str = "default",
+                  dims: Optional[dict] = None):
     """(model, graph, test) of one reference experiment variant on
     ``device`` (default ``cuda``; raises without a GPU unless 'cpu').
 
     ``dims`` overrides DDConfig's dimension fields (n_embed, n_hid1, n_hid2,
     num_base) for dr-df / dr-nn.  Their graph takes the layout
-    ``preferred_dense_dtype`` picks: the strips within the dense budget,
-    the chunked buffers beyond it."""
+    ``preferred_dense_dtype`` picks for ``kernel_dtype`` and
+    ``matmul_precision`` (the JAX package's
+    ``jax_default_matmul_precision``): the strips within the dense budget,
+    the float32 pages where float32 matmuls are pinned or a count passes
+    256, the chunked buffers beyond the budget."""
     dev = resolve_device(device)
     if variant in ("dr-df", "dr-nn"):
         cfg = DDConfig(decoder="distmult" if variant == "dr-df" else "nn",
                        kernel_dtype=kernel_dtype, **(dims or {}))
+        dense_dtype = preferred_dense_dtype(data, kernel_dtype,
+                                            matmul_precision)
         graph, gs = make_dd_graph_arrays(
-            data, dev, dense_dtype=preferred_dense_dtype(data),
-            decoder=cfg.decoder)
+            data, dev, dense_dtype=dense_dtype, decoder=cfg.decoder,
+            sampled=cfg.negatives == "sampled")
         return (DDModel.for_data(cfg, gs, dev), graph,
                 make_test_arrays(data, dev))
     if variant == "pr-hmp-nn":

@@ -1,15 +1,20 @@
-"""Multi-relational decoders (port of tip_tpu/nn/decoders.py:17-53,
+"""Multi-relational decoders (port of tip_tpu/nn/decoders.py:17-107,
 110-171): DistMult and the per-relation two-layer NN decoder, each with a
 flat scorer of (src, dst, relation) triples and a chunk-aligned variant of
-the chunked layout, kernels B8 and B9 (ops/sddmm2.py)."""
+the chunked layout, kernels B8 and B9 (ops/sddmm2.py); and the DistMult
+positives' BCE over the full count pages, which the sampled-negative route
+takes on the dense layouts."""
 
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from tip_tpu_torch.nn import initializers as init
+from tip_tpu_torch.ops.dense_bce_sym import softplus
+from tip_tpu_torch.ops.matmul import compute_round
 from tip_tpu_torch.ops.sddmm2 import (
     distmult_logits_padded2,
     nn_logits_padded2,
@@ -37,6 +42,34 @@ def distmult_apply_padded(params, z, src2d, dst2d, chunk_type,
                                      chunk_type, z.shape[0],
                                      kernel_dtype).reshape(-1)
     return torch.sigmoid(logits) if sigmoid else logits
+
+
+def distmult_dense_pos_bce_sum(w, z, pages, kernel_dtype: str = "float32",
+                               block: int = 128):
+    """Sum over the positive edges of softplus(-logit), from the full count
+    pages [R, n, n] (any dtype holding the counts exactly): every pair of a
+    relation scored by one batched product and weighted by its count,
+
+        sum_e softplus(-logit_e) = sum_t sum_{d,s} DA[t,d,s] softplus(-L_t[d,s]),
+
+    with no per-edge work.  Relations go ``block`` at a time, each block
+    recomputed in the backward instead of keeping its [block, n, n] logits
+    (torch.utils.checkpoint, as jax.checkpoint there).  ``kernel_dtype``
+    bfloat16 rounds z, w and their product to bf16 before the float32
+    product, as the JAX package does on the CPU."""
+    zc = compute_round(z, kernel_dtype)
+
+    def block_sum(wb, da):
+        wb = compute_round(wb, kernel_dtype)
+        zw = compute_round(zc[None] * wb[:, None, :], kernel_dtype)
+        logits = zw @ zc.T  # [block, n, n]
+        return torch.sum(softplus(-logits) * da.float())
+
+    total = torch.zeros((), dtype=torch.float32, device=z.device)
+    for c0 in range(0, pages.shape[0], block):
+        total = total + checkpoint(block_sum, w[c0:c0 + block],
+                                   pages[c0:c0 + block], use_reentrant=False)
+    return total
 
 
 def nn_decoder_init(gen, in_dim: int, n_et: int, l1_dim: int = 16,

@@ -5,8 +5,9 @@ P-P: two GCN layers, dense over the int8 (A+I) where the graph ships it,
 else windowed over the P-P edge buffers (kernel B5, the JAX package's
 ``backend="pallas"`` branch); P->D: the mean hierarchy conv; the drug
 embedding joined by concatenation (TIP-cat) or sum (TIP-add); D-D: both
-R-GCN layers from one M-first contraction over the symmetric strips where
-the graph ships them, else two chunked layers (kernel B4).  The tri-graph
+R-GCN layers from one M-first contraction over the symmetric strips or the
+full count pages where the graph ships them, else two chunked layers
+(kernel B4).  The tri-graph
 encoder takes the windowed P-P path where the JAX package's XLA backend
 takes the COO one; the COO path (:func:`pp_encoder_apply`, plain
 ``index_add_``) serves PP-GAE where its dense (A+I) cannot be built.
@@ -28,6 +29,7 @@ from tip_tpu_torch.nn.gcn import (
 )
 from tip_tpu_torch.nn.hierarchy import hierarchy_conv_apply, hierarchy_conv_init
 from tip_tpu_torch.nn.rgcn import (
+    dense_rgcn_pair_apply,
     dense_rgcn_pair_apply_sym,
     rgcn_apply_padded,
     rgcn_init,
@@ -105,6 +107,9 @@ def fm_encoder_apply(params, graph, cfg: ModelConfig, gs, x_drug=None,
     if gs.dd_layout == "strips":
         return dense_rgcn_pair_apply_sym(params["rgcn1"], params["rgcn2"], x,
                                          graph["dd_adj_sym"], graph["dd_deg"])
+    if gs.dd_layout == "pages":
+        return dense_rgcn_pair_apply(params["rgcn1"], params["rgcn2"], x,
+                                     graph["dd_adj_t"], graph["dd_deg"])
     dd = (graph["dd_src2d"], graph["dd_dst2d"], graph["dd_chunk_type"],
           graph["dd_deg"], gs.n_drug, gs.n_et)
     x = torch.relu(rgcn_apply_padded(params["rgcn1"], x, *dd,

@@ -1,7 +1,8 @@
 """Basis-decomposed relational graph convolution over the symmetric strip
-layout or the chunked edge buffers (port of tip_tpu/nn/rgcn.py:34
-``rgcn_init``, :152 ``dense_rgcn_pair_apply_sym`` and :229
-``rgcn_apply_padded`` on its kernel branch).
+layout, the full count pages or the chunked edge buffers (port of
+tip_tpu/nn/rgcn.py:34 ``rgcn_init``, :74 ``dense_rgcn_pair_apply``, :152
+``dense_rgcn_pair_apply_sym`` and :229 ``rgcn_apply_padded`` on its kernel
+branch).
 
 Per layer: out[d] = (1/deg[d]) * sum_t (DA[t] @ x)[d] @ W_t + x[d] @ root
 with W_t = sum_b att[t, b] basis_b.  Reassociated M-first,
@@ -15,7 +16,10 @@ block triangle; ``M @ h`` is reassembled strip by strip: strip I adds
 ``strip_I @ h[I*128:]`` to rows I and ``strip_I[:, 128:]^T @ h[I]`` to the
 mirror rows.  Contributions to a row block are summed in the JAX
 package's order.  Both contractions take bf16-rounded operands with f32
-accumulation (ops/matmul.py).
+accumulation (ops/matmul.py).  Over the full pages (the JAX package's
+float32 or bf16 ``dd_adj_t``, unpadded here) the same M-first pair runs
+without the strip bookkeeping: float32 pages take float32 operands as they
+are, bf16 pages bf16-rounded ones.
 
 The chunked layer bins neighbour sums per (relation, dst) with kernel B4
 (ops/typed_segment.py) in the transposed [n_et, d, n] layout, which the
@@ -77,6 +81,34 @@ def dense_rgcn_pair_apply_sym(params1, params2, x, sym_strips, degree):
             blocks[i].append(mm_bf16(ms, hd[i * B:]))
         qd = torch.cat([sum(parts) for parts in blocks], dim=1)
         agg = torch.einsum("bdf,bfe->de", qd[:, :n_true], params["basis"])
+        out = mean_from_sum(agg, degree) + h @ params["root"]
+        if "bias" in params:
+            out = out + params["bias"]
+        return out
+
+    h = torch.relu(half(params1, m[:b1], x))
+    return half(params2, m[b1:], h)
+
+
+def dense_rgcn_pair_apply(params1, params2, x, pages, degree):
+    """Both R-GCN layers (ReLU between) over the full count pages
+    [R, n, n] (float32 or bf16; data/packing.py:cast_dense_adj) from one
+    M-first contraction ``M = att_cat^T @ DA``, then ``M[b] @ h``; x
+    [n, d_in], degree [n].  Returns [n, d_out2].
+
+    The rounding is the JAX package's on the CPU in each page dtype:
+    float32 pages multiply float32 operands as they are; bf16 pages round
+    ``att_cat``, ``M`` and ``h`` to bf16 and multiply in float32."""
+    att_cat = torch.cat([params1["att"], params2["att"]], dim=1)
+    b1 = params1["att"].shape[1]
+    r, n, _ = pages.shape
+    exact = pages.dtype == torch.float32
+    rnd = (lambda v: v) if exact else bf16_round
+    m = (rnd(att_cat).T @ pages.reshape(r, -1).float()).reshape(-1, n, n)
+
+    def half(params, m_half, h):
+        qd = rnd(m_half) @ rnd(h)  # [b, n, d_in]
+        agg = torch.einsum("bdf,bfe->de", qd, params["basis"])
         out = mean_from_sum(agg, degree) + h @ params["root"]
         if "bias" in params:
             out = out + params["bias"]

@@ -1,3 +1,4 @@
+from tip_tpu_torch.ops.dense_bce import dense_bce_sum
 from tip_tpu_torch.ops.dense_bce_sym import dense_bce_sym_sum
 from tip_tpu_torch.ops.segment import (
     distmult_score,
@@ -6,6 +7,7 @@ from tip_tpu_torch.ops.segment import (
 )
 
 __all__ = [
+    "dense_bce_sum",
     "dense_bce_sym_sum",
     "distmult_score",
     "mean_from_sum",

@@ -3,13 +3,17 @@
 Runs on the GPU (``cuda``) unless ``--cpu`` is given; without a GPU and
 without ``--cpu`` it stops with an error.  ``--synthetic`` trains on a
 small random tri-graph; otherwise the Decagon files are read from
-``--data-dir`` (or ``$TIP_DATA_DIR``).
+``--data-dir`` (or ``$TIP_DATA_DIR``).  ``$JAX_DEFAULT_MATMUL_PRECISION``
+set to ``float32`` or ``highest`` asks for exact float32 matmuls, as it does
+of the JAX package's CLI: a float32 kernel dtype then takes the float32
+pages.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 from tip_tpu_torch.config import add_config_flags, configs_from_args
 
@@ -45,7 +49,9 @@ def main(argv=None) -> None:
         kw = {"data_dir": args.data_dir} if args.data_dir else {}
         raw = load_decagon_raw(**kw)
     data = build_trigraph(raw, split_rate=tcfg.split_rate, seed=split_seed)
-    _, result = train(cfg, tcfg, data, device=device)
+    _, result = train(cfg, tcfg, data, device=device,
+                      matmul_precision=os.environ.get(
+                          "JAX_DEFAULT_MATMUL_PRECISION", "default"))
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"final": result["final"], "history": result["history"]},

@@ -37,17 +37,24 @@ def step_seed(seed: int, epoch: int) -> int:
 
 
 def train(cfg: ModelConfig, tcfg: TrainConfig, data: TriGraphData,
-          log: Callable[[str], None] = print, device=None):
+          log: Callable[[str], None] = print, device=None,
+          matmul_precision: str = "default"):
     """Train TIP on a packed tri-graph on ``device`` (default ``cuda``;
-    raises without a GPU unless ``device='cpu'``).  Returns
+    raises without a GPU unless ``device='cpu'``).  The D-D layout is the
+    one ``preferred_dense_dtype`` picks for ``cfg.kernel_dtype`` and
+    ``matmul_precision`` (which stands for the JAX package's
+    ``jax_default_matmul_precision``: "float32" or "highest" with a
+    float32 kernel dtype asks for the float32 pages).  Returns
     (params, {"final", "history", "per_relation"})."""
     dev = resolve_device(device)
     if tcfg.checkpoint_dir or tcfg.remat:
         raise NotImplementedError("checkpoint_dir and remat: checkpointing "
                                   "and rematerialisation are later slices")
     set_matmul_precision()
-    graph, gs = make_graph_arrays(data, dev,
-                                  dense_dtype=preferred_dense_dtype(data))
+    dense_dtype = preferred_dense_dtype(data, cfg.kernel_dtype,
+                                        matmul_precision)
+    graph, gs = make_graph_arrays(data, dev, dense_dtype=dense_dtype,
+                                  sampled=cfg.negatives == "sampled")
     model = TIP.for_data(cfg, data, gs, dev)
     test = make_test_arrays(data, dev)
 

@@ -1,7 +1,7 @@
 """TIP model assembly: tri-graph encoder, DistMult decoder, the training
-loss on either D-D layout, and evaluation.
+loss on each D-D layout, and evaluation.
 
-Port of tip_tpu/train/model.py:52-67, 116-259 and 277-578 for the two
+Port of tip_tpu/train/model.py:52-67, 76-259 and 277-578 for the three
 layouts ``make_graph_arrays`` ships on one device:
 
   * **dense strips** (``dense_dtype="bfloat16"``, which
@@ -9,6 +9,12 @@ layouts ``make_graph_arrays`` ships on one device:
     budget): the symmetric int8 strips ``dd_adj_sym`` with their
     thresholds ``dd_neg_q8``; the loss is the fused symmetric dense BCE
     with Poissonized negatives (kernel B1);
+  * **full pages** (``dense_dtype="float32"``, picked where the caller
+    pins float32 matmuls or a count passes bf16's exact range, and
+    ``"bfloat16"`` where the strips cannot be built): the unpadded count
+    pages ``dd_adj_t`` with their thresholds ``dd_neg_q``; the encoder's
+    R-GCN pair contracts them M-first, the loss is the fused dense BCE
+    over the pages (kernel B2);
   * **chunked** (``dense_dtype=None``, picked beyond the dense budget):
     the chunk-aligned D-D buffers ``dd_src2d``/``dd_dst2d``/``dd_valid``/
     ``dd_chunk_type`` with the membership bitmap ``dd_bitmap``; the loss
@@ -16,11 +22,15 @@ layouts ``make_graph_arrays`` ships on one device:
     negatives with the DistMult SDDMM (kernel B8); the encoder's R-GCN
     runs on kernel B4.
 
-The P-P side is dense (``pp_a1``, ``pp_dinv``) where ``pp_dense`` ships
-it, else windowed (``ppw_*``, kernel B5).  Parameters are nested dicts of
+Sampled negatives (``negatives="sampled"``) on the strips or the pages
+draw and score their negatives as the chunked layout does (B10, B8) and
+score the positives over the full pages (plain PyTorch);
+``make_graph_arrays(..., sampled=True)`` ships the chunk buffers, the
+bitmap and the pages beside the strips.  The
+P-P side is dense (``pp_a1``, ``pp_dinv``) where ``pp_dense`` ships it,
+else windowed (``ppw_*``, kernel B5).  Parameters are nested dicts of
 tensors in the JAX package's layout; every method is a plain function of
-(params, graph).  Graphs the JAX package would route to the float32 full
-pages raise here, naming that slice.
+(params, graph).
 """
 
 from __future__ import annotations
@@ -32,14 +42,17 @@ import torch
 
 from tip_tpu_torch.config import ModelConfig
 from tip_tpu_torch.data.packing import (
+    PAGE_EXACT_MAX,
     TriGraphData,
     bitmap_stride_bits,
+    cast_dense_adj,
     dense_pp_feasible,
     dense_pp_parts,
     dense_relation_adj,
     max_multiplicity,
     pad_typed_edges,
     pad_windowed_edges,
+    poisson_neg_thresholds,
     poisson_neg_thresholds_sym,
     sym_strip_pack,
 )
@@ -50,7 +63,11 @@ from tip_tpu_torch.nn import (
     fm_encoder_apply,
     fm_encoder_init,
 )
-from tip_tpu_torch.nn.decoders import distmult_apply_padded
+from tip_tpu_torch.nn.decoders import (
+    distmult_apply_padded,
+    distmult_dense_pos_bce_sum,
+)
+from tip_tpu_torch.ops.dense_bce import dense_bce_sum
 from tip_tpu_torch.ops.dense_bce_sym import dense_bce_sym_sum, softplus
 from tip_tpu_torch.sampling import (
     bitmap_tensor,
@@ -58,8 +75,7 @@ from tip_tpu_torch.sampling import (
     typed_negative_sampling_chunked,
 )
 
-LATER_SLICE = ("the float32 full-page path (kernel B2) is a later slice of "
-               "the port")
+PAGE_ITEMSIZE = {"bfloat16": 2, "float32": 4}
 POISSON_NEEDS_DENSE = (
     "negatives='poisson' was pinned but the fused dense BCE path cannot run "
     "here (it needs the dense adjacency pages and the distmult decoder, and "
@@ -89,10 +105,13 @@ class GraphStatic:
     dd_n_chunks: int = 0
     pp_window: int = 1024
     pp_n_windows: int = 0
-    # 'strips' (kernel B1) | 'chunked' (B4, B8 or B9, B10) | 'strips_pages'
-    # (strips for the encoder, full pages for the NN decoder's loss, B3;
-    # models/dd.py only)
+    # 'strips' (kernel B1) | 'pages' (full pages, B2; B3 for the NN decoder)
+    # | 'chunked' (B4, B8 or B9, B10) | 'strips_pages' (strips for the
+    # encoder, uint8 full pages for the NN decoder's loss, B3; models/dd.py
+    # only)
     dd_layout: str = "strips"
+    # strips or pages packed for sampled negatives (dense_dd_arrays)
+    dd_sampled: bool = False
     # 'dense' (pp_a1, pp_dinv) | 'windowed' (ppw_*, B5) | 'none' (no P-P
     # side: models/dd.py)
     pp_layout: str = "dense"
@@ -103,40 +122,142 @@ def dense_rgcn_feasible(n_drug: int, n_et: int, itemsize: int = 2) -> bool:
     return n_et * n_drug * n_drug * itemsize <= 2.5e9
 
 
-def preferred_dense_dtype(data: TriGraphData) -> Optional[str]:
-    """'bfloat16' where the JAX package picks the bf16 strip layout (counts
-    exact in bf16 and the adjacency feasible), else 'float32' or None."""
+def preferred_dense_dtype(data: TriGraphData, kernel_dtype: str = "float32",
+                          matmul_precision: str = "default") -> Optional[str]:
+    """Page dtype of the dense D-D layout the JAX package picks, or None
+    (the chunked layout).
+
+    bf16 pages (the strips where they can be built) are preferred whatever
+    the kernel dtype: their counts are exact up to 256 and default-precision
+    matmuls round to bf16 anyway.  ``matmul_precision`` stands for
+    ``jax_default_matmul_precision``: a float32 kernel dtype with
+    "float32" or "highest" asks for exact float32 matmuls, so only float32
+    pages are tried.  Otherwise bf16, then ``kernel_dtype``; each where
+    the pages fit the dense budget and hold the largest count exactly."""
+    f32_matmuls = (kernel_dtype == "float32"
+                   and matmul_precision in ("float32", "highest"))
+    candidates = ((kernel_dtype,) if f32_matmuls
+                  else ("bfloat16", kernel_dtype))
     m = None
-    for cand, itemsize, limit in (("bfloat16", 2, 256),
-                                  ("float32", 4, 2**24)):
-        if not dense_rgcn_feasible(data.n_drug, data.n_et, itemsize):
+    for cand in candidates:
+        if not dense_rgcn_feasible(data.n_drug, data.n_et,
+                                   PAGE_ITEMSIZE[cand]):
             continue
         if m is None:
             m = max_multiplicity(data.dd_train, data.n_drug)
-        if m <= limit:
+        if m <= PAGE_EXACT_MAX[cand]:
             return cand
     return None
+
+
+def pages_tensor(da, dtype: str, device=None) -> torch.Tensor:
+    """The count pages [R, n, n] (dense_relation_adj) as a tensor of page
+    dtype ``dtype`` on ``device``, cast exactly (cast_dense_adj)."""
+    pages = torch.from_numpy(cast_dense_adj(da, dtype))
+    if dtype == "bfloat16":
+        pages = pages.view(torch.bfloat16)
+    return pages.to(device)
+
+
+def dense_dd_arrays(data: TriGraphData, dense_dtype: str, device=None,
+                    sampled: bool = False, decoder: str = "distmult"):
+    """(layout, tensors) of the dense D-D layouts, shipping what the route
+    reads.
+
+    The encoder reads the int8 strips ``dd_adj_sym`` where a bf16
+    ``dense_dtype`` can build them ('strips'), else the full count pages
+    ``dd_adj_t`` in ``dense_dtype`` ('pages'), as the JAX package falls
+    back.  The Poissonized loss reads the strips' thresholds ``dd_neg_q8``
+    (kernel B1) or the pages' ``dd_neg_q`` (kernel B2); the NN decoder's
+    (kernel B3) reads uint8 pages ``dd_adj_u8`` and ``dd_neg_q``, its
+    strips layout being 'strips_pages'.  With ``sampled`` the Poissonized
+    inputs stay home; DistMult then scores its positives over ``dd_adj_t``
+    (shipped beside the strips too), and the caller ships the chunk
+    buffers (:func:`chunk_arrays`)."""
+    da = dense_relation_adj(data.dd_train, data.n_drug)
+
+    def t(x):
+        return torch.from_numpy(x).to(device)
+
+    out, layout = {}, "pages"
+    if dense_dtype == "bfloat16":
+        try:
+            out["dd_adj_sym"] = t(sym_strip_pack(da))
+            layout = "strips"
+        except ValueError:  # asymmetric pages or counts past int8
+            pass
+    if layout == "pages" or (sampled and decoder == "distmult"):
+        out["dd_adj_t"] = pages_tensor(da, dense_dtype, device)
+    if not sampled:
+        if layout == "strips" and decoder == "distmult":
+            out["dd_neg_q8"] = t(poisson_neg_thresholds_sym(data.dd_train,
+                                                            data.n_drug))
+        else:
+            out["dd_neg_q"] = t(poisson_neg_thresholds(data.dd_train,
+                                                       data.n_drug))
+        if decoder == "nn":
+            try:
+                out["dd_adj_u8"] = t(cast_dense_adj(da, "uint8"))
+            except ValueError as e:
+                raise ValueError(
+                    "the NN decoder's dense BCE (kernel B3) reads uint8 "
+                    f"pages: {e}") from e
+    if decoder == "nn" and layout == "strips":
+        layout = "strips_pages"
+    return layout, out
+
+
+def check_negatives(negatives: str, gs: GraphStatic) -> None:
+    """Raise unless the graph was packed for the ``negatives`` route."""
+    if gs.dd_layout == "chunked":
+        if negatives == "poisson":
+            raise ValueError(POISSON_NEEDS_DENSE)
+    elif gs.dd_sampled != (negatives == "sampled"):
+        raise ValueError(
+            f"negatives={negatives!r} on a {gs.dd_layout!r} graph packed "
+            f"with sampled={gs.dd_sampled}: sampled negatives read the chunk "
+            "buffers, the others the Poissonized thresholds; pack with "
+            f"sampled={negatives == 'sampled'}")
+
+
+def chunk_arrays(data: TriGraphData, dd_chunk: int, device=None) -> dict:
+    """The chunk-aligned D-D buffers and the train bitmap: the chunked
+    layout, and the sampled-negative route beside the strips or pages."""
+    padded = pad_typed_edges(data.dd_train, data.n_drug, chunk=dd_chunk)
+    n_chunks = padded.chunk_type.shape[0]
+
+    def t(x):
+        return torch.from_numpy(x).to(device)
+
+    return {
+        "dd_src2d": t(padded.src.reshape(n_chunks, dd_chunk)),
+        "dd_dst2d": t(padded.dst.reshape(n_chunks, dd_chunk)),
+        "dd_valid": t(padded.valid.astype("float32")),
+        "dd_chunk_type": t(padded.chunk_type),
+        "dd_bitmap": bitmap_tensor(data.dd_train_bitmap, device),
+    }
 
 
 def make_graph_arrays(data: TriGraphData, device=None, dd_chunk: int = 1024,
                       pp_window: int = 1024, pp_chunk: int = 512,
                       dense_dtype: Optional[str] = None,
-                      pp_dense: Optional[bool] = None):
+                      pp_dense: Optional[bool] = None, sampled: bool = False):
     """Pack the training graph into tensors on ``device`` + static metadata.
 
-    ``dense_dtype="bfloat16"`` ships the D-D symmetric strips and their
-    thresholds (not the full ``dd_adj_t`` pages the JAX package keeps
-    beside them); None ships the chunked D-D buffers (relation bins padded
-    to ``dd_chunk``) and the train bitmap; "float32" (the full pages)
-    raises.  ``pp_dense`` (default: ``dense_dtype is not None``) ships the
-    dense int8 (A+I) P-P parts where feasible and free of duplicates, else
-    the P-P edges windowed by ``pp_window`` and padded to ``pp_chunk``."""
-    if dense_dtype not in (None, "bfloat16"):
-        raise NotImplementedError(
-            f"dense_dtype={dense_dtype!r} needs the float32 full pages; "
-            + LATER_SLICE)
-    padded = pad_typed_edges(data.dd_train, data.n_drug, chunk=dd_chunk)
-    n_chunks = padded.chunk_type.shape[0]
+    ``dense_dtype="bfloat16"`` ships the D-D symmetric strips, or, where
+    they cannot be built (an asymmetric page, a count past int8), the full
+    bf16 pages as the JAX package falls back; "float32" ships the full
+    float32 pages (:func:`dense_dd_arrays`); None ships the chunked D-D
+    buffers (relation bins padded to ``dd_chunk``) and the train bitmap.
+    ``sampled`` packs the strips or pages for ``negatives="sampled"``: the
+    chunk buffers and the bitmap beside them, and no Poissonized
+    thresholds.  ``pp_dense`` (default: ``dense_dtype is not None``) ships
+    the dense int8 (A+I) P-P parts where feasible and free of duplicates,
+    else the P-P edges windowed by ``pp_window`` and padded to
+    ``pp_chunk``."""
+    if dense_dtype not in (None, "bfloat16", "float32"):
+        raise ValueError(f"dense_dtype {dense_dtype!r}: None, 'bfloat16' or "
+                         "'float32'")
 
     def t(x):
         return torch.from_numpy(x).to(device)
@@ -147,26 +268,12 @@ def make_graph_arrays(data: TriGraphData, device=None, dd_chunk: int = 1024,
         "dp_dst": t(data.dp_edge_index[1].astype("int64")),
         "dp_deg": t(data.dp_drug_deg),
     }
-    if dense_dtype is None:
-        graph.update(
-            dd_src2d=t(padded.src.reshape(n_chunks, dd_chunk)),
-            dd_dst2d=t(padded.dst.reshape(n_chunks, dd_chunk)),
-            dd_valid=t(padded.valid.astype("float32")),
-            dd_chunk_type=t(padded.chunk_type),
-            dd_bitmap=bitmap_tensor(data.dd_train_bitmap, device),
-        )
-    else:
-        da = dense_relation_adj(data.dd_train, data.n_drug)
-        try:
-            strips = sym_strip_pack(da)
-        except ValueError as e:
-            raise NotImplementedError(
-                f"symmetric strips cannot be built ({e}); " + LATER_SLICE
-            ) from e
-        del da
-        graph["dd_adj_sym"] = t(strips)
-        graph["dd_neg_q8"] = t(poisson_neg_thresholds_sym(data.dd_train,
-                                                          data.n_drug))
+    layout = "chunked"
+    if dense_dtype is not None:
+        layout, dd = dense_dd_arrays(data, dense_dtype, device, sampled)
+        graph.update(dd)
+    if layout == "chunked" or sampled:
+        graph.update(chunk_arrays(data, dd_chunk, device))
     if pp_dense is None:
         pp_dense = dense_dtype is not None
     a1 = None
@@ -194,11 +301,12 @@ def make_graph_arrays(data: TriGraphData, device=None, dd_chunk: int = 1024,
         graph["d_norm"] = t(data.d_norm)
     gs = GraphStatic(
         n_drug=data.n_drug, n_prot=data.n_prot, n_et=data.n_et,
-        dd_n_valid=padded.n_valid,
+        dd_n_valid=data.dd_train.n_edges,
         drug_feat_dim=0 if data.drug_feat is None else data.drug_feat.shape[1],
-        dd_chunk=dd_chunk, dd_n_chunks=n_chunks, pp_window=pp_window,
-        pp_n_windows=wpp.n_windows,
-        dd_layout="strips" if dense_dtype else "chunked",
+        dd_chunk=dd_chunk, pp_window=pp_window,
+        dd_n_chunks=graph["dd_src2d"].shape[0] if "dd_src2d" in graph else 0,
+        pp_n_windows=wpp.n_windows, dd_layout=layout,
+        dd_sampled=sampled and layout != "chunked",
         pp_layout="windowed" if a1 is None else "dense",
     )
     return graph, gs
@@ -232,12 +340,7 @@ class TIP:
         if data.n_et * bitmap_stride_bits(data.n_drug) >= 2**31:
             raise ValueError(
                 "relation-strided key space exceeds int32; enable x64 keys")
-        if gs.dd_layout == "chunked" and cfg.negatives == "poisson":
-            raise ValueError(POISSON_NEEDS_DENSE)
-        if gs.dd_layout == "strips" and cfg.negatives == "sampled":
-            raise NotImplementedError(
-                "sampled negatives on the strip layout score their positives "
-                "against the full pages; " + LATER_SLICE)
+        check_negatives(cfg.negatives, gs)
         return TIP(cfg=cfg, gs=gs, device=resolve_device(device))
 
     def init(self, gen: torch.Generator) -> dict:
@@ -269,30 +372,41 @@ class TIP:
         """Mean BCE over the train edges.  ``seed`` (uint32) keys the
         negatives; ``u24`` (CPU only) replaces their random bits.
 
-        Strip layout: positives plus Poissonized negatives from the fused
-        symmetric dense BCE (kernel B1; ``u24`` is its cell field).
-        Chunked layout: one sampled negative per slot (kernel B10; ``u24``
-        is the sampler's [n_chunks, 1, draws * chunk] draws), positives and
-        negatives scored by the DistMult SDDMM (kernel B8), softplus terms
-        masked by ``dd_valid``."""
+        Strips or pages with ``negatives`` auto or poisson: positives plus
+        Poissonized negatives from the fused dense BCE, kernel B1 on the
+        strips, B2 on the pages (``u24`` is its cell field).  Otherwise
+        (the chunked layout, or ``negatives="sampled"``): one sampled
+        negative per slot (kernel B10; ``u24`` is the sampler's [n_chunks,
+        1, draws * chunk] draws) scored by the DistMult SDDMM (kernel B8),
+        positives scored by B8 on the chunked layout and over the full
+        pages on the dense ones, softplus terms of slots masked by
+        ``dd_valid``."""
         gs = self.gs
         z = self.encode(params, graph)
-        if gs.dd_layout == "strips":
-            total = dense_bce_sym_sum(params["decoder"]["weight"], z,
-                                      graph["dd_adj_sym"], graph["dd_neg_q8"],
-                                      seed, u24=u24)
+        w = params["decoder"]["weight"]
+        if gs.dd_layout != "chunked" and self.cfg.negatives != "sampled":
+            if gs.dd_layout == "strips":
+                total = dense_bce_sym_sum(w, z, graph["dd_adj_sym"],
+                                          graph["dd_neg_q8"], seed, u24=u24)
+            else:
+                total = dense_bce_sum(w, z, graph["dd_adj_t"],
+                                      graph["dd_neg_q"], seed, u24=u24)
             return total / float(gs.dd_n_valid)
         ct = graph["dd_chunk_type"]
         neg_src2d, neg_dst2d = typed_negative_sampling_chunked(
             seed, ct, graph["dd_bitmap"], gs.n_drug, gs.n_et, gs.dd_chunk,
             u24=u24)
         valid = graph["dd_valid"]
-        pos = self.score_padded(params, z, graph["dd_src2d"],
-                                graph["dd_dst2d"], ct, sigmoid=False)
+        if gs.dd_layout == "chunked":
+            pos = self.score_padded(params, z, graph["dd_src2d"],
+                                    graph["dd_dst2d"], ct, sigmoid=False)
+            pos_sum = torch.sum(softplus(-pos) * valid)
+        else:
+            pos_sum = distmult_dense_pos_bce_sum(
+                w, z, graph["dd_adj_t"], kernel_dtype=self.cfg.kernel_dtype)
         neg = self.score_padded(params, z, neg_src2d, neg_dst2d, ct,
                                 sigmoid=False)
-        total = (torch.sum(softplus(-pos) * valid)
-                 + torch.sum(softplus(neg) * valid))
+        total = pos_sum + torch.sum(softplus(neg) * valid)
         return total / float(gs.dd_n_valid)
 
     def sample_test_negatives(self, gen: torch.Generator, test):
