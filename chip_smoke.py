@@ -9,34 +9,43 @@ Phases, each fatal on failure:
   3. hold the whole training loss and its gradients on the GPU against the
      same slice on the CPU, on a small graph: TIP-cat and DR-NN on the
      strips and the chunked layout, TIP-cat and DR-DF on the float32 full
-     pages, TIP-cat with sampled negatives on the strips;
+     pages, TIP-cat with sampled negatives on the strips, TIP-cat with the
+     NN decoder on the strips and chunked, DR-NN on the float32 pages;
   4. build a Decagon-shaped synthetic tri-graph (645 drugs, 19,081
      proteins, 1,097 relations), pack it in both layouts, and hold each
      kernel against its plain PyTorch version (KERNEL_CHECKS: B1 on the
      dense strips, B2 on the full float32 and bf16 pages and B3 on DR-NN's
-     uint8 pages, the dense paths' shapes; B4, B5, B8, B9, B10 on the
-     chunked buffers);
+     uint8, bf16 and float32 pages, the dense paths' shapes; B4-B10 on the
+     chunked buffers, B6 and B7 also against B8 and B9);
   5. the dense TIP paths: train TIP-cat at full width for a few Adam steps
      on the Decagon-shaped graph through tip_tpu_torch.train.loop.train,
      then the final eval, with every kernel launch counter set to 0 just
      before and read just after; then profile a few more steps (device
      time by kernel, idle share).  "tip dense" on the strips (B1), "tip
      pages" with float32 matmuls pinned (train(..., matmul_precision=
-     "highest")), which takes the float32 full pages (B2), and "tip strips
-     sampled" with sampled negatives on the strips (B10, B8; unprofiled);
+     "highest")), which takes the float32 full pages (B2), "tip strips
+     sampled" with sampled negatives on the strips (B10, B8; unprofiled),
+     and "tip-nn dense", TIP-cat with the NN decoder: the strips for the
+     encoder, the chunk buffers for its sampled loss (B10, B9);
   6. the model variants through the models runner (build_variant,
      train_variant) on the same graph, each at the default widths, counters
-     as in 5: DR-NN on the strips and pages (B3; profiled), then DR-DF
-     (B1), PR-HMP-NN and PP-GAE (no kernel), and DR-DF with float32
-     matmuls pinned ("dr-df pages", B2);
-  7. hold B4, B5, B8, B9 and B10 against their plain versions again on the
-     graph beyond the dense budget (BEYOND_DENSE: the chunked paths' own
-     shapes, timed) and on a graph too wide for any shared-memory table
-     (WIDE: the kernels' global-memory and two-draw modes);
-  8. the chunked paths on BEYOND_DENSE: TIP-cat as in 5 and DR-NN as in 6
+     as in 5: DR-NN on the strips and uint8 pages (B3; profiled), DR-NN
+     with float32 matmuls pinned ("dr-nn pages": B3 on the float32 pages),
+     then DR-DF (B1), PR-HMP-NN and PP-GAE (no kernel), and DR-DF with
+     float32 matmuls pinned ("dr-df pages", B2);
+  7. the decoder A/B entry point (tip_tpu_torch/scripts/decoder_ab.py) on
+     the same graph in float32, counters as in 5: v1 (B6, B7) against v2
+     (B8, B9) against a plain gather, the sampler (B10), the positives' BCE;
+  8. hold B4-B10 against their plain versions again on the graph beyond
+     the dense budget (BEYOND_DENSE: the chunked paths' own shapes, timed)
+     and on a graph too wide for any shared-memory table (WIDE: the
+     kernels' global-memory and two-draw modes);
+  9. the chunked paths on BEYOND_DENSE: TIP-cat and TIP-cat with the NN
+     decoder as in 5 (B10, B8 or B9, B4, B5; profiled) and DR-NN as in 6
      (B10, B9, B4; profiled);
-  9. print the kernels line (each kernel timed at its path's shapes), the
-     card line and, last, the result line {"ok": true, "device": {...}}.
+ 10. print the kernels line (each kernel timed at the shapes of the path
+     whose launches it reports, KERNEL_PATH), the card line and, last, the
+     result line {"ok": true, "device": {...}}.
 Without a CUDA device it exits non-zero before printing any result.
 """
 
@@ -56,11 +65,8 @@ sys.path.insert(0, ROOT)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 
-# Decagon shape: 645 drugs, 19,081 proteins, 1,097 relations; ~4,600 drawn
-# pairs a relation give Decagon's ~8.3 M directed D-D train edges after
-# de-duplication and the 90/10 split
-DECAGON_SHAPE = dict(n_drug=645, n_prot=19081, n_et=1097, pairs_per_et=4600,
-                     n_pp_pairs=715612, n_dp=18596, seed=0)
+# The Decagon shape (645 drugs, 19,081 proteins, 1,097 relations) is the
+# decoder A/B's DECAGON_SHAPE (tip_tpu_torch/scripts/decoder_ab.py).
 # Beyond the dense budget: bf16 pages would take 800 x 1536^2 x 2 B =
 # 3.77 GB > 2.5 GB, so train() picks the chunked layout.  The D-D side is
 # bench.py's beyond-dense lane (1536 drugs); the per-relation pair count and
@@ -779,13 +785,17 @@ def check_dense_bce_nn_shapes(dev) -> list:
 def check_dense_bce_nn(graph, gs, data, dev, timed: bool = True) -> dict:
     """Kernel B3 against its plain version and the float64 oracle on DR-NN's
     dense graph (the uint8 pages and thresholds make_dd_graph_arrays ships
-    for the NN decoder; R = 1097, n = 645, l1 = 16)."""
+    beside the strips for the NN decoder; R = 1097, n = 645, l1 = 16), then
+    on the bf16 and float32 pages of the same counts (DR-NN's pages
+    layout), where it must give the uint8 pages' result bit for bit (a cell
+    is read as float) and agree with the plain version."""
     import torch
 
     from tip_tpu_torch.data.packing import (
         cast_dense_adj, dense_relation_adj, poisson_neg_thresholds,
     )
     from tip_tpu_torch.ops import dense_bce_nn as bce
+    from tip_tpu_torch.train.model import pages_tensor
 
     n = data.n_drug
     da = cast_dense_adj(dense_relation_adj(data.dd_train, n), "uint8")
@@ -838,24 +848,43 @@ def check_dense_bce_nn(graph, gs, data, dev, timed: bool = True) -> dict:
     drop = float(loss_k) - float(after)
     check(abs(drop - lr * g2) < 0.2 * lr * g2, f"B3 descent {drop} vs {lr * g2}")
     rep["descent"] = {"drop": drop, "predicted": lr * g2}
+
+    # the bf16 and float32 pages of DR-NN's pages layout
+    float_pages = []
+    for dtype in ("bfloat16", "float32"):
+        pg = pages_tensor(da, dtype, dev)
+        lk, *gk = bce.dense_bce_nn_cuda(*args, pg, q, seed, True)
+        check(float(lk) == float(loss_k) and all(
+            torch.equal(a, b) for a, b in zip(gk, grads_k)),
+            f"B3 on {dtype} pages differs from the uint8 pages")
+        lp, *gp = bce.dense_bce_nn_plain(*args, pg, q, seed, True)
+        prel = abs(float(lk) - float(lp)) / abs(float(lp))
+        perrs = _frac_errs(gk, gp)
+        check(prel < 1e-5 and max(perrs) <= 1e-3,
+              f"B3 {dtype} pages vs plain: {prel}, {perrs}")
+        rep[dtype] = {"equals_uint8": True, "loss_rel_err": prel,
+                      "grad_err_frac": perrs}
+        float_pages.append((dtype, pg))
     if not timed:
         return rep
 
-    rep["ms"] = cuda_ms(lambda: bce.dense_bce_nn_cuda(
-        *args, pages, q, seed, True), reps=20, primed=True)
-    rep["value_only_ms"] = cuda_ms(lambda: bce.dense_bce_nn_cuda(
-        *args, pages, q, seed, False), reps=20, primed=True)
-    rep["plain_ms"] = cuda_ms(lambda: bce.dense_bce_nn_plain(
-        *args, pages, q, seed, True), reps=3, warmup=1)
-    rep["library_ms"] = None  # no single PyTorch call computes it
     # bound: each input read once, each output written once; ~25 float
     # operations a cell (outer sum, softplus, sigmoid, counts, G, the two
     # running sums) plus the O(R n l1) score and gradient contractions
     cells = n_et * n * n
     flops = 25 * cells + 2 * 4 * n_et * n * d
-    rep.update(bound(nbytes(pages, q, *args) + 4 * (1 + sum(
-        a.numel() for a in args)), flops))
+    out_bytes = 4 * (1 + sum(a.numel() for a in args))
     rep["cells"] = cells
+    for dtype, pg in (("uint8", pages), *float_pages):
+        r = rep if dtype == "uint8" else rep[dtype]
+        r["ms"] = cuda_ms(lambda: bce.dense_bce_nn_cuda(
+            *args, pg, q, seed, True), reps=20, primed=True)
+        r["value_only_ms"] = cuda_ms(lambda: bce.dense_bce_nn_cuda(
+            *args, pg, q, seed, False), reps=20, primed=True)
+        r["plain_ms"] = cuda_ms(lambda: bce.dense_bce_nn_plain(
+            *args, pg, q, seed, True), reps=3, warmup=1)
+        r.update(bound(nbytes(pg, q, *args) + out_bytes, flops))
+    rep["library_ms"] = None  # no single PyTorch call computes it
     return rep
 
 
@@ -932,6 +961,173 @@ def check_nn_sddmm(graph, gs, data, dev, timed: bool = True) -> dict:
     return rep
 
 
+def check_distmult_sddmm_v1(graph, gs, data, dev, timed: bool = True) -> dict:
+    """Kernel B6 forward (logits) and backward (dz, dw) against the plain
+    version at d = 16, with its tables where the wrapper puts them for this
+    graph (shared memory up to 3,417 nodes forward and 3,402 backward,
+    global memory past that) and forced to global memory, in float32 and
+    with the bf16 rounding of z and of each scattered contribution; pad
+    logits must be exactly 0.  Float32 order only: 1e-5 of the largest
+    logit, 1e-4 of the largest dz and dw.  Then B6 against B8 in float32:
+    the same logits on valid slots, bit for bit (B6 launches B8's forward,
+    csrc/distmult_fwd.cuh), and the same grads under a masked cotangent
+    within 1e-4 (products taken in another order)."""
+    import torch
+
+    from tip_tpu_torch.ops import sddmm2
+    from tip_tpu_torch.ops import typed_segment as ts
+    from tip_tpu_torch.ops.matmul import bf16_round
+
+    bufs = (graph["dd_src2d"], graph["dd_dst2d"], graph["dd_chunk_type"])
+    d, n = ts.D, gs.n_drug
+    gen = torch.Generator().manual_seed(25)
+    z = (0.5 * torch.randn(n, d, generator=gen)).to(dev)
+    w = (0.3 * torch.randn(gs.n_et, d, generator=gen)).to(dev)
+    g = torch.randn(bufs[0].shape, generator=gen).to(dev)
+    valid = graph["dd_valid"].reshape(bufs[0].shape) > 0
+    rep = {"d": d, "fwd_shared": ts.v1_shared_fits(n, 1, False),
+           "bwd_shared": ts.v1_shared_fits(n, 1, True),
+           "pad_slots": int((~valid).sum())}
+    worst = 0.0
+    for bf16 in (False, True):
+        zr = bf16_round(z) if bf16 else z  # the wrapper's compute_round
+        args = (zr, w, *bufs)
+        lp = ts.distmult_v1_fwd_plain(*args)
+        dzp, dwp = ts.distmult_v1_bwd_plain(*args, g, bf16)
+        for table in (None, "global"):
+            tag = ("bf16_" if bf16 else "") + (table or "auto")
+            lk = ts.distmult_v1_fwd_cuda(*args, table=table)
+            dzk, dwk = ts.distmult_v1_bwd_cuda(*args, g, bf16, table=table)
+            el, ml = max_err(lk, lp)
+            ez, mz = max_err(dzk, dzp)
+            ew, mw = max_err(dwk, dwp)
+            check(el <= 1e-5 * ml, f"B6 {tag} logits err {el} of max {ml}")
+            check(ez <= 1e-4 * mz and ew <= 1e-4 * mw,
+                  f"B6 {tag} grads err {ez} of {mz}, {ew} of {mw}")
+            check(bool((lk[~valid] == 0).all()), f"B6 {tag} pad logits not 0")
+            rep[tag] = {"logit_max_abs_err": el, "dz_max_abs_err": ez,
+                        "dw_max_abs_err": ew}
+            worst = max(worst, el, ez, ew)
+    # v1 against v2 (B8) in float32
+    args = (z, w, *bufs)
+    gm = g * valid
+    l1, l2 = ts.distmult_v1_fwd_cuda(*args), sddmm2.distmult_logits_cuda(*args)
+    check(torch.equal(l1[valid], l2[valid]), "B6 and B8 logits differ")
+    errs = _frac_errs(ts.distmult_v1_bwd_cuda(*args, gm),
+                      sddmm2.distmult_bwd_cuda(*args, gm))
+    check(max(errs) <= 1e-4, f"B6 vs B8 grads (dz, dw) {errs} of their max")
+    rep["vs_v2"] = {"logits_equal": True, "grad_err_frac": errs}
+    rep["max_abs_err"] = worst
+    if not timed:
+        return rep
+
+    rep["ms"] = cuda_ms(lambda: ts.distmult_v1_fwd_cuda(*args), reps=20,
+                        primed=True)
+    rep["bwd_ms"] = cuda_ms(lambda: ts.distmult_v1_bwd_cuda(*args, g),
+                            reps=20, primed=True)
+    rep["global_ms"] = cuda_ms(lambda: ts.distmult_v1_fwd_cuda(
+        *args, table="global"), reps=20, primed=True)
+    rep["bwd_global_ms"] = cuda_ms(lambda: ts.distmult_v1_bwd_cuda(
+        *args, g, table="global"), reps=20, primed=True)
+    rep["plain_ms"] = cuda_ms(lambda: ts.distmult_v1_fwd_plain(*args),
+                              reps=3, warmup=1)
+    rep["bwd_plain_ms"] = cuda_ms(lambda: ts.distmult_v1_bwd_plain(*args, g),
+                                  reps=3, warmup=1)
+    rep["library_ms"] = None  # no single PyTorch call computes it
+    slots = bufs[0].numel()
+    fwd = bound(nbytes(*bufs, z, w) + 4 * slots, 3 * d * slots)
+    bwd = bound(nbytes(*bufs, z, w, g) + nbytes(z, w), 9 * d * slots)
+    rep.update(fwd)
+    rep.update(bwd_bound_ms=bwd["bound_ms"], bwd_bound_by=bwd["bound_by"],
+               slots=slots)
+    return rep
+
+
+def check_nn_sddmm_v1(graph, gs, data, dev, timed: bool = True) -> dict:
+    """Kernel B7 forward (logits) and backward (dh1, dh2, dw1, dw2) against
+    the plain version at l1 = 16, with its tables where the wrapper puts
+    them for this graph (shared memory up to 1,708 nodes forward and 1,693
+    backward) and forced to global memory, in float32 and with bf16
+    rounding.  Logits are compared on every slot (a pad slot scores its pad
+    src alike in both); with h1 = 0 the pad slots' logits (their dst terms)
+    must be exactly 0.  Float32 order only: 1e-5 of the largest logit, 1e-4
+    of the largest gradient.  Then B7 against B9 in float32 on valid slots
+    (the same sums in another order: 1e-5 and 1e-4 of their max)."""
+    import torch
+
+    from tip_tpu_torch.ops import sddmm2
+    from tip_tpu_torch.ops import typed_segment as ts
+    from tip_tpu_torch.ops.matmul import bf16_round
+
+    bufs = (graph["dd_src2d"], graph["dd_dst2d"], graph["dd_chunk_type"])
+    d, n, n_et = ts.D, gs.n_drug, gs.n_et
+    gen = torch.Generator().manual_seed(26)
+    h1, h2 = (torch.relu(torch.randn(n, d, generator=gen)).to(dev)
+              for _ in range(2))
+    w1, w2 = ((0.3 * torch.randn(n_et, d, generator=gen)).to(dev)
+              for _ in range(2))
+    g = torch.randn(bufs[0].shape, generator=gen).to(dev)
+    valid = graph["dd_valid"].reshape(bufs[0].shape) > 0
+    rep = {"d": d, "fwd_shared": ts.v1_shared_fits(n, 2, False),
+           "bwd_shared": ts.v1_shared_fits(n, 2, True),
+           "pad_slots": int((~valid).sum())}
+    worst = 0.0
+    for bf16 in (False, True):
+        hr = [bf16_round(h) if bf16 else h for h in (h1, h2)]
+        args = (*hr, w1, w2, *bufs)
+        lp = ts.nn_v1_fwd_plain(*args)
+        gp = ts.nn_v1_bwd_plain(*args, g, bf16)
+        for table in (None, "global"):
+            tag = ("bf16_" if bf16 else "") + (table or "auto")
+            lk = ts.nn_v1_fwd_cuda(*args, table=table)
+            gk = ts.nn_v1_bwd_cuda(*args, g, bf16, table=table)
+            el, ml = max_err(lk, lp)
+            check(el <= 1e-5 * ml, f"B7 {tag} logits err {el} of max {ml}")
+            errs = _frac_errs(gk, gp)
+            check(max(errs) <= 1e-4, f"B7 {tag} grads (dh1, dh2, dw1, dw2) "
+                  f"err {errs} of their max")
+            l0 = ts.nn_v1_fwd_cuda(torch.zeros_like(hr[0]), *args[1:],
+                                   table=table)
+            check(bool((l0[~valid] == 0).all()), f"B7 {tag} pad dst terms not 0")
+            rep[tag] = {"logit_max_abs_err": el, "grad_err_frac": errs}
+            worst = max(worst, el, *(max_err(a, b)[0] for a, b in zip(gk, gp)))
+    # v1 against v2 (B9) in float32
+    args = (h1, h2, w1, w2, *bufs)
+    gm = g * valid
+    el, ml = max_err(ts.nn_v1_fwd_cuda(*args)[valid],
+                     sddmm2.nn_logits_cuda(*args)[valid])
+    check(el <= 1e-5 * ml, f"B7 vs B9 logits err {el} of max {ml}")
+    errs = _frac_errs(ts.nn_v1_bwd_cuda(*args, gm), sddmm2.nn_bwd_cuda(*args, gm))
+    check(max(errs) <= 1e-4, f"B7 vs B9 grads {errs} of their max")
+    rep["vs_v2"] = {"logit_max_abs_err": el, "grad_err_frac": errs}
+    rep["max_abs_err"] = worst
+    if not timed:
+        return rep
+
+    rep["ms"] = cuda_ms(lambda: ts.nn_v1_fwd_cuda(*args), reps=20, primed=True)
+    rep["bwd_ms"] = cuda_ms(lambda: ts.nn_v1_bwd_cuda(*args, g), reps=20,
+                            primed=True)
+    rep["global_ms"] = cuda_ms(lambda: ts.nn_v1_fwd_cuda(
+        *args, table="global"), reps=20, primed=True)
+    rep["bwd_global_ms"] = cuda_ms(lambda: ts.nn_v1_bwd_cuda(
+        *args, g, table="global"), reps=20, primed=True)
+    rep["bwd_bf16_ms"] = cuda_ms(lambda: ts.nn_v1_bwd_cuda(*args, g, True),
+                                 reps=20, primed=True)
+    rep["plain_ms"] = cuda_ms(lambda: ts.nn_v1_fwd_plain(*args), reps=3,
+                              warmup=1)
+    rep["bwd_plain_ms"] = cuda_ms(lambda: ts.nn_v1_bwd_plain(*args, g),
+                                  reps=3, warmup=1)
+    rep["library_ms"] = None  # no single PyTorch call computes it
+    slots = bufs[0].numel()
+    fwd = bound(nbytes(*bufs, h1, h2, w1, w2) + 4 * slots, 4 * d * slots)
+    bwd = bound(nbytes(*bufs, g, h1, h2, w1, w2) + nbytes(h1, h2, w1, w2),
+                6 * d * slots)
+    rep.update(fwd)
+    rep.update(bwd_bound_ms=bwd["bound_ms"], bwd_bound_by=bwd["bound_by"],
+               slots=slots)
+    return rep
+
+
 # name -> (the layout whose kernel checks run it, its check)
 KERNEL_CHECKS = {
     "dense_bce_sym": ("dense", check_dense_bce_sym),
@@ -942,6 +1138,8 @@ KERNEL_CHECKS = {
     "typed_neg_sampler": ("chunked", check_typed_neg_sampler),
     "dense_bce_nn": ("dense", check_dense_bce_nn),
     "nn_sddmm": ("chunked", check_nn_sddmm),
+    "distmult_sddmm_v1": ("chunked", check_distmult_sddmm_v1),
+    "nn_sddmm_v1": ("chunked", check_nn_sddmm_v1),
 }
 
 
@@ -962,8 +1160,9 @@ def check_small_slice_cpu_vs_gpu(dev, dense_dtype, model_kind: str = "tip",
                                  pp_dense=None) -> dict:
     """The training loss and its gradients on a small graph, on the GPU
     (kernels) and on the CPU (plain versions) with the same parameters and
-    seed: TIP-cat (``model_kind="tip"``), DR-NN (``"dr-nn"``) or DR-DF
-    (``"dr-df"``), with ``negatives``.  The hashed fields (B1's, B2's and
+    seed: TIP-cat (``model_kind="tip"``), TIP-cat with the NN decoder
+    (``"tip-nn"``), DR-NN (``"dr-nn"``) or DR-DF (``"dr-df"``), with
+    ``negatives``.  The hashed fields (B1's, B2's and
     B3's cells, B10's draws) are the same on both, so only f32 order and,
     on the strips, bf16 re-rounding of activations differ: loss rtol 1e-3
     and grads 2e-2 of their max on the strips, loss rtol 1e-5 and grads
@@ -988,11 +1187,14 @@ def check_small_slice_cpu_vs_gpu(dev, dense_dtype, model_kind: str = "tip",
     out = {}
     params_np = None
     for name in ("cpu", "cuda"):
-        if model_kind == "tip":
+        if model_kind in ("tip", "tip-nn"):
+            decoder = "nn" if model_kind == "tip-nn" else "distmult"
             graph, gs = make_graph_arrays(data, device=name,
                                           dense_dtype=dense_dtype,
-                                          sampled=sampled, pp_dense=pp_dense)
-            cfg = dataclasses.replace(ModelConfig.tip_cat(), negatives=negatives)
+                                          sampled=sampled, pp_dense=pp_dense,
+                                          decoder=decoder)
+            cfg = dataclasses.replace(ModelConfig.tip_cat(), negatives=negatives,
+                                      decoder=decoder)
             model = TIP.for_data(cfg, data, gs, device=name)
         else:
             decoder = "nn" if model_kind == "dr-nn" else "distmult"
@@ -1095,10 +1297,14 @@ def expected_launches(path: str, steps: int) -> dict:
     TIP chunked: B10 once, B8 twice forward (positives, negatives) and
     twice backward, B4 and B5 once forward and once backward in each of two
     layers; the eval's encode adds a forward of each layer of B4 and B5.
-    DR-NN dense: B3 once a step (its fused pass).  DR-NN chunked: as TIP
-    chunked with B9 for B8 and no P-P side (no B5).  DR-DF dense: B1 once a
-    step; DR-DF pages: B2 once a step.  PR-HMP-NN and PP-GAE run no
-    kernel."""
+    TIP-NN (TIP-cat with the NN decoder, the sampled route on every
+    layout) dense: B10 once and B9 four times a step (the positives' and
+    the negatives' forward and backward; the encoder's strips and the
+    eval's flat scoring launch nothing); TIP-NN chunked: as TIP chunked
+    with B9 for B8.  DR-NN dense: B3 once a step (its fused pass); DR-NN
+    pages: the same on the float32 pages.  DR-NN chunked: as TIP chunked
+    with B9 for B8 and no P-P side (no B5).  DR-DF dense: B1 once a step;
+    DR-DF pages: B2 once a step.  PR-HMP-NN and PP-GAE run no kernel."""
     return {
         "tip dense": {"dense_bce_sym": steps},
         "tip pages": {"dense_bce": steps},
@@ -1107,7 +1313,12 @@ def expected_launches(path: str, steps: int) -> dict:
         "tip chunked": {"typed_neg_sampler": steps, "distmult_sddmm": 4 * steps,
                         "typed_neighbor_sum": 4 * steps + 2,
                         "gcn_spmm": 4 * steps + 2},
+        "tip-nn dense": {"typed_neg_sampler": steps, "nn_sddmm": 4 * steps},
+        "tip-nn chunked": {"typed_neg_sampler": steps, "nn_sddmm": 4 * steps,
+                           "typed_neighbor_sum": 4 * steps + 2,
+                           "gcn_spmm": 4 * steps + 2},
         "dr-nn dense": {"dense_bce_nn": steps},
+        "dr-nn pages": {"dense_bce_nn": steps},
         "dr-nn chunked": {"typed_neg_sampler": steps, "nn_sddmm": 4 * steps,
                           "typed_neighbor_sum": 4 * steps + 2},
         "dr-df dense": {"dense_bce_sym": steps},
@@ -1156,9 +1367,10 @@ DD_DENSE_KEYS = ("dd_adj_sym", "dd_adj_t", "dd_adj_u8")
 
 def run_path(path: str, data, dev, steps: int, dense_dtype,
              negatives: str = "auto", matmul_precision: str = "default",
-             profiled: bool = True) -> dict:
-    """Train TIP-cat through train(), which picks the D-D layout for the
-    graph and ``matmul_precision`` (``dense_dtype`` is the pick expected),
+             profiled: bool = True, decoder: str = "distmult") -> dict:
+    """Train TIP-cat with ``decoder`` through train(), which picks the D-D
+    layout for the graph and ``matmul_precision`` (``dense_dtype`` is the
+    pick expected),
     with every launch counter at 0 just before and read just after; check
     losses, metrics and launches; print the train line (with the bytes of
     the graph's dense D-D tensors) and, with ``profiled``, the profile
@@ -1174,7 +1386,8 @@ def run_path(path: str, data, dev, steps: int, dense_dtype,
         TIP, make_graph_arrays, preferred_dense_dtype,
     )
 
-    cfg = dataclasses.replace(ModelConfig.tip_cat(), negatives=negatives)
+    cfg = dataclasses.replace(ModelConfig.tip_cat(), negatives=negatives,
+                              decoder=decoder)
     check(preferred_dense_dtype(data, cfg.kernel_dtype, matmul_precision)
           == dense_dtype, f"train() would not pick {dense_dtype} for {path}")
     torch.cuda.reset_peak_memory_stats()
@@ -1186,15 +1399,18 @@ def run_path(path: str, data, dev, steps: int, dense_dtype,
     peak = torch.cuda.max_memory_allocated()
     check_result(path, steps, data.n_et, result, launches)
     graph, gs = make_graph_arrays(data, dev, dense_dtype=dense_dtype,
-                                  sampled=negatives == "sampled")
-    fields = {"variant": "tip-cat", "path": path.split(" ", 1)[1],
+                                  sampled=negatives == "sampled",
+                                  decoder=decoder)
+    variant = "tip-cat" if decoder == "distmult" else "tip-cat-nn"
+    fields = {"variant": variant, "path": path.split(" ", 1)[1],
               "dd_layout": gs.dd_layout,
+              "dd_keys": sorted(k for k in graph if k.startswith("dd_")),
               "dd_dense_bytes": nbytes(*(graph[k] for k in DD_DENSE_KEYS
                                          if k in graph))}
     print(train_line(fields, result, launches, peak))
     if profiled:
         model = TIP.for_data(cfg, data, gs, dev)
-        print("profile:", json.dumps({"variant": "tip-cat",
+        print("profile:", json.dumps({"variant": variant,
                                       "path": fields["path"],
                                       **profile_steps(model, graph)}))
     del graph
@@ -1228,6 +1444,10 @@ def run_variant(variant: str, data, dev, steps: int,
         check(model.gs.dd_layout.startswith(want),
               f"{variant}: the runner did not pick the preferred layout")
         layout = "dense" if want == "strips" else want
+        if layout == "pages":  # B2 and B3 read the encoder's pages
+            check(graph["dd_adj_t"].dtype == torch.float32
+                  and "dd_adj_u8" not in graph,
+                  f"{variant} pages: not the float32 pages alone")
         n_rel = data.n_et
     else:
         layout = "flat" if variant == "pr-hmp-nn" else model.layout
@@ -1242,6 +1462,8 @@ def run_variant(variant: str, data, dev, steps: int,
     launches = dict(kernels.LAUNCHES)
     check_result(path, steps, n_rel, result, launches)
     print(train_line({"variant": variant, "path": layout,
+                      "dd_layout": model.gs.dd_layout if variant.startswith(
+                          "dr-") else None,
                       "graph_build_sec": build_sec}, result, launches,
                      torch.cuda.max_memory_allocated()))
     if profiled:
@@ -1252,7 +1474,43 @@ def run_variant(variant: str, data, dev, steps: int,
     return launches
 
 
-# the path whose launches the kernels line reports for each kernel
+AB_WARMUP, AB_REPS = 2, 10  # the decoder A/B's calls of each route
+
+
+def run_decoder_ab(data, dev) -> dict:
+    """The decoder A/B entry point (tip_tpu_torch/scripts/decoder_ab.py) at
+    Decagon shape in float32, with every launch counter at 0 just before and
+    read just after: B6, B7, B8 and B9 launch launches_per_route times
+    each, B10 once a sampler call.  In float32 the v2 and gather routes'
+    masked softplus sums agree with v1's within 1e-5.  Prints the
+    decoder_ab line; returns the launch counts."""
+    import torch
+
+    from tip_tpu_torch import kernels
+    from tip_tpu_torch.scripts import decoder_ab
+
+    kernels.reset_launch_counts()
+    res = decoder_ab.decoder_ab(data, "float32", dev, AB_WARMUP, AB_REPS)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    per_route = decoder_ab.launches_per_route(AB_WARMUP, AB_REPS)
+    want = {"distmult_sddmm_v1": per_route, "distmult_sddmm": per_route,
+            "nn_sddmm_v1": per_route, "nn_sddmm": per_route,
+            "typed_neg_sampler": AB_WARMUP + AB_REPS}
+    for name in kernels.KERNELS:
+        check(launches[name] == want.get(name, 0),
+              f"decoder ab launched {name} {launches[name]} times, expected "
+              f"{want.get(name, 0)}")
+    for decoder in ("distmult", "nn"):
+        for route, row in res[decoder].items():
+            check(row["rel_err_vs_v1"] <= 1e-5,
+                  f"decoder ab {decoder} {route}: rel err {row['rel_err_vs_v1']}")
+    print("decoder_ab:", json.dumps(res))
+    return launches
+
+
+# the path whose launches the kernels line reports for each kernel, and the
+# kernel checks (graph and layout) at that path's shapes
 KERNEL_PATH = {
     "dense_bce_sym": "tip dense",
     "dense_bce": "tip pages",
@@ -1261,8 +1519,14 @@ KERNEL_PATH = {
     "distmult_sddmm": "tip chunked",
     "typed_neg_sampler": "tip chunked",
     "dense_bce_nn": "dr-nn dense",
-    "nn_sddmm": "dr-nn chunked",
+    "nn_sddmm": "tip-nn dense",
+    "distmult_sddmm_v1": "decoder ab",
+    "nn_sddmm_v1": "decoder ab",
 }
+PATH_CHECKS = {"tip dense": "decagon_dense", "tip pages": "decagon_dense",
+               "dr-nn dense": "decagon_dense", "tip chunked": "main",
+               "tip-nn dense": "decagon_chunked",
+               "decoder ab": "decagon_chunked"}
 
 
 def main() -> int:
@@ -1274,6 +1538,7 @@ def main() -> int:
     from tip_tpu_torch import kernels
     from tip_tpu_torch.data import build_trigraph, synthetic_trigraph
     from tip_tpu_torch.ops.matmul import set_matmul_precision
+    from tip_tpu_torch.scripts.decoder_ab import DECAGON_SHAPE
     from tip_tpu_torch.train.model import make_graph_arrays
 
     faulthandler.enable()  # a fault inside a kernel call still shows where
@@ -1297,7 +1562,9 @@ def main() -> int:
             ("tip", "bfloat16", "auto", None), ("tip", None, "auto", None),
             ("dr-nn", "bfloat16", "auto", None), ("dr-nn", None, "auto", None),
             ("tip", "float32", "auto", False), ("dr-df", "float32", "auto", None),
-            ("tip", "bfloat16", "sampled", None)):
+            ("tip", "bfloat16", "sampled", None),
+            ("tip-nn", "bfloat16", "auto", None), ("tip-nn", None, "auto", None),
+            ("dr-nn", "float32", "auto", None)):
         print("small slice gpu vs cpu:", json.dumps(check_small_slice_cpu_vs_gpu(
             dev, dense_dtype, kind, negatives, pp_dense)))
 
@@ -1321,11 +1588,16 @@ def main() -> int:
     launches["tip strips sampled"] = run_path(
         "tip strips sampled", data, dev, OTHER_STEPS, "bfloat16",
         negatives="sampled", profiled=False)
+    launches["tip-nn dense"] = run_path("tip-nn dense", data, dev, TRAIN_STEPS,
+                                        "bfloat16", decoder="nn")
     launches["dr-nn dense"] = run_variant("dr-nn", data, dev, VARIANT_STEPS,
                                           profiled=True)
+    launches["dr-nn pages"] = run_variant("dr-nn", data, dev, OTHER_STEPS,
+                                          matmul_precision="highest")
     for variant in ("dr-df", "pr-hmp-nn", "pp-gae"):
         run_variant(variant, data, dev, OTHER_STEPS)
     run_variant("dr-df", data, dev, OTHER_STEPS, matmul_precision="highest")
+    launches["decoder ab"] = run_decoder_ab(data, dev)
     del data
     # the chunked kernels at the shapes of the chunked path (main) and, on
     # a graph too wide for any shared-memory table, through their
@@ -1344,13 +1616,14 @@ def main() -> int:
     del wide
     launches["tip chunked"] = run_path("tip chunked", big, dev, TRAIN_STEPS,
                                        None)
+    launches["tip-nn chunked"] = run_path("tip-nn chunked", big, dev,
+                                          TRAIN_STEPS, None, decoder="nn")
     launches["dr-nn chunked"] = run_variant("dr-nn", big, dev, VARIANT_STEPS,
                                             profiled=True)
 
     entries = []
     for name, spec in kernels.KERNELS.items():
-        layout = KERNEL_CHECKS[name][0]
-        c = checks["decagon_dense" if layout == "dense" else "main"][name]
+        c = checks[PATH_CHECKS[KERNEL_PATH[name]]][name]
         entries.append({
             "name": name, "route": spec.route, "source": spec.source,
             "replaces": spec.replaces,

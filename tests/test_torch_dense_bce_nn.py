@@ -7,7 +7,10 @@ cell's count is #{k : q_k > 0}), so the plain version fed an explicit zero
 field must match it value for value and gradient for gradient.  The hashed
 field is checked in the two deterministic threshold modes (q = 0 and
 q = 2^24) against a float64 oracle, and statistically against the
-estimator's analytic expectation.
+estimator's analytic expectation.  The kernel reads the pages in the dtype
+the graph ships them (uint8 beside DR-NN's strips, bf16 or float32 as the
+full-page layout, where counts may pass 255): the same counts give one
+result in every page dtype.
 """
 
 import numpy as np
@@ -144,8 +147,8 @@ def test_cuda_argument_checks(setup, bad):
     kw = dict(zip(("w1", "w2", "h1", "h2"), map(torch.from_numpy, args)),
               pages=torch.from_numpy(pages), q=torch.from_numpy(q))
     port._check_cuda_args(**kw)  # the valid call passes
-    if bad == "dtype":  # the kernel reads uint8 pages
-        kw["pages"] = kw["pages"].float()
+    if bad == "dtype":  # the kernel reads uint8, bf16 or float32 pages
+        kw["pages"] = kw["pages"].half()
     elif bad == "contiguous":
         kw["h1"] = torch.from_numpy(np.asfortranarray(args[2]))
     elif bad == "width":  # the kernel is built for l1 = 16
@@ -159,3 +162,69 @@ def test_cuda_argument_checks(setup, bad):
         kw["q"] = kw["q"][:, :2].contiguous()
     with pytest.raises(ValueError):
         port._check_cuda_args(**kw)
+
+
+def _pages(counts, dtype):
+    pages = torch.from_numpy(cast_dense_adj(counts, dtype))
+    return pages.view(torch.bfloat16) if dtype == "bfloat16" else pages
+
+
+def test_plain_page_dtypes_give_one_result(setup):
+    """uint8, bf16 and float32 pages of the same counts: the same loss and
+    gradients, bit for bit (a cell is read as float)."""
+    data, da, _, q, args = setup
+    out = []
+    for dtype in ("uint8", "bfloat16", "float32"):
+        ts = [torch.from_numpy(a) for a in args]
+        out.append(port.dense_bce_nn_plain(*ts, _pages(da, dtype),
+                                           torch.from_numpy(q), 5, grads=True))
+    for other in out[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(out[0], other))
+
+
+@pytest.mark.parametrize("mode", ["positives_only", "saturated"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_plain_float_pages_deterministic_modes_vs_oracle(setup, dtype, mode):
+    """The deterministic threshold modes on the bf16 and float32 pages, the
+    float32 ones with a count past uint8's range (300 copies of one pair),
+    against the float64 oracle."""
+    data, da, _, _, args = setup
+    da = da.astype(np.int64)
+    if dtype == "float32":
+        da[0, 3, 5] += 300
+    q = np.full((data.n_et, 3), 0 if mode == "positives_only" else 1 << 24,
+                np.int32)
+    ts = [torch.tensor(a, requires_grad=True) for a in args]
+    loss = port.dense_bce_nn_sum(*ts, _pages(da, dtype), torch.from_numpy(q),
+                                 7)
+    loss.backward()
+    dan = da.astype(np.float64)
+    cnt = 0.0 if mode == "positives_only" else 3.0 * (dan == 0)
+    oval, ograds = _oracle(args, dan, cnt)
+    assert abs(loss.item() - oval) / abs(oval) < 1e-5
+    for t, want in zip(ts, ograds):
+        np.testing.assert_allclose(t.grad.numpy(), want,
+                                   atol=1e-4 * np.abs(want).max())
+
+
+def test_plain_u24_zero_on_float32_pages_past_255_matches_jax(setup):
+    """A count past 255 rides the float32 pages, which the JAX kernel
+    reads as they are: u24 = 0 as in the uint8 test above."""
+    data, da, _, _, args = setup
+    da = da.astype(np.float32)
+    da[2, 7, 9] += 300.0
+    q = np.zeros((data.n_et, 3), np.int32)
+    q[::2, :2] = 7
+    with pltpu.force_tpu_interpret_mode():
+        jval, jgrads = jax.value_and_grad(
+            lambda a: dense_bce_nn_sum(*a, jnp.asarray(pad_dense_adj(da)),
+                                       jnp.asarray(q), jax.random.key(3)))(
+            tuple(map(jnp.asarray, args)))
+    ts = [torch.tensor(a, requires_grad=True) for a in args]
+    loss = port.dense_bce_nn_sum(*ts, torch.from_numpy(da), torch.from_numpy(q),
+                                 3, u24=torch.zeros((), dtype=torch.int64))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jval), rtol=1e-5)
+    for t, want in zip(ts, map(np.asarray, jgrads)):
+        np.testing.assert_allclose(t.grad.numpy(), want, rtol=2e-4,
+                                   atol=max(1e-5, 1e-6 * np.abs(want).max()))

@@ -220,6 +220,22 @@ def test_dd_routing_and_raises(datas):
     f32 = make_dd_graph_arrays(tdata, "cpu", dense_dtype="float32")
     assert f32[1].dd_layout == "pages"
     assert set(f32[0]) == {"dd_deg", "dd_adj_t", "dd_neg_q"}
+    # DR-NN's pages layout: B3 reads the encoder's pages, no uint8 copy
+    f32_nn = make_dd_graph_arrays(tdata, "cpu", dense_dtype="float32",
+                                  decoder="nn")
+    assert f32_nn[1].dd_layout == "pages"
+    assert set(f32_nn[0]) == {"dd_deg", "dd_adj_t", "dd_neg_q"}
+    DDModel.for_data(DDConfig(decoder="nn"), f32_nn[1], "cpu")
+    # sampled DR-NN strips ship no pages: layout 'strips', no DR-DF route
+    nn_sampled = make_dd_graph_arrays(tdata, "cpu", chunk=CHUNK,
+                                      dense_dtype="bfloat16", decoder="nn",
+                                      sampled=True)
+    assert nn_sampled[1].dd_layout == "strips"
+    assert not {"dd_adj_t", "dd_adj_u8"} & set(nn_sampled[0])
+    DDModel.for_data(DDConfig(decoder="nn", negatives="sampled"),
+                     nn_sampled[1], "cpu")
+    with pytest.raises(ValueError, match="no route"):
+        DDModel.for_data(DDConfig(negatives="sampled"), nn_sampled[1], "cpu")
     # a graph packed for the Poissonized route refuses sampled negatives
     with pytest.raises(ValueError, match="sampled=True"):
         DDModel.for_data(DDConfig(negatives="sampled"), strips[1], "cpu")
@@ -238,9 +254,12 @@ def test_dd_routing_and_raises(datas):
 
 def test_dd_float32_page_graph_raises_naming_b2(datas):
     """Counts past bf16's exact range send the JAX package to float32 full
-    pages: DR-DF takes them (kernel B2), DR-NN refuses the graph, naming
-    the uint8 pages its kernel B3 reads."""
-    _, tdata = datas
+    pages: DR-DF takes them (kernel B2) and DR-NN too, its fused dense BCE
+    (kernel B3) reading the float32 pages themselves, as the JAX package's
+    does.  DR-NN's encode, loss and gradients there match tip_tpu's DDModel
+    (u24 = 0 in both; float32 throughout: z and loss rtol 1e-5, grads 1e-4
+    of their max), and the runner trains it."""
+    jdata, tdata = datas
     tr = tdata.dd_train
     s, d = tr.edge_index[:, 0]
     extra = np.array([[s, d], [d, s]] * 257, np.int32).T
@@ -249,12 +268,44 @@ def test_dd_float32_page_graph_raises_naming_b2(datas):
         np.concatenate([np.zeros(extra.shape[1], np.int32), tr.edge_type]),
         tr.range_list + np.where(np.arange(tr.n_et)[:, None] == 0,
                                  [0, extra.shape[1]], extra.shape[1])))
+    jheavy = dataclasses.replace(jdata, dd_train=heavy.dd_train)
     model, graph, _ = runner.build_variant("dr-df", heavy, "cpu")
     assert model.gs.dd_layout == "pages"
     assert graph["dd_adj_t"].dtype == torch.float32
     assert float(graph["dd_adj_t"].max()) > 256.0
-    with pytest.raises(ValueError, match="B3.*uint8"):
-        runner.build_variant("dr-nn", heavy, "cpu")
+
+    jgraph, jgs = j_dd_arrays(jheavy, chunk=CHUNK, dense_dtype="float32",
+                              planes=True)
+    jmodel = JDDModel.for_data(JDDConfig(decoder="nn", **DD_WIDTHS), jgs,
+                               backend="pallas")
+    params = jax.tree.map(np.asarray, jax.jit(jmodel.init)(jax.random.key(1)))
+    graph, gs = make_dd_graph_arrays(heavy, "cpu", chunk=CHUNK,
+                                     dense_dtype="float32", decoder="nn")
+    assert gs.dd_layout == "pages" and set(graph) == {"dd_deg", "dd_adj_t",
+                                                      "dd_neg_q"}
+    model = DDModel.for_data(DDConfig(decoder="nn", **DD_WIDTHS), gs, "cpu")
+    key = jax.random.key(9)
+    with pltpu.force_tpu_interpret_mode():
+        jz = np.asarray(jax.jit(jmodel.encode)(_tree(params), jgraph))
+        jloss, jg = jax.jit(jax.value_and_grad(
+            lambda p: jmodel.loss(p, jgraph, key)))(_tree(params))
+    z = model.encode(convert.params_from_jax(params), graph).numpy()
+    np.testing.assert_allclose(z, jz, rtol=1e-5, atol=1e-5 * np.abs(jz).max())
+    tp = convert.params_from_jax(params, requires_grad=True)
+    loss = model.loss(tp, graph, seed=9, u24=ZERO)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    for (path, g), w in zip(jax.tree_util.tree_leaves_with_path(_grads(tp)),
+                            jax.tree.leaves(jax.tree.map(np.asarray, jg))):
+        np.testing.assert_allclose(g, w, atol=1e-4 * np.abs(w).max(),
+                                   err_msg=str(path))
+
+    model, graph, test = runner.build_variant("dr-nn", heavy, "cpu")
+    assert model.gs.dd_layout == "pages" and "dd_adj_u8" not in graph
+    _, res = runner.train_variant(model, graph, test, epochs=3, lr=0.05,
+                                  seed=3, log=None)
+    losses = [h["loss"] for h in res["history"]]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
 
 
 @pytest.mark.parametrize("variant", runner.VARIANTS)

@@ -262,3 +262,4 @@ def test_port_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "tip_tpu_torch.train.loop" in mods and "tip_tpu_torch.kernels" in mods
+    assert "tip_tpu_torch.scripts.decoder_ab" in mods

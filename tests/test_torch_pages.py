@@ -345,8 +345,9 @@ def test_what_each_dense_graph_ships(datas):
     sampled = ship(dense_dtype="bfloat16", sampled=True)
     assert chunks | {"dd_adj_sym", "dd_adj_t"} <= sampled
     assert not {"dd_neg_q8", "dd_neg_q"} & sampled
+    # DR-NN's B3 reads the float32 pages themselves: no uint8 copy
     assert dd(dense_dtype="float32", decoder="nn") == {
-        "dd_deg", "dd_adj_t", "dd_adj_u8", "dd_neg_q"}
+        "dd_deg", "dd_adj_t", "dd_neg_q"}
     assert dd(dense_dtype="float32", decoder="nn", sampled=True) == (
         {"dd_deg", "dd_adj_t"} | chunks)
 
@@ -354,9 +355,10 @@ def test_what_each_dense_graph_ships(datas):
 def test_the_raises_that_remain(datas):
     _, tdata = datas
     heavy = _heavy(tdata)
-    # kernel B3 reads uint8 pages: a count past 255 cannot ride them
-    with pytest.raises(ValueError, match="B3.*uint8"):
-        make_dd_graph_arrays(heavy, "cpu", dense_dtype="float32", decoder="nn")
+    # a count past 255 rides DR-NN's float32 pages (kernel B3 reads them)
+    graph, gs = make_dd_graph_arrays(heavy, "cpu", dense_dtype="float32",
+                                     decoder="nn")
+    assert gs.dd_layout == "pages" and float(graph["dd_adj_t"].max()) > 255
     # a graph packed for one negatives route refuses the other
     _, strips = make_graph_arrays(tdata, "cpu", dense_dtype="bfloat16")
     _, sampled = make_graph_arrays(tdata, "cpu", dense_dtype="float32",
@@ -369,6 +371,14 @@ def test_the_raises_that_remain(datas):
         DDModel.for_data(DDConfig(negatives="poisson"), sampled, "cpu")
     with pytest.raises(ValueError, match="dense_dtype"):
         make_graph_arrays(tdata, "cpu", dense_dtype="float16")
-    # the NN decoder on TIP is a later slice
-    with pytest.raises(NotImplementedError, match="NN decoder"):
+    # TIP's NN decoder takes the sampled route: Poissonized negatives raise
+    # the JAX package's message, and a graph packed for the Poissonized
+    # route (no chunk buffers) is refused
+    _, nn_pages = make_graph_arrays(tdata, "cpu", dense_dtype="float32",
+                                    decoder="nn")
+    with pytest.raises(ValueError, match="negatives='poisson' was pinned"):
+        TIP.for_data(ModelConfig(decoder="nn", negatives="poisson"), tdata,
+                     nn_pages, "cpu")
+    with pytest.raises(ValueError, match="decoder='nn'"):
         TIP.for_data(ModelConfig(decoder="nn"), tdata, strips, "cpu")
+    TIP.for_data(ModelConfig(decoder="nn"), tdata, nn_pages, "cpu")

@@ -226,6 +226,6 @@ def test_kernel_launch_signatures_match_c_entry_points():
     for py in (ROOT / "tip_tpu_torch" / "ops").glob("*.py"):
         calls += re.findall(r'kernels\.launch\(\w+, "(\w+)", "(\w+)"',
                             py.read_text())
-    assert len(calls) == 11
+    assert len(calls) == 15
     for entry, sig in calls:
         assert entries[entry] == sig, entry

@@ -38,7 +38,15 @@
 // running sums; 3 of them transcendental) take ~0.17 ms at 67 TFLOP/s, so
 // operations bound it, besides the hash's integer work.  chip_smoke.py
 // reckons the bound from its run.
+//
+// Pages come in the dtype the graph ships them in, as the TPU kernel reads
+// the pages of whatever dtype preferred_dense_dtype picked: uint8 beside
+// DR-NN's strips (every count there is at most 127), bf16 (counts up to
+// 256) or float32 (any count) as the full-page layout.  One template on the
+// page type reads a cell as float; the uint8 read takes 0.136 ms of the
+// bound above, bf16 0.272 ms, float32 0.545 ms, all below the operations.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,6 +67,12 @@ constexpr int CPT = 3;               // columns per thread in a strip
 constexpr int STRIP = THREADS * CPT;
 constexpr unsigned FULL = 0xffffffffu;
 
+__device__ __forceinline__ float page_value(uint8_t x) { return (float)x; }
+__device__ __forceinline__ float page_value(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float page_value(float x) { return x; }
+
 __device__ __forceinline__ float dot16(const float* __restrict__ a,
                                        const float* b) {
   float s = 0.f;
@@ -70,11 +84,11 @@ __device__ __forceinline__ float dot16(const float* __restrict__ a,
 // grid: n_et * n_tiles blocks, block b = (t = b / n_tiles, tile = b %
 // n_tiles).  Writes loss_part[b]; with GRADS also col_part[t][tile][j] and
 // the row sums rows[t][i] of the tile's rows.
-template <bool GRADS>
+template <typename P, bool GRADS>
 __global__ void __launch_bounds__(THREADS)
 page_kernel(const float* __restrict__ w1, const float* __restrict__ w2,
             const float* __restrict__ h1, const float* __restrict__ h2,
-            const uint8_t* __restrict__ pages, const int32_t* __restrict__ q,
+            const P* __restrict__ pages, const int32_t* __restrict__ q,
             uint32_t seed, int n, int n_tiles, float* __restrict__ loss_part,
             float* __restrict__ col_part, float* __restrict__ rows) {
   __shared__ float s2[ROWS];
@@ -108,14 +122,14 @@ page_kernel(const float* __restrict__ w1, const float* __restrict__ w2,
     for (int i = 0; i < nrows; ++i) {
       const int gi = row0 + i;
       const float a = s2[i];
-      const uint8_t* prow = pages + ((size_t)t * n + gi) * n;
+      const P* prow = pages + ((size_t)t * n + gi) * n;
       float rsum = 0.f;
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const int j = j0 + tid + c * THREADS;
         if (j < n) {
           const float L = __fadd_rn(a, s1[c]);
-          const float da = (float)prow[j];
+          const float da = page_value(prow[j]);
           const int u = cell_u24(key, (uint32_t)gi * (uint32_t)n + (uint32_t)j);
           float cnt = (float)((u < q0) + (u < q1) + (u < q2));
           if (da > 0.f) cnt = 0.f;
@@ -197,33 +211,53 @@ __global__ void sum_tiles(const float* __restrict__ col_part, int n_et,
   cols[idx] = s;
 }
 
+template <typename P>
+void launch_pages(int grads, int blocks, const float* w1, const float* w2,
+                  const float* h1, const float* h2, const void* pages,
+                  const int32_t* q, uint32_t seed, int n, int n_tiles,
+                  float* loss_part, float* col_part, float* rows,
+                  cudaStream_t s) {
+  const P* pg = static_cast<const P*>(pages);
+  if (grads)
+    page_kernel<P, true><<<blocks, THREADS, 0, s>>>(
+        w1, w2, h1, h2, pg, q, seed, n, n_tiles, loss_part, col_part, rows);
+  else
+    page_kernel<P, false><<<blocks, THREADS, 0, s>>>(
+        w1, w2, h1, h2, pg, q, seed, n, n_tiles, loss_part, col_part, rows);
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes by ops/dense_bce_nn.py).  w1, w2
-// [n_et][16], h1, h2 [n][16] float32; pages [n_et][n][n] uint8; q
-// [n_et][3] int32.  Scratch: loss_part [n_et * n_tiles], and with grads
-// col_part [n_et][n_tiles][n], rows and cols [n_et][n], where n_tiles =
-// ceil(n / 128).  Outputs: loss [1]; with grads dw1, dw2 [n_et][16], dh1,
-// dh2 [n][16] (not touched without).  Returns the first CUDA error.
+// [n_et][16], h1, h2 [n][16] float32; pages [n_et][n][n] of page_kind 0
+// (uint8), 1 (bf16) or 2 (float32); q [n_et][3] int32.  Scratch: loss_part
+// [n_et * n_tiles], and with grads col_part [n_et][n_tiles][n], rows and
+// cols [n_et][n], where n_tiles = ceil(n / 128).  Outputs: loss [1]; with
+// grads dw1, dw2 [n_et][16], dh1, dh2 [n][16] (not touched without).
+// Returns the first CUDA error (cudaErrorInvalidValue for an unknown
+// page_kind).
 extern "C" int tip_dense_bce_nn(const float* w1, const float* w2,
                                 const float* h1, const float* h2,
-                                const uint8_t* pages, const int32_t* q,
-                                unsigned int seed, int n_et, int n, int grads,
-                                float* loss_part, float* col_part, float* rows,
-                                float* cols, float* loss, float* dw1,
-                                float* dw2, float* dh1, float* dh2,
-                                void* stream) {
+                                const void* pages, int page_kind,
+                                const int32_t* q, unsigned int seed, int n_et,
+                                int n, int grads, float* loss_part,
+                                float* col_part, float* rows, float* cols,
+                                float* loss, float* dw1, float* dw2,
+                                float* dh1, float* dh2, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int n_tiles = (n + ROWS - 1) / ROWS;
   const int blocks = n_et * n_tiles;
-  if (grads)
-    page_kernel<true><<<blocks, THREADS, 0, s>>>(w1, w2, h1, h2, pages, q, seed,
-                                                 n, n_tiles, loss_part,
-                                                 col_part, rows);
+  if (page_kind == 0)
+    launch_pages<uint8_t>(grads, blocks, w1, w2, h1, h2, pages, q, seed, n,
+                          n_tiles, loss_part, col_part, rows, s);
+  else if (page_kind == 1)
+    launch_pages<__nv_bfloat16>(grads, blocks, w1, w2, h1, h2, pages, q, seed,
+                                n, n_tiles, loss_part, col_part, rows, s);
+  else if (page_kind == 2)
+    launch_pages<float>(grads, blocks, w1, w2, h1, h2, pages, q, seed, n,
+                        n_tiles, loss_part, col_part, rows, s);
   else
-    page_kernel<false><<<blocks, THREADS, 0, s>>>(w1, w2, h1, h2, pages, q,
-                                                  seed, n, n_tiles, loss_part,
-                                                  col_part, rows);
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   reduce_loss<<<1, THREADS, 0, s>>>(loss_part, blocks, loss);

@@ -20,7 +20,8 @@
 // rows of z directly, and the backward gathers again rather than reading
 // saved endpoints (2 x 0.58 GB a call at Decagon shape).
 //
-// Design.  One thread per slot; persistent blocks walk the chunks.  Two
+// Design.  One thread per slot; persistent blocks walk the chunks.  The
+// forward is distmult_fwd.cuh's, which the v1 kernel B6 launches too.  Two
 // table modes, which the wrapper picks by what fits a block's shared
 // memory:
 //   shared (forward n <= 3,417, backward n <= 1,693): the whole table (n + 1
@@ -51,52 +52,17 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "distmult_fwd.cuh"
+
 namespace {
 
+using distmult_fwd::load_table;
+using distmult_fwd::table_bytes;
+
 constexpr int D = 16;
-constexpr int FWD_THREADS = 512;
 constexpr int BWD_THREADS = 1024;
 constexpr int AUX_THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
-
-// tab[r][D + 1] = zp[r][D] for the n + 1 rows of zp.
-__device__ __forceinline__ void load_table(const float* __restrict__ zp, int n,
-                                           float* tab) {
-  for (int i = threadIdx.x; i < (n + 1) * D; i += blockDim.x)
-    tab[(i / D) * (D + 1) + i % D] = zp[i];
-}
-
-template <bool SHARED>
-__global__ void __launch_bounds__(FWD_THREADS)
-dm_fwd(const float* __restrict__ zp, const float* __restrict__ w,
-       const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
-       const int32_t* __restrict__ ct, int n_chunks, int C, int n,
-       float* __restrict__ out) {
-  extern __shared__ float smem[];  // shared: [n + 1][D + 1]
-  constexpr int S = SHARED ? D + 1 : D;  // row stride of the table
-  const float* tab = zp;
-  if (SHARED) {
-    load_table(zp, n, smem);
-    __syncthreads();
-    tab = smem;
-  }
-  for (int c = blockIdx.x; c < n_chunks; c += gridDim.x) {
-    const float* wt = w + (size_t)ct[c] * D;
-    float wr[D];
-#pragma unroll
-    for (int k = 0; k < D; ++k) wr[k] = wt[k];
-    const size_t base = (size_t)c * C;
-    for (int j = threadIdx.x; j < C; j += blockDim.x) {
-      const float* a = tab + (size_t)src[base + j] * S;
-      const float* b = tab + (size_t)dst[base + j] * S;
-      float s = 0.f;
-#pragma unroll
-      for (int k = 0; k < D; ++k)
-        s = __fadd_rn(s, __fmul_rn(__fmul_rn(a[k], b[k]), wr[k]));
-      out[base + j] = s;
-    }
-  }
-}
 
 __device__ __forceinline__ float maybe_bf16(float v, int round_bf16) {
   return round_bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
@@ -228,8 +194,6 @@ __global__ void dw_by_relation(const float* __restrict__ dwc,
   dw[i] = s;
 }
 
-int table_bytes(int n) { return (n + 1) * (D + 1) * (int)sizeof(float); }
-
 }  // namespace
 
 // Plain C entry points (bound with ctypes by ops/sddmm2.py).  zp is z
@@ -242,19 +206,8 @@ extern "C" int tip_dm_fwd(const float* zp, const float* w, const int32_t* src,
                           const int32_t* dst, const int32_t* ct, int n_chunks,
                           int C, int n, int shared, int blocks, float* out,
                           void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (!shared) {
-    dm_fwd<false><<<blocks, FWD_THREADS, 0, s>>>(zp, w, src, dst, ct, n_chunks,
-                                                  C, n, out);
-    return cudaGetLastError();
-  }
-  const int smem = table_bytes(n);
-  cudaError_t err = cudaFuncSetAttribute(
-      dm_fwd<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dm_fwd<true><<<blocks, FWD_THREADS, smem, s>>>(zp, w, src, dst, ct, n_chunks,
-                                                  C, n, out);
-  return cudaGetLastError();
+  return distmult_fwd::launch(zp, w, src, dst, ct, n_chunks, C, n, shared,
+                              blocks, out, (cudaStream_t)stream);
 }
 
 // g: [n_chunks, C]; scratch dz_part [blocks, n, 16] (shared mode only) and

@@ -391,8 +391,9 @@ def cast_dense_adj(da: np.ndarray, dtype: str = "uint8") -> np.ndarray:
     than cast lossily.
 
     ``uint8`` holds counts up to 255 and is what the NN decoder's dense BCE
-    (kernel B3) reads; ``bfloat16`` holds them up to 256 and ``float32`` up
-    to 2^24: the full pages of the encoder and of kernel B2.  numpy has no
+    (kernel B3) reads beside DR-NN's strips; ``bfloat16`` holds them up to
+    256 and ``float32`` up to 2^24: the full pages of the encoder and of
+    kernels B2 and B3.  numpy has no
     bfloat16, so those pages come back as their bit patterns in uint16
     (the upper half of each float32, exact for these counts);
     ``torch.from_numpy(p).view(torch.bfloat16)`` reads them.  Page bytes

@@ -79,6 +79,16 @@ KERNELS = {
         source="tip_tpu_torch/csrc/nn_sddmm.cu",
         replaces="tip_tpu/ops/pallas_sddmm2.py:324",
     ),
+    "distmult_sddmm_v1": KernelSpec(
+        name="distmult_sddmm_v1",
+        source="tip_tpu_torch/csrc/distmult_sddmm_v1.cu",
+        replaces="tip_tpu/ops/pallas_segment.py:354",
+    ),
+    "nn_sddmm_v1": KernelSpec(
+        name="nn_sddmm_v1",
+        source="tip_tpu_torch/csrc/nn_sddmm_v1.cu",
+        replaces="tip_tpu/ops/pallas_segment.py:534",
+    ),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -14,7 +14,8 @@ ships only what its route reads (train/model.py:dense_dd_arrays):
   * ``pages`` (float32 pages where float32 matmuls are pinned or a count
     passes 256; bf16 pages where the strips cannot be built): the encoder
     contracts the full pages M-first; DR-DF's loss is the fused dense BCE
-    over them (kernel B2), DR-NN's is B3 over a uint8 copy;
+    over them (kernel B2), DR-NN's is B3 over the same pages, in their own
+    dtype;
   * ``chunked`` (either decoder beyond the budget): the chunk-aligned
     buffers; the encoder runs on kernel B4, the loss draws one negative a
     slot (kernel B10) and scores positives and negatives with B8 (DistMult)
@@ -22,7 +23,8 @@ ships only what its route reads (train/model.py:dense_dd_arrays):
 
 ``negatives="sampled"`` on the dense layouts keeps their encoder and takes
 the chunked loss, except that DR-DF scores its positives over the full
-pages, as the JAX package does.
+pages, as the JAX package does; DR-NN's strips then ship no pages, and the
+layout is ``strips``.
 """
 
 from __future__ import annotations
@@ -129,7 +131,7 @@ def make_dd_graph_arrays(data: TriGraphData, device=None, chunk: int = 1024,
         dd_chunk=chunk, pp_window=0, pp_n_windows=0,
         dd_n_chunks=graph["dd_src2d"].shape[0] if "dd_src2d" in graph else 0,
         dd_layout=layout, dd_sampled=sampled and layout != "chunked",
-        pp_layout="none",
+        dd_decoder=decoder, pp_layout="none",
     )
     return graph, gs
 
@@ -144,7 +146,13 @@ class DDModel:
 
     @staticmethod
     def for_data(cfg: DDConfig, gs: GraphStatic, device=None) -> "DDModel":
-        if gs.dd_layout not in LAYOUTS[cfg.decoder]:
+        if gs.dd_sampled and gs.dd_layout == "strips":
+            # either decoder's sampled loss reads the chunk buffers; DR-DF's
+            # positives also read the pages, which DR-NN's strips lack
+            routed = cfg.decoder == "nn" or gs.dd_decoder == "distmult"
+        else:
+            routed = gs.dd_layout in LAYOUTS[cfg.decoder]
+        if not routed:
             raise ValueError(f"a {gs.dd_layout!r} graph has no route for the "
                              f"{cfg.decoder} decoder; pack it with "
                              f"decoder={cfg.decoder!r}")
@@ -217,9 +225,11 @@ class DDModel:
         if gs.dd_layout != "chunked" and cfg.negatives != "sampled":
             if cfg.decoder == "nn":
                 h1, h2 = nn_hiddens(dec, z)
+                pages = graph["dd_adj_u8" if gs.dd_layout == "strips_pages"
+                              else "dd_adj_t"]
                 total = dense_bce_nn_sum(dec["w1_l2"], dec["w2_l2"], h1, h2,
-                                         graph["dd_adj_u8"],
-                                         graph["dd_neg_q"], seed, u24=u24)
+                                         pages, graph["dd_neg_q"], seed,
+                                         u24=u24)
             elif gs.dd_layout == "strips":
                 total = dense_bce_sym_sum(dec["weight"], z,
                                           graph["dd_adj_sym"],

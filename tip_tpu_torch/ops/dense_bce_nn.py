@@ -15,8 +15,11 @@ and, with the row sums r_t = G 1 and column sums c_t = G^T 1,
     dw2[t] = r_t . h2,  dh2 = sum_t r_t (x) w2[t],
     dw1[t] = c_t . h1,  dh1 = sum_t c_t (x) w1[t].
 
-Pages are the unpadded uint8 counts of data/packing.py:cast_dense_adj,
-thresholds those of ``poisson_neg_thresholds``.  Random bits: the TPU
+Pages are the unpadded counts of data/packing.py:cast_dense_adj in the
+dtype the graph ships (uint8 beside DR-NN's strips, bf16 or float32 as the
+full-page layout: the JAX kernel reads the pages of whatever dtype
+``preferred_dense_dtype`` picked), thresholds those of
+``poisson_neg_thresholds``.  Random bits: the TPU
 kernel draws from its on-chip PRNG; here ``u24`` is the counter hash of
 ops/dense_bce_sym.py (``u24_field(seed, t, i, j)`` over the [n, n] plane),
 drawn alike by the CUDA kernel and the plain version.  The plain version
@@ -42,6 +45,8 @@ from tip_tpu_torch.ops.dense_bce_sym import softplus, u24_field
 KERNEL = "dense_bce_nn"
 D = 16  # the kernel's hidden width: nn_decoder_l1_dim of DR-NN
 PLAIN_CHUNK = 64  # relations per step of the plain version (memory bound)
+# page dtype -> the C entry point's page_kind
+PAGE_KINDS = {torch.uint8: 0, torch.bfloat16: 1, torch.float32: 2}
 _M32 = 0xFFFFFFFF
 
 
@@ -50,8 +55,8 @@ def dense_bce_nn_plain(w1, w2, h1, h2, pages, q, seed: int,
                        u24: Optional[torch.Tensor] = None):
     """Plain PyTorch version of the estimator.
 
-    w1, w2 [R, l1], h1, h2 [n, l1] float; pages [R, n, n] uint8; q [R, 3]
-    int32; seed uint32.  ``u24``: optional explicit field broadcastable to
+    w1, w2 [R, l1], h1, h2 [n, l1] float; pages [R, n, n] uint8, bf16 or
+    float32 counts; q [R, 3] int32; seed uint32.  ``u24``: optional explicit field broadcastable to
     the pages' shape, in place of the hashed one.  Returns the loss, or
     (loss, dw1, dw2, dh1, dh2) with ``grads``."""
     n_et, n, _ = pages.shape
@@ -88,11 +93,14 @@ def dense_bce_nn_plain(w1, w2, h1, h2, pages, q, seed: int,
 
 def _check_cuda_args(w1, w2, h1, h2, pages, q):
     dev = pages.device
+    if pages.dtype not in PAGE_KINDS:
+        raise ValueError(f"pages must be uint8, bfloat16 or float32, got "
+                         f"{pages.dtype}")
     for name, x, dtype, ndim in (("w1", w1, torch.float32, 2),
                                  ("w2", w2, torch.float32, 2),
                                  ("h1", h1, torch.float32, 2),
                                  ("h2", h2, torch.float32, 2),
-                                 ("pages", pages, torch.uint8, 3),
+                                 ("pages", pages, pages.dtype, 3),
                                  ("q", q, torch.int32, 2)):
         kernels.require(x, name, dtype, ndim, dev)
     n_et, n, n2 = pages.shape
@@ -131,8 +139,9 @@ def dense_bce_nn_cuda(w1, w2, h1, h2, pages, q, seed: int,
         dh1, dh2 = torch.empty((n, D), **f32), torch.empty((n, D), **f32)
     else:
         col_part = rows = cols = dw1 = dw2 = dh1 = dh2 = None
-    kernels.launch(KERNEL, "tip_dense_bce_nn", "ppppppuiiippppppppp", w1, w2,
-                   h1, h2, pages, q, seed & _M32, n_et, n, int(grads),
+    kernels.launch(KERNEL, "tip_dense_bce_nn", "pppppipuiiippppppppp", w1, w2,
+                   h1, h2, pages, PAGE_KINDS[pages.dtype], q, seed & _M32,
+                   n_et, n, int(grads),
                    loss_part, col_part, rows, cols, loss, dw1, dw2, dh1, dh2,
                    device=pages.device)
     if not grads:
@@ -172,7 +181,8 @@ def dense_bce_nn_sum(w1_l2, w2_l2, h1, h2, pages, q, seed: int,
     """Scalar BCE sum for the NN decoder: positives + Poissonized negatives.
 
     w1_l2, w2_l2 [n_et, l1] per-relation L2 rows; h1, h2 [n, l1] post-ReLU
-    endpoint hiddens; pages [n_et, n, n] uint8 counts; q [n_et, 3] int32
+    endpoint hiddens; pages [n_et, n, n] uint8, bf16 or float32
+    counts; q [n_et, 3] int32
     thresholds; seed: int (its low 32 bits key the u24 field).
     Differentiable in w1_l2, w2_l2, h1 and h2."""
     return _DenseBceNN.apply(w1_l2, w2_l2, h1, h2, pages, q,

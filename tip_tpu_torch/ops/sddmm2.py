@@ -53,13 +53,13 @@ D = 16  # the kernels' width: n_hid2 of every configuration, DR-NN's l1
 TABLES = ("shared", "global")  # where the kernel keeps z (and dz)
 
 
-def _padded(z):
+def pad_row(z):
     """z with a zero row at the pad id n, as the kernel reads it."""
     return torch.nn.functional.pad(z, (0, 0, 0, 1))
 
 
 def _gather(z, w, src2d, dst2d, chunk_type):
-    zp = _padded(z)
+    zp = pad_row(z)
     return (zp[src2d.long()], zp[dst2d.long()],
             w[chunk_type.long()][:, None, :])
 
@@ -134,7 +134,7 @@ def distmult_logits_cuda(z, w, src2d, dst2d, chunk_type, table=None):
     n_chunks, chunk = src2d.shape
     out = torch.empty((n_chunks, chunk), dtype=torch.float32, device=dev)
     blocks = (2 if shared else 4) * kernels.sm_count(dev)
-    kernels.launch(KERNEL, "tip_dm_fwd", "pppppiiiiip", _padded(z), w, src2d,
+    kernels.launch(KERNEL, "tip_dm_fwd", "pppppiiiiip", pad_row(z), w, src2d,
                    dst2d, chunk_type, n_chunks, chunk, n, int(shared), blocks,
                    out, device=dev)
     return out
@@ -163,7 +163,7 @@ def distmult_bwd_cuda(z, w, src2d, dst2d, chunk_type, g, bf16: bool = False,
     dwc = torch.empty((n_chunks, D), **f32)
     dz = torch.empty((n + 1, D), **f32)
     dw = torch.empty((n_et, D), **f32)
-    kernels.launch(KERNEL, "tip_dm_bwd", "ppppppiiiiiiipppp", _padded(z), w,
+    kernels.launch(KERNEL, "tip_dm_bwd", "ppppppiiiiiiipppp", pad_row(z), w,
                    src2d, dst2d, chunk_type, g, n_chunks, chunk, n, n_et,
                    int(bf16), int(shared), blocks, dz_part, dwc, dz, dw,
                    device=dev)
@@ -208,7 +208,7 @@ def distmult_logits_padded2(z, w, src2d, dst2d, chunk_type, n_nodes: int,
 def nn_logits_plain(h1, h2, w1, w2, src2d, dst2d, chunk_type):
     """logits [n_chunks, chunk] float32: the per-relation scores of every
     node, gathered per slot, as the kernel computes them."""
-    h1p, h2p = _padded(h1.float()), _padded(h2.float())
+    h1p, h2p = pad_row(h1.float()), pad_row(h2.float())
     s1, s2 = h1p @ w1.float().T, h2p @ w2.float().T  # [n + 1, n_et]
     ct = chunk_type.long()[:, None]
     return s1[src2d.long(), ct] + s2[dst2d.long(), ct]
@@ -287,8 +287,8 @@ def nn_logits_cuda(h1, h2, w1, w2, src2d, dst2d, chunk_type):
     f32 = dict(dtype=torch.float32, device=dev)
     scores = torch.empty((n_et, 2, n + 1), **f32)
     out = torch.empty((n_chunks, chunk), **f32)
-    kernels.launch(NN_KERNEL, "tip_nn_fwd", "pppppppiiiiipp", _padded(h1),
-                   _padded(h2), w1, w2, src2d, dst2d, chunk_type, n_chunks,
+    kernels.launch(NN_KERNEL, "tip_nn_fwd", "pppppppiiiiipp", pad_row(h1),
+                   pad_row(h2), w1, w2, src2d, dst2d, chunk_type, n_chunks,
                    chunk, n, n_et, 4 * kernels.sm_count(dev), scores, out,
                    device=dev)
     return out
@@ -315,7 +315,7 @@ def nn_bwd_cuda(h1, h2, w1, w2, src2d, dst2d, chunk_type, g,
     dw1, dw2 = torch.empty((n_et, D), **f32), torch.empty((n_et, D), **f32)
     dh1, dh2 = torch.empty((n + 1, D), **f32), torch.empty((n + 1, D), **f32)
     kernels.launch(NN_KERNEL, "tip_nn_bwd", "ppppppppiiiiiiippppp",
-                   _padded(h1), _padded(h2), w1, w2, src2d, dst2d, chunk_type,
+                   pad_row(h1), pad_row(h2), w1, w2, src2d, dst2d, chunk_type,
                    g, n_chunks, chunk, n, n_et, int(bf16), int(shared),
                    4 * kernels.sm_count(dev), gs, dw1, dw2, dh1, dh2,
                    device=dev)

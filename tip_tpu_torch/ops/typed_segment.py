@@ -1,15 +1,26 @@
-"""Chunked sparse aggregations of the beyond-dense layout: the typed
-neighbour sum of the R-GCN (kernel B4) and the windowed P-P SpMM of the
-GCN (kernel B5).
+"""Chunked sparse ops over chunk-aligned buffers: the typed neighbour sum
+of the R-GCN (kernel B4), the windowed P-P SpMM of the GCN (kernel B5),
+and the v1 SDDMMs of the two decoders (kernels B6 and B7).
 
-Port of tip_tpu/ops/pallas_segment.py (``typed_neighbor_sum_padded_t`` and
-``gcn_spmm_padded``).  The TPU kernels turn each gather and scatter into
-one-hot matmuls because the TPU has no fast scatter; the CUDA kernels
-(``csrc/typed_neighbor_sum.cu``, ``csrc/gcn_spmm.cu``, whose headers say
-what bounds them and how they are laid out) gather and scatter directly.
-Both buffers are destination-sorted inside each relation bin or window, so
-the forward passes sum each run of equal destinations in one thread, in
-slot order, and write it once: no atomics, deterministic results.
+Port of tip_tpu/ops/pallas_segment.py (``typed_neighbor_sum_padded_t``,
+``gcn_spmm_padded``, ``distmult_logits_padded``, ``nn_logits_padded``).
+The TPU kernels turn each gather and scatter into one-hot matmuls because
+the TPU has no fast scatter; the CUDA kernels (``csrc/typed_neighbor_sum.cu``,
+``csrc/gcn_spmm.cu``, ``csrc/distmult_sddmm_v1.cu``, ``csrc/nn_sddmm_v1.cu``,
+whose headers say what bounds them and how they are laid out) gather and
+scatter directly.  B4's and B5's buffers are destination-sorted inside each
+relation bin or window, so their forward passes sum each run of equal
+destinations in one thread, in slot order, and write it once: no atomics,
+deterministic results.  B6 and B7 score one slot a thread and scatter
+their gradients with atomics.
+
+B6 and B7 are the JAX package's first SDDMMs, which its decoder A/B
+benchmark (scripts/decoder_ab.py; the port's is
+tip_tpu_torch/scripts/decoder_ab.py) times against the second ones, B8 and
+B9 (ops/sddmm2.py).  They compute the same logits; they round to bf16 at
+other points (each scattered gradient contribution as the TPU kernel
+casts it), take no ``n_nodes`` argument, and keep their gathers' tables
+in shared memory up to a node count past which they read device memory.
 
 Each kernel has a plain PyTorch version here (``*_plain``) with the same
 arithmetic; CPU tensors take it, CUDA tensors launch the kernel or raise.
@@ -22,10 +33,20 @@ from __future__ import annotations
 import torch
 
 from tip_tpu_torch import kernels
-from tip_tpu_torch.ops.matmul import compute_round, is_bf16
+from tip_tpu_torch.ops.matmul import bf16_round, compute_round, is_bf16
+from tip_tpu_torch.ops.sddmm2 import (
+    D,
+    TABLES,
+    distmult_logits_plain,
+    nn_logits_plain,
+    pad_row,
+)
 
 TNS = "typed_neighbor_sum"
 SPMM = "gcn_spmm"
+DM1 = "distmult_sddmm_v1"
+NN1 = "nn_sddmm_v1"
+_WARPS = 16  # B6's and B7's backward blocks (512 threads): the dw reductions
 
 
 # ---------------------------------------------------------------------------
@@ -246,3 +267,262 @@ def gcn_spmm_padded(x, src2d, dstl2d, w2d, chunk_window, n_windows: int,
     A_hat @ dout, by running the same kernel on dout."""
     return _GcnSpmm.apply(x, src2d, dstl2d, w2d, chunk_window, int(n_windows),
                           int(window), int(n_nodes), compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# B6: v1 DistMult SDDMM, logit[c, j] = sum_k z[src, k] z[dst, k] w[ct[c], k]
+# ---------------------------------------------------------------------------
+
+
+# logits [n_chunks, chunk] float32, pad slots reading a zero dst row
+# (exactly 0): B6's forward is B8's, product for product
+distmult_v1_fwd_plain = distmult_logits_plain
+
+
+def distmult_v1_bwd_plain(z, w, src2d, dst2d, chunk_type, g,
+                          bf16: bool = False):
+    """(dz [n, d], dw [n_et, d]) for the incoming gradient g [n_chunks,
+    chunk]: dz[src] += (z[dst] w) g and dz[dst] += (z[src] w) g, each
+    contribution rounded to bf16 with ``bf16``; dw sums (z[src] z[dst]) g
+    per chunk, then per relation in chunk order (0 where a relation owns no
+    chunk)."""
+    n, d = z.shape
+    zp = pad_row(z.float())
+    zs, zd = zp[src2d.long()], zp[dst2d.long()]
+    wt = w.float()[chunk_type.long()][:, None, :]
+    g3 = g.float()[..., None]
+    a, b = (zd * wt) * g3, (zs * wt) * g3
+    if bf16:
+        a, b = bf16_round(a), bf16_round(b)
+    dz = torch.zeros((n + 1, d), dtype=torch.float32, device=z.device)
+    dz.index_add_(0, src2d.long().reshape(-1), a.reshape(-1, d))
+    dz.index_add_(0, dst2d.long().reshape(-1), b.reshape(-1, d))
+    dw = torch.zeros(w.shape, dtype=torch.float32, device=z.device)
+    dw.index_add_(0, chunk_type.long(), ((zs * zd) * g3).sum(1))
+    return dz[:n], dw
+
+
+def v1_shared_fits(n: int, tables: int, grads: bool) -> bool:
+    """Whether ``tables`` [n + 1, 17] float tables (with a backward's
+    static dw reduction) fit one block's shared memory.  B6 (one table): n
+    <= 3,417 forward, 3,402 backward; B7 (two): 1,708 and 1,693."""
+    static = _WARPS * tables * D * 4 if grads else 0
+    return tables * (n + 1) * (D + 1) * 4 + static <= kernels.SMEM_BYTES
+
+
+def _check_v1_args(nodes: dict, rels: dict, bufs, grads: bool, table=None,
+                   g=None):
+    """(n, shared) for B6 (``nodes`` {"z"}) or B7 ({"h1", "h2"}): float32
+    [n, 16] node tables, [n_et, 16] relation rows ``rels``, ``bufs``
+    (src2d, dst2d, chunk_type) and the backward's ``g``.  ``table`` None
+    picks "shared" where the tables fit, else "global"; "shared" raises
+    where they do not fit."""
+    dev = bufs[0].device
+    for name, x in {**nodes, **rels}.items():
+        kernels.require(x, name, torch.float32, 2, dev)
+    _check_chunked(*bufs, dev)
+    n = next(iter(nodes.values())).shape[0]
+    n_et = next(iter(rels.values())).shape[0]
+    if (any(x.shape != (n, D) for x in nodes.values())
+            or any(x.shape != (n_et, D) for x in rels.values())):
+        raise ValueError(f"the kernel is built for width {D}; shapes: " + ", ".join(
+            f"{k} {tuple(x.shape)}" for k, x in {**nodes, **rels}.items()))
+    if g is not None:
+        kernels.require(g, "g", torch.float32, 2, dev)
+        if g.shape != bufs[0].shape:
+            raise ValueError(f"g {tuple(g.shape)} != src2d "
+                             f"{tuple(bufs[0].shape)}")
+    if table not in (None, *TABLES):
+        raise ValueError(f"table {table!r} not in {TABLES}")
+    fits = v1_shared_fits(n, len(nodes), grads)
+    if table == "shared" and not fits:
+        raise ValueError(f"n = {n} does not fit the shared-memory tables")
+    return n, fits if table is None else table == "shared"
+
+
+def distmult_v1_fwd_cuda(z, w, src2d, dst2d, chunk_type, table=None):
+    """Launch the forward of csrc/distmult_sddmm_v1.cu (``table``: see
+    :func:`_check_v1_args`)."""
+    if not z.is_cuda:
+        raise ValueError("distmult_v1_fwd_cuda needs CUDA tensors")
+    bufs = (src2d, dst2d, chunk_type)
+    n, shared = _check_v1_args({"z": z}, {"w": w}, bufs, False, table)
+    n_chunks, chunk = src2d.shape
+    out = torch.empty((n_chunks, chunk), dtype=torch.float32, device=z.device)
+    kernels.launch(DM1, "tip_dm1_fwd", "pppppiiiiip", pad_row(z), w, *bufs,
+                   n_chunks, chunk, n, int(shared),
+                   2 * kernels.sm_count(z.device), out, device=z.device)
+    return out
+
+
+def distmult_v1_bwd_cuda(z, w, src2d, dst2d, chunk_type, g,
+                         bf16: bool = False, table=None):
+    """Launch the backward of csrc/distmult_sddmm_v1.cu: (dz, dw)."""
+    if not z.is_cuda:
+        raise ValueError("distmult_v1_bwd_cuda needs CUDA tensors")
+    bufs = (src2d, dst2d, chunk_type)
+    n, shared = _check_v1_args({"z": z}, {"w": w}, bufs, True, table, g)
+    n_chunks, chunk = src2d.shape
+    blocks = (2 if shared else 4) * kernels.sm_count(z.device)
+    # scratch freed on return while the kernel may still run: the caching
+    # allocator reuses it only for later work on this same stream
+    f32 = dict(dtype=torch.float32, device=z.device)
+    part = torch.empty((blocks if shared else 0, n + 1, D), **f32)
+    dwc = torch.empty((n_chunks, D), **f32)
+    dz = torch.empty((n + 1, D), **f32)
+    dw = torch.empty((w.shape[0], D), **f32)
+    kernels.launch(DM1, "tip_dm1_bwd", "ppppppiiiiiiipppp", pad_row(z), w,
+                   *bufs, g, n_chunks, chunk, n, w.shape[0], int(bf16),
+                   int(shared), blocks, part, dwc, dz, dw, device=z.device)
+    return dz[:n], dw
+
+
+class _DistmultV1(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z, w, src2d, dst2d, chunk_type, compute_dtype):
+        zr = compute_round(z, compute_dtype).contiguous()
+        wf = w.float().contiguous()
+        ctx.save_for_backward(zr, wf, src2d, dst2d, chunk_type)
+        ctx.bf16 = is_bf16(compute_dtype)
+        if zr.is_cuda:
+            return distmult_v1_fwd_cuda(zr, wf, src2d, dst2d, chunk_type)
+        if zr.device.type != "cpu":
+            raise ValueError(f"no v1 DistMult SDDMM for device {zr.device}")
+        return distmult_v1_fwd_plain(zr, wf, src2d, dst2d, chunk_type)
+
+    @staticmethod
+    def backward(ctx, g):
+        args = ctx.saved_tensors
+        bwd = distmult_v1_bwd_cuda if args[0].is_cuda else distmult_v1_bwd_plain
+        dz, dw = bwd(*args, g.float().contiguous(), ctx.bf16)
+        return dz, dw, None, None, None, None
+
+
+def distmult_logits_padded(z, w, src2d, dst2d, chunk_type,
+                           compute_dtype=torch.float32):
+    """v1 DistMult logits [n_chunks, chunk] for padded typed edges (kernel
+    B6); pad slots (dst = n) give exactly 0.
+
+    z [n, d]; w [n_et, d] per-relation diagonal; src2d/dst2d [n_chunks,
+    chunk] int32; chunk_type [n_chunks] int32, non-decreasing.  With
+    ``compute_dtype=bfloat16`` z, and each scattered dz contribution of the
+    backward, are rounded to bf16; w and the sums stay float32.
+    Differentiable in z and w."""
+    return _DistmultV1.apply(z, w, src2d, dst2d, chunk_type, compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# B7: v1 NN-decoder SDDMM, logit = h1[src] . w1[t] + h2[dst] . w2[t]
+# ---------------------------------------------------------------------------
+
+
+# logits [n_chunks, chunk] float32, h1[src] . w1[t] + h2[dst] . w2[t] per
+# slot (a pad slot's dst term is 0, its src term real): B7's forward is
+# B9's function
+nn_v1_fwd_plain = nn_logits_plain
+
+
+def nn_v1_bwd_plain(h1, h2, w1, w2, src2d, dst2d, chunk_type, g,
+                    bf16: bool = False):
+    """(dh1, dh2 [n, l1], dw1, dw2 [n_et, l1]) for the incoming gradient g
+    [n_chunks, chunk]: dh1[src] += w1[t] g (pad slots too), dh2[dst] +=
+    w2[t] g, each rounded to bf16 with ``bf16``; dw1, dw2 sum h1[src] g and
+    h2[dst] g per chunk, then per relation in chunk order."""
+    n, d = h1.shape
+    ct = chunk_type.long()
+    hs = pad_row(h1.float())[src2d.long()]
+    hd = pad_row(h2.float())[dst2d.long()]
+    g3 = g.float()[..., None]
+    out = []
+    for ids, wt in ((src2d, w1.float()[ct][:, None, :]),
+                    (dst2d, w2.float()[ct][:, None, :])):
+        contrib = wt * g3
+        if bf16:
+            contrib = bf16_round(contrib)
+        dh = torch.zeros((n + 1, d), dtype=torch.float32, device=g.device)
+        dh.index_add_(0, ids.long().reshape(-1), contrib.reshape(-1, d))
+        out.append(dh[:n])
+    for hx, w in ((hs, w1), (hd, w2)):
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=g.device)
+        out.append(dw.index_add_(0, ct, (hx * g3).sum(1)))
+    return tuple(out)
+
+
+def nn_v1_fwd_cuda(h1, h2, w1, w2, src2d, dst2d, chunk_type, table=None):
+    """Launch the forward of csrc/nn_sddmm_v1.cu (``table``: see
+    :func:`_check_v1_args`)."""
+    if not h1.is_cuda:
+        raise ValueError("nn_v1_fwd_cuda needs CUDA tensors")
+    bufs = (src2d, dst2d, chunk_type)
+    n, shared = _check_v1_args({"h1": h1, "h2": h2}, {"w1": w1, "w2": w2},
+                               bufs, False, table)
+    n_chunks, chunk = src2d.shape
+    out = torch.empty((n_chunks, chunk), dtype=torch.float32, device=h1.device)
+    kernels.launch(NN1, "tip_nn1_fwd", "pppppppiiiiip", pad_row(h1),
+                   pad_row(h2), w1, w2, *bufs, n_chunks, chunk, n,
+                   int(shared), 2 * kernels.sm_count(h1.device), out,
+                   device=h1.device)
+    return out
+
+
+def nn_v1_bwd_cuda(h1, h2, w1, w2, src2d, dst2d, chunk_type, g,
+                   bf16: bool = False, table=None):
+    """Launch the backward of csrc/nn_sddmm_v1.cu: (dh1, dh2, dw1, dw2)."""
+    if not h1.is_cuda:
+        raise ValueError("nn_v1_bwd_cuda needs CUDA tensors")
+    bufs = (src2d, dst2d, chunk_type)
+    n, shared = _check_v1_args({"h1": h1, "h2": h2}, {"w1": w1, "w2": w2},
+                               bufs, True, table, g)
+    n_chunks, chunk = src2d.shape
+    n_et = w1.shape[0]
+    blocks = (2 if shared else 4) * kernels.sm_count(h1.device)
+    # scratch freed on return while the kernel may still run: the caching
+    # allocator reuses it only for later work on this same stream
+    f32 = dict(dtype=torch.float32, device=h1.device)
+    part = torch.empty((blocks if shared else 0, 2, n + 1, D), **f32)
+    dwc = torch.empty((n_chunks, 2, D), **f32)
+    dh = torch.empty((2, n + 1, D), **f32)
+    dw = torch.empty((n_et, 2, D), **f32)
+    kernels.launch(NN1, "tip_nn1_bwd", "ppppppppiiiiiiipppp", pad_row(h1),
+                   pad_row(h2), w1, w2, *bufs, g, n_chunks, chunk, n, n_et,
+                   int(bf16), int(shared), blocks, part, dwc, dh, dw,
+                   device=h1.device)
+    return dh[0, :n], dh[1, :n], dw[:, 0], dw[:, 1]
+
+
+class _NNV1(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h1, h2, w1, w2, src2d, dst2d, chunk_type, compute_dtype):
+        h1r = compute_round(h1, compute_dtype).contiguous()
+        h2r = compute_round(h2, compute_dtype).contiguous()
+        w1f, w2f = w1.float().contiguous(), w2.float().contiguous()
+        args = (h1r, h2r, w1f, w2f, src2d, dst2d, chunk_type)
+        ctx.save_for_backward(*args)
+        ctx.bf16 = is_bf16(compute_dtype)
+        if h1r.is_cuda:
+            return nn_v1_fwd_cuda(*args)
+        if h1r.device.type != "cpu":
+            raise ValueError(f"no v1 NN-decoder SDDMM for device {h1r.device}")
+        return nn_v1_fwd_plain(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        args = ctx.saved_tensors
+        bwd = nn_v1_bwd_cuda if args[0].is_cuda else nn_v1_bwd_plain
+        grads = bwd(*args, g.float().contiguous(), ctx.bf16)
+        return (*grads, None, None, None, None)
+
+
+def nn_logits_padded(h1, h2, w1, w2, src2d, dst2d, chunk_type,
+                     compute_dtype=torch.float32):
+    """v1 NN-decoder logits [n_chunks, chunk] from the per-node L1 tables
+    (kernel B7).
+
+    h1, h2 [n, l1] (relu'd L1 projections); w1, w2 [n_et, l1] per-relation
+    L2 rows; buffers as :func:`distmult_logits_padded`.  Pad slots (dst =
+    n) score their pad src, which the caller masks (the JAX package's
+    contract).  With ``compute_dtype=bfloat16`` h1, h2, and each scattered
+    dh contribution of the backward, are rounded to bf16.  Differentiable
+    in h1, h2, w1 and w2."""
+    return _NNV1.apply(h1, h2, w1, w2, src2d, dst2d, chunk_type,
+                       compute_dtype)

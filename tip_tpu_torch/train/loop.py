@@ -44,7 +44,9 @@ def train(cfg: ModelConfig, tcfg: TrainConfig, data: TriGraphData,
     one ``preferred_dense_dtype`` picks for ``cfg.kernel_dtype`` and
     ``matmul_precision`` (which stands for the JAX package's
     ``jax_default_matmul_precision``: "float32" or "highest" with a
-    float32 kernel dtype asks for the float32 pages).  Returns
+    float32 kernel dtype asks for the float32 pages).  The graph is packed
+    for ``cfg.decoder`` (the NN decoder's: the encoder's layout and the
+    chunk buffers of its sampled loss).  Returns
     (params, {"final", "history", "per_relation"})."""
     dev = resolve_device(device)
     if tcfg.checkpoint_dir or tcfg.remat:
@@ -54,7 +56,8 @@ def train(cfg: ModelConfig, tcfg: TrainConfig, data: TriGraphData,
     dense_dtype = preferred_dense_dtype(data, cfg.kernel_dtype,
                                         matmul_precision)
     graph, gs = make_graph_arrays(data, dev, dense_dtype=dense_dtype,
-                                  sampled=cfg.negatives == "sampled")
+                                  sampled=cfg.negatives == "sampled",
+                                  decoder=cfg.decoder)
     model = TIP.for_data(cfg, data, gs, dev)
     test = make_test_arrays(data, dev)
 

@@ -1,5 +1,5 @@
-"""TIP model assembly: tri-graph encoder, DistMult decoder, the training
-loss on each D-D layout, and evaluation.
+"""TIP model assembly: tri-graph encoder, DistMult or NN decoder, the
+training loss on each D-D layout, and evaluation.
 
 Port of tip_tpu/train/model.py:52-67, 76-259 and 277-578 for the three
 layouts ``make_graph_arrays`` ships on one device:
@@ -26,7 +26,13 @@ Sampled negatives (``negatives="sampled"``) on the strips or the pages
 draw and score their negatives as the chunked layout does (B10, B8) and
 score the positives over the full pages (plain PyTorch);
 ``make_graph_arrays(..., sampled=True)`` ships the chunk buffers, the
-bitmap and the pages beside the strips.  The
+bitmap and the pages beside the strips.  The NN decoder
+(``decoder="nn"``) takes that sampled route on every layout, as the JAX
+package's TIP does (its fused dense BCEs are DistMult-only): B10 draws,
+the NN-decoder SDDMM (kernel B9) scores the positives over the chunk
+buffers and the negatives over the draws; ``make_graph_arrays(...,
+decoder="nn")`` ships the encoder's layout, the chunk buffers and the
+bitmap, and nothing else of the D-D side.  The
 P-P side is dense (``pp_a1``, ``pp_dinv``) where ``pp_dense`` ships it,
 else windowed (``ppw_*``, kernel B5).  Parameters are nested dicts of
 tensors in the JAX package's layout; every method is a plain function of
@@ -66,6 +72,9 @@ from tip_tpu_torch.nn import (
 from tip_tpu_torch.nn.decoders import (
     distmult_apply_padded,
     distmult_dense_pos_bce_sum,
+    nn_decoder_apply,
+    nn_decoder_apply_padded,
+    nn_decoder_init,
 )
 from tip_tpu_torch.ops.dense_bce import dense_bce_sum
 from tip_tpu_torch.ops.dense_bce_sym import dense_bce_sym_sum, softplus
@@ -105,13 +114,14 @@ class GraphStatic:
     dd_n_chunks: int = 0
     pp_window: int = 1024
     pp_n_windows: int = 0
-    # 'strips' (kernel B1) | 'pages' (full pages, B2; B3 for the NN decoder)
+    # 'strips' (kernel B1) | 'pages' (full pages, B2; B3 for DR-NN)
     # | 'chunked' (B4, B8 or B9, B10) | 'strips_pages' (strips for the
-    # encoder, uint8 full pages for the NN decoder's loss, B3; models/dd.py
-    # only)
+    # encoder, uint8 full pages for DR-NN's loss, B3; models/dd.py only)
     dd_layout: str = "strips"
     # strips or pages packed for sampled negatives (dense_dd_arrays)
     dd_sampled: bool = False
+    # the decoder whose loss the D-D side was packed for
+    dd_decoder: str = "distmult"
     # 'dense' (pp_a1, pp_dinv) | 'windowed' (ppw_*, B5) | 'none' (no P-P
     # side: models/dd.py)
     pp_layout: str = "dense"
@@ -169,11 +179,13 @@ def dense_dd_arrays(data: TriGraphData, dense_dtype: str, device=None,
     ``dd_adj_t`` in ``dense_dtype`` ('pages'), as the JAX package falls
     back.  The Poissonized loss reads the strips' thresholds ``dd_neg_q8``
     (kernel B1) or the pages' ``dd_neg_q`` (kernel B2); the NN decoder's
-    (kernel B3) reads uint8 pages ``dd_adj_u8`` and ``dd_neg_q``, its
-    strips layout being 'strips_pages'.  With ``sampled`` the Poissonized
-    inputs stay home; DistMult then scores its positives over ``dd_adj_t``
-    (shipped beside the strips too), and the caller ships the chunk
-    buffers (:func:`chunk_arrays`)."""
+    (kernel B3, DR-NN) reads ``dd_neg_q`` and the full pages: ``dd_adj_t``
+    in its own dtype on the pages, uint8 pages ``dd_adj_u8`` beside the
+    strips (whose counts are at most 127), the layout then being
+    'strips_pages'.  With ``sampled`` the Poissonized inputs stay home;
+    DistMult then scores its positives over ``dd_adj_t`` (shipped beside
+    the strips too), the NN decoder over the chunk buffers, which the
+    caller ships (:func:`chunk_arrays`)."""
     da = dense_relation_adj(data.dd_train, data.n_drug)
 
     def t(x):
@@ -195,20 +207,15 @@ def dense_dd_arrays(data: TriGraphData, dense_dtype: str, device=None,
         else:
             out["dd_neg_q"] = t(poisson_neg_thresholds(data.dd_train,
                                                        data.n_drug))
-        if decoder == "nn":
-            try:
-                out["dd_adj_u8"] = t(cast_dense_adj(da, "uint8"))
-            except ValueError as e:
-                raise ValueError(
-                    "the NN decoder's dense BCE (kernel B3) reads uint8 "
-                    f"pages: {e}") from e
-    if decoder == "nn" and layout == "strips":
-        layout = "strips_pages"
+        if decoder == "nn" and layout == "strips":
+            out["dd_adj_u8"] = t(cast_dense_adj(da, "uint8"))
+            layout = "strips_pages"
     return layout, out
 
 
 def check_negatives(negatives: str, gs: GraphStatic) -> None:
-    """Raise unless the graph was packed for the ``negatives`` route."""
+    """Raise unless the graph was packed for the ``negatives`` route of a
+    model whose dense layouts take the Poissonized route by default."""
     if gs.dd_layout == "chunked":
         if negatives == "poisson":
             raise ValueError(POISSON_NEEDS_DENSE)
@@ -241,7 +248,8 @@ def chunk_arrays(data: TriGraphData, dd_chunk: int, device=None) -> dict:
 def make_graph_arrays(data: TriGraphData, device=None, dd_chunk: int = 1024,
                       pp_window: int = 1024, pp_chunk: int = 512,
                       dense_dtype: Optional[str] = None,
-                      pp_dense: Optional[bool] = None, sampled: bool = False):
+                      pp_dense: Optional[bool] = None, sampled: bool = False,
+                      decoder: str = "distmult"):
     """Pack the training graph into tensors on ``device`` + static metadata.
 
     ``dense_dtype="bfloat16"`` ships the D-D symmetric strips, or, where
@@ -251,13 +259,19 @@ def make_graph_arrays(data: TriGraphData, device=None, dd_chunk: int = 1024,
     buffers (relation bins padded to ``dd_chunk``) and the train bitmap.
     ``sampled`` packs the strips or pages for ``negatives="sampled"``: the
     chunk buffers and the bitmap beside them, and no Poissonized
-    thresholds.  ``pp_dense`` (default: ``dense_dtype is not None``) ships
+    thresholds.  ``decoder="nn"`` packs for TIP's NN decoder, which takes
+    the sampled route on every layout: the encoder's strips or pages, the
+    chunk buffers and the bitmap, nothing more (``sampled`` is implied).
+    ``pp_dense`` (default: ``dense_dtype is not None``) ships
     the dense int8 (A+I) P-P parts where feasible and free of duplicates,
     else the P-P edges windowed by ``pp_window`` and padded to
     ``pp_chunk``."""
     if dense_dtype not in (None, "bfloat16", "float32"):
         raise ValueError(f"dense_dtype {dense_dtype!r}: None, 'bfloat16' or "
                          "'float32'")
+    if decoder not in ("distmult", "nn"):
+        raise ValueError(f"unknown decoder {decoder!r}")
+    sampled = sampled or decoder == "nn"
 
     def t(x):
         return torch.from_numpy(x).to(device)
@@ -270,7 +284,8 @@ def make_graph_arrays(data: TriGraphData, device=None, dd_chunk: int = 1024,
     }
     layout = "chunked"
     if dense_dtype is not None:
-        layout, dd = dense_dd_arrays(data, dense_dtype, device, sampled)
+        layout, dd = dense_dd_arrays(data, dense_dtype, device, sampled,
+                                     decoder)
         graph.update(dd)
     if layout == "chunked" or sampled:
         graph.update(chunk_arrays(data, dd_chunk, device))
@@ -306,7 +321,7 @@ def make_graph_arrays(data: TriGraphData, device=None, dd_chunk: int = 1024,
         dd_chunk=dd_chunk, pp_window=pp_window,
         dd_n_chunks=graph["dd_src2d"].shape[0] if "dd_src2d" in graph else 0,
         pp_n_windows=wpp.n_windows, dd_layout=layout,
-        dd_sampled=sampled and layout != "chunked",
+        dd_sampled=sampled and layout != "chunked", dd_decoder=decoder,
         pp_layout="windowed" if a1 is None else "dense",
     )
     return graph, gs
@@ -333,14 +348,27 @@ class TIP:
     @staticmethod
     def for_data(cfg: ModelConfig, data: TriGraphData, gs: GraphStatic,
                  device=None) -> "TIP":
-        if cfg.decoder != "distmult":
-            raise NotImplementedError(
-                "the port trains the DistMult decoder; the NN decoder is a "
-                "later slice")
         if data.n_et * bitmap_stride_bits(data.n_drug) >= 2**31:
             raise ValueError(
                 "relation-strided key space exceeds int32; enable x64 keys")
-        check_negatives(cfg.negatives, gs)
+        if cfg.decoder == "nn":
+            # the fused dense BCEs are DistMult-only: the NN decoder takes
+            # the sampled route on every layout (the JAX package raises
+            # this when its loss finds no fused route)
+            if cfg.negatives == "poisson":
+                raise ValueError(POISSON_NEEDS_DENSE)
+            if gs.dd_layout != "chunked" and not gs.dd_sampled:
+                raise ValueError(
+                    f"the NN decoder scores sampled negatives, which read the "
+                    f"chunk buffers a {gs.dd_layout!r} graph packed for the "
+                    "Poissonized route does not ship; pack with decoder='nn'")
+        else:
+            if gs.dd_layout != "chunked" and gs.dd_decoder != "distmult":
+                raise ValueError(
+                    f"a {gs.dd_layout!r} graph packed for the "
+                    f"{gs.dd_decoder} decoder lacks what DistMult's loss "
+                    "reads; pack with decoder='distmult'")
+            check_negatives(cfg.negatives, gs)
         return TIP(cfg=cfg, gs=gs, device=resolve_device(device))
 
     def init(self, gen: torch.Generator) -> dict:
@@ -349,8 +377,11 @@ class TIP:
             "encoder": fm_encoder_init(gen, self.cfg, gs.n_drug, gs.n_prot,
                                        gs.n_et, gs.drug_feat_dim or None,
                                        device=self.device),
-            "decoder": distmult_init(gen, self.cfg.n_hid2, gs.n_et,
-                                     device=self.device),
+            "decoder": (
+                distmult_init(gen, self.cfg.n_hid2, gs.n_et, device=self.device)
+                if self.cfg.decoder == "distmult" else
+                nn_decoder_init(gen, self.cfg.n_hid2, gs.n_et,
+                                self.cfg.nn_decoder_l1_dim, device=self.device)),
         }
 
     def encode(self, params, graph):
@@ -360,31 +391,38 @@ class TIP:
                                 d_norm=graph.get("d_norm"))
 
     def score(self, params, z, src, dst, et, sigmoid: bool = True):
-        return distmult_apply(params["decoder"], z, src, dst, et, sigmoid)
+        """Scores of (src, dst, relation) triples, flat (the eval's)."""
+        apply = (distmult_apply if self.cfg.decoder == "distmult"
+                 else nn_decoder_apply)
+        return apply(params["decoder"], z, src, dst, et, sigmoid)
 
     def score_padded(self, params, z, src2d, dst2d, chunk_type, sigmoid=True):
-        """Flat scores [n_chunks * chunk] of a chunk-aligned buffer."""
-        return distmult_apply_padded(params["decoder"], z, src2d, dst2d,
-                                     chunk_type, sigmoid,
-                                     kernel_dtype=self.cfg.kernel_dtype)
+        """Flat scores [n_chunks * chunk] of a chunk-aligned buffer (kernel
+        B8 for DistMult, B9 for the NN decoder)."""
+        apply = (distmult_apply_padded if self.cfg.decoder == "distmult"
+                 else nn_decoder_apply_padded)
+        return apply(params["decoder"], z, src2d, dst2d, chunk_type, sigmoid,
+                     kernel_dtype=self.cfg.kernel_dtype)
 
     def loss(self, params, graph, seed: int, u24=None):
         """Mean BCE over the train edges.  ``seed`` (uint32) keys the
         negatives; ``u24`` (CPU only) replaces their random bits.
 
-        Strips or pages with ``negatives`` auto or poisson: positives plus
-        Poissonized negatives from the fused dense BCE, kernel B1 on the
-        strips, B2 on the pages (``u24`` is its cell field).  Otherwise
-        (the chunked layout, or ``negatives="sampled"``): one sampled
-        negative per slot (kernel B10; ``u24`` is the sampler's [n_chunks,
-        1, draws * chunk] draws) scored by the DistMult SDDMM (kernel B8),
-        positives scored by B8 on the chunked layout and over the full
-        pages on the dense ones, softplus terms of slots masked by
+        DistMult on the strips or pages with ``negatives`` auto or poisson:
+        positives plus Poissonized negatives from the fused dense BCE,
+        kernel B1 on the strips, B2 on the pages (``u24`` is its cell
+        field).  Otherwise (the chunked layout, ``negatives="sampled"``, or
+        the NN decoder): one sampled negative per slot (kernel B10; ``u24``
+        is the sampler's [n_chunks, 1, draws * chunk] draws) scored by the
+        decoder's SDDMM (kernel B8 or B9), positives scored by it over the
+        chunk buffers, except DistMult's on the dense layouts, which are
+        scored over the full pages; softplus terms of slots masked by
         ``dd_valid``."""
         gs = self.gs
         z = self.encode(params, graph)
-        w = params["decoder"]["weight"]
-        if gs.dd_layout != "chunked" and self.cfg.negatives != "sampled":
+        if (gs.dd_layout != "chunked" and self.cfg.decoder == "distmult"
+                and self.cfg.negatives != "sampled"):
+            w = params["decoder"]["weight"]
             if gs.dd_layout == "strips":
                 total = dense_bce_sym_sum(w, z, graph["dd_adj_sym"],
                                           graph["dd_neg_q8"], seed, u24=u24)
@@ -397,13 +435,14 @@ class TIP:
             seed, ct, graph["dd_bitmap"], gs.n_drug, gs.n_et, gs.dd_chunk,
             u24=u24)
         valid = graph["dd_valid"]
-        if gs.dd_layout == "chunked":
+        if gs.dd_layout == "chunked" or self.cfg.decoder == "nn":
             pos = self.score_padded(params, z, graph["dd_src2d"],
                                     graph["dd_dst2d"], ct, sigmoid=False)
             pos_sum = torch.sum(softplus(-pos) * valid)
         else:
             pos_sum = distmult_dense_pos_bce_sum(
-                w, z, graph["dd_adj_t"], kernel_dtype=self.cfg.kernel_dtype)
+                params["decoder"]["weight"], z, graph["dd_adj_t"],
+                kernel_dtype=self.cfg.kernel_dtype)
         neg = self.score_padded(params, z, neg_src2d, neg_dst2d, ct,
                                 sigmoid=False)
         total = pos_sum + torch.sum(softplus(neg) * valid)
