@@ -43,7 +43,17 @@ Phases, each fatal on failure:
   9. the chunked paths on BEYOND_DENSE: TIP-cat and TIP-cat with the NN
      decoder as in 5 (B10, B8 or B9, B4, B5; profiled) and DR-NN as in 6
      (B10, B9, B4; profiled);
- 10. print the kernels line (each kernel timed at the shapes of the path
+ 10. sharded, on the Decagon-shaped graph with SHARDED_RANKS processes
+     sharing this card (tip_tpu_torch/scripts/sharded.py's workers; the
+     kernels are built before the ranks spawn): hold B11 against its plain
+     version across the ranks (d = 32, 16, forward and backward) and time
+     one ring step here; then train TIP-cat sharded (SHARDED_PATHS: the COO
+     ring on the 1-D mesh, "tip sharded ring"; the dense P-P rows; the COO
+     ring on the 2 x 2 mesh), each rank probing z, the loss and the
+     gradients against the single-process ones first, counters at 0 just
+     before the steps, each rank's launches exact, rank 0's unsharded eval;
+     a ``sharded:`` line each;
+ 11. print the kernels line (each kernel timed at the shapes of the path
      whose launches it reports, KERNEL_PATH), the card line and, last, the
      result line {"ok": true, "device": {...}}.
 Without a CUDA device it exits non-zero before printing any result.
@@ -81,6 +91,14 @@ WIDE = dict(n_drug=7000, n_prot=300, n_et=3, pairs_per_et=40000,
 TRAIN_STEPS = 5  # TIP-cat paths
 VARIANT_STEPS = 5  # the DR-NN paths (kernels B3, B9)
 OTHER_STEPS = 2  # DR-DF, PR-HMP-NN, PP-GAE
+# The sharded paths: SHARDED_RANKS processes on this one card (CUDA IPC
+# between them), the Decagon-shaped graph; path -> (ranks on the ring axis,
+# the ring's P-P form, steps)
+SHARDED_RANKS = 4
+SHARDED_PATHS = {"tip sharded ring": (4, "coo", 5),
+                 "tip sharded dense-pp": (4, "dense", 2),
+                 "tip sharded 2x2": (2, "coo", 2)}
+SHARDED_TIMEOUT_S = 600  # a spawn of the ranks, and each of their collectives
 
 
 def card_line() -> str:
@@ -671,9 +689,10 @@ def check_distmult_sddmm(graph, gs, data, dev, timed: bool = True) -> dict:
 
 
 def check_typed_neg_sampler(graph, gs, data, dev, timed: bool = True) -> dict:
-    """Kernel B10 against its plain version under the same seed (exact
-    equality of every raw, sign-flagged pair), in the single-draw mode up
-    to 4,096 nodes and the two-draw mode past it, then the lane-borrow
+    """Kernel B10 against its plain version under the same seed and under
+    the same explicit draws (exact equality of every raw, sign-flagged
+    pair), in the single-draw mode up to 4,096 nodes and the two-draw mode
+    past it, then the lane-borrow
     pass: how many sampled negatives are still positives after it (the JAX
     package accepts ~density^5)."""
     import torch
@@ -688,6 +707,14 @@ def check_typed_neg_sampler(graph, gs, data, dev, timed: bool = True) -> dict:
     rp = sampler.typed_negative_sampling_plain(seed, ct, bitmap, n, chunk)
     check(torch.equal(rk, rp), "B10 kernel and plain version draw different "
           f"pairs ({int((rk != rp).sum())} slots)")
+    u24 = torch.randint(0, 1 << 24, (ct.shape[0], 1,
+                                     sampler.draws_per_slot(n) * chunk),
+                        generator=torch.Generator().manual_seed(13),
+                        dtype=torch.int32).to(dev)
+    ru = sampler.typed_negative_sampling_cuda(seed, ct, bitmap, n, chunk, u24)
+    rpu = sampler.typed_negative_sampling_plain(seed, ct, bitmap, n, chunk, u24)
+    check(torch.equal(ru, rpu), "B10 kernel and plain version turn the same "
+          f"draws into different pairs ({int((ru != rpu).sum())} slots)")
     pair = torch.where(rk < 0, -rk - 1, rk)
     check(int(pair.min()) >= 0 and int(pair.max()) < n * n, "B10 pair range")
     resolved = sampler.resolve_borrow(rk)
@@ -1289,9 +1316,10 @@ def graph_summary(data, build_sec: float) -> dict:
             "build_sec": build_sec}
 
 
-def expected_launches(path: str, steps: int) -> dict:
+def expected_launches(path: str, steps: int, eval_rank: bool = True) -> dict:
     """Launches of each kernel in ``steps`` training steps plus the final
-    eval, per path.  TIP dense: B1 once a step.  TIP pages: B2 once a step.
+    eval, per path (a sharded path's: one rank's; ``eval_rank`` False
+    leaves the eval out, which rank 0 alone runs).  TIP dense: B1 once a step.  TIP pages: B2 once a step.
     TIP strips sampled: B10 once and B8 twice (the negatives' forward and
     backward; the positives are scored over the full pages in PyTorch).
     TIP chunked: B10 once, B8 twice forward (positives, negatives) and
@@ -1304,7 +1332,21 @@ def expected_launches(path: str, steps: int) -> dict:
     with B9 for B8.  DR-NN dense: B3 once a step (its fused pass); DR-NN
     pages: the same on the float32 pages.  DR-NN chunked: as TIP chunked
     with B9 for B8 and no P-P side (no B5).  DR-DF dense: B1 once a step;
-    DR-DF pages: B2 once a step.  PR-HMP-NN and PP-GAE run no kernel."""
+    DR-DF pages: B2 once a step.  PR-HMP-NN and PP-GAE run no kernel.
+    TIP sharded (each rank, on its quarter of the chunks): B10 once, B8 and
+    B4 four times a step, as TIP chunked, and no B5; with the COO ring B11
+    once a ring step in each of four ring SpMMs a step (two layers, forward
+    and the backward's), n_ring launches each: 16 a step on the 1-D mesh
+    of 4 ("tip sharded ring"), 8 on the 2 x 2 mesh's rings of 2; none over
+    the dense P-P rows ("tip sharded dense-pp").  Rank 0's unsharded eval
+    (windowed P-P) adds B4 2 and B5 2."""
+    sharded = {"typed_neg_sampler": steps, "distmult_sddmm": 4 * steps,
+               "typed_neighbor_sum": 4 * steps + 2 * eval_rank,
+               "gcn_spmm": 2 * eval_rank}
+    if path in SHARDED_PATHS:
+        n_ring, pp, _ = SHARDED_PATHS[path]
+        return {**sharded, **({"ring_spmm": 4 * n_ring * steps}
+                              if pp == "coo" else {})}
     return {
         "tip dense": {"dense_bce_sym": steps},
         "tip pages": {"dense_bce": steps},
@@ -1474,6 +1516,254 @@ def run_variant(variant: str, data, dev, steps: int,
     return launches
 
 
+def check_ring_spmm(data, dev) -> dict:
+    """Kernel B11 against its plain version at Decagon shape with
+    SHARDED_RANKS ranks, one process each on this card (spawned; CUDA IPC
+    between them), at both GCN widths (d = 32, 16), forward and backward
+    (the gradient of sum(out * cot) through each), and the ring's output
+    against the replicated A_hat @ h.  f32 both ways, summed in another
+    order: 1e-5 of the largest magnitude.  Then one ring step timed in this
+    process on a loopback ring (a second local buffer stands in for the
+    left neighbour, the barrier passes on its own flag), its plain step,
+    and ``torch.sparse.mm`` over the block as CSR [n_local, n_local]."""
+    import numpy as np
+    import torch
+
+    from tip_tpu_torch.config import ModelConfig
+    from tip_tpu_torch.ops import ring as ops_ring
+    from tip_tpu_torch.ops.segment import segment_sum_sorted, weighted_gather_sum
+    from tip_tpu_torch.parallel.ring import build_ring_pp
+    from tip_tpu_torch.scripts import sharded
+
+    k, n = SHARDED_RANKS, data.n_prot
+    cfg = ModelConfig.tip_cat()
+    ring = build_ring_pp(data.pp_norm_index, data.pp_norm_weight,
+                         data.dp_edge_index, n, k)
+    n_local = ring.n_local
+    rng = np.random.default_rng(31)
+    widths = (cfg.pp_hid1, cfg.pp_hid2)
+    inputs = []
+    for d in widths:
+        h = np.zeros((k * n_local, d), np.float32)
+        h[:n] = rng.standard_normal((n, d))
+        inputs.append((h, rng.standard_normal((k * n_local, d)).astype(np.float32)))
+    ranks = sharded.spawn_ranks(
+        sharded.ring_spmm_rank, k,
+        sharded.RingJob(ring.src_local, ring.dst_local, ring.weight,
+                        tuple(inputs)), timeout_s=SHARDED_TIMEOUT_S)
+    src, dst = (torch.from_numpy(data.pp_norm_index[i].astype("int64")).to(dev)
+                for i in (0, 1))
+    wn = torch.from_numpy(data.pp_norm_weight).to(dev)
+    rep = {"ranks": k, "n_local": n_local, "e_pad": ring.src_local.shape[2],
+           "real_edges_per_block": [int(c) for c in
+                                    (ring.weight != 0).sum(-1).reshape(-1)]}
+    worst = 0.0
+    for j, d in enumerate(widths):
+        got = {route: [torch.from_numpy(np.concatenate(
+            [r[route][j][i] for r in ranks])) for i in (0, 1)]
+            for route in ("op", "plain")}
+        ef, mf = max_err(got["op"][0], got["plain"][0])
+        eb, mb = max_err(got["op"][1], got["plain"][1])
+        check(ef <= 1e-5 * mf, f"B11 d={d} forward err {ef} of max {mf}")
+        check(eb <= 1e-5 * mb, f"B11 d={d} backward err {eb} of max {mb}")
+        h, cot = (torch.from_numpy(a).to(dev) for a in inputs[j])
+        ed, md = max_err(got["op"][0][:n].to(dev),
+                         weighted_gather_sum(h[:n], src, dst, wn, n))
+        check(ed <= 1e-5 * md, f"B11 d={d} against A_hat @ h: err {ed} of {md}")
+        rep[f"d{d}"] = {"fwd_max_abs_err": ef, "fwd_max": mf,
+                        "bwd_max_abs_err": eb, "bwd_max": mb,
+                        "vs_replicated_max_abs_err": ed}
+        worst = max(worst, ef, eb)
+    # each rank: the op's forward and its backward at each width, k launches
+    want = 2 * len(widths) * k
+    for r in ranks:
+        check(r["launches"]["ring_spmm"] == want,
+              f"B11 check launched {r['launches']['ring_spmm']}, expected {want}")
+    rep["max_abs_err"] = worst
+
+    # one ring step (rank 0's block s = 1) at layer 1's width, timed here
+    d, s = cfg.pp_hid1, 1
+    blk = [torch.from_numpy(np.ascontiguousarray(a[0, s])).to(dev)
+           for a in (ring.src_local, ring.dst_local, ring.weight)]
+    h = torch.randn(n_local, d, generator=torch.Generator().manual_seed(32)).to(dev)
+    plain = segment_sum_sorted(h[blk[0].long()] * blk[2][:, None], blk[1], n_local)
+    comm = ops_ring.RingComm.loopback(n_local, d, dev)
+    try:
+        out = torch.zeros(n_local, d, device=dev)
+        ops_ring.ring_step_cuda(h, out, *blk, comm, 0, copy=True)
+        e1, m1 = max_err(out, plain)
+        check(e1 <= 1e-5 * m1, f"B11 loopback step err {e1} of max {m1}")
+        rep["ms"] = cuda_ms(lambda: ops_ring.ring_step_cuda(
+            h, out, *blk, comm, 0, copy=True), reps=50, primed=True)
+        rep["no_copy_ms"] = cuda_ms(lambda: ops_ring.ring_step_cuda(
+            h, out, *blk, comm, 0, copy=False), reps=50, primed=True)
+    finally:
+        comm.close()
+    rep["plain_ms"] = cuda_ms(lambda: segment_sum_sorted(
+        h[blk[0].long()] * blk[2][:, None], blk[1], n_local), reps=10)
+    real = blk[2] != 0
+    crow = torch.zeros(n_local + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(torch.bincount(blk[1].long()[real],
+                                           minlength=n_local), 0)
+    adj = torch.sparse_csr_tensor(crow, blk[0].long()[real], blk[2][real],
+                                  (n_local, n_local))
+    rep["library_ms"] = library_call(lambda: torch.sparse.mm(adj, h), plain,
+                                     1e-5, "B11")
+    e_real = int(real.sum())
+    # the block's real edges read once (src, dst, w), the shard read once,
+    # out read and written, the neighbour's slot written
+    rep.update(bound(12 * e_real + 4 * n_local * d * 4, 2 * e_real * d))
+    rep.update(d=d, step=s, block_edges=e_real)
+    return rep
+
+
+def leaf_paths(tree, prefix: str = "") -> list:
+    """[(dotted path, leaf)] of a nested dict, in convert.leaves order."""
+    if not isinstance(tree, dict):
+        return [(prefix, tree)]
+    return [x for k in sorted(tree)
+            for x in leaf_paths(tree[k], f"{prefix}.{k}" if prefix else k)]
+
+
+def sharded_references(data, dev, job) -> dict:
+    """Single-process TIP-cat on this process's GPU for the sharded probes:
+    {pp: (z, loss, grads)} on the chunked graph with the windowed P-P side
+    (B5; the COO ring's reference) and the dense one (the dense rows'),
+    parameters from the job's seed, the loss under the probe's draws (their
+    unpadded chunk rows, which kernel B10 reads)."""
+    import torch
+
+    from tip_tpu_torch import convert
+    from tip_tpu_torch.ops.sampler import draws_per_slot
+    from tip_tpu_torch.scripts import sharded
+    from tip_tpu_torch.train.model import TIP, make_graph_arrays
+
+    refs = {}
+    for pp in ("coo", "dense"):
+        graph, gs = make_graph_arrays(data, dev, dense_dtype=None,
+                                      pp_dense=pp == "dense")
+        model = TIP.for_data(job.cfg, data, gs, dev)
+        params = model.init(torch.Generator().manual_seed(sharded.SEED))
+        for p in convert.leaves(params):
+            p.requires_grad_(True)
+        n_padded = -(-gs.dd_n_chunks // SHARDED_RANKS) * SHARDED_RANKS
+        u24 = sharded.probe_draws(sharded.DRAWS_SEED, n_padded,
+                                  draws_per_slot(gs.n_drug) * gs.dd_chunk)
+        with torch.no_grad():
+            z = model.encode(params, graph).cpu()
+        loss = model.loss(params, graph, seed=0,
+                          u24=torch.from_numpy(u24[: gs.dd_n_chunks]))
+        loss.backward()
+        refs[pp] = (z, loss.item(),
+                    [p.grad.cpu() for p in convert.leaves(params)])
+        del graph, params, loss
+        torch.cuda.empty_cache()
+    return refs
+
+
+def run_sharded(data, dev) -> dict:
+    """The sharded entry point's worker (tip_tpu_torch/scripts/sharded.py:
+    train_rank) on SHARDED_RANKS processes sharing this card: TIP-cat at
+    published widths on the Decagon-shaped graph, for each of the paths of
+    SHARDED_PATHS (mesh, P-P ring).  Each rank first probes: z, and the
+    loss and gradients under fixed draws, against the single-process ones
+    (sharded_references; COO ring: z 1e-4 of max, loss rtol 1e-5, grads
+    1e-4 of each leaf's max; dense rows, bf16 operands: z 2^-8, loss 1e-3,
+    grads 2e-2), and each rank's loss under the step seed against its loss
+    under the hashed draws of the rank-folded seed passed in (B10 hashing
+    against B10 reading the plain field: rtol 1e-6); then trains with every
+    launch counter at 0 just before the
+    steps (each rank's counts exact, expected_launches), and rank 0 runs the
+    unsharded eval.  The fixed-draw loss must fall, the losses and the
+    parameters must be the same on every rank after every step.  Prints a
+    ``sharded:`` line a path; returns rank 0's launches by path."""
+    import numpy as np
+    import torch
+
+    from tip_tpu_torch import kernels
+    from tip_tpu_torch.scripts import sharded
+    from tip_tpu_torch.scripts.decoder_ab import DECAGON_SHAPE
+
+    runs = tuple(sharded.ShardedRun(name, n_ring, pp, steps, probe=True)
+                 for name, (n_ring, pp, steps) in SHARDED_PATHS.items())
+    job = sharded.ShardedJob(runs=runs, raw=DECAGON_SHAPE, device="cuda")
+    refs = sharded_references(data, dev, job)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    out = sharded.spawn_ranks(sharded.train_rank, SHARDED_RANKS, job,
+                              timeout_s=SHARDED_TIMEOUT_S)
+    spawn_sec = time.time() - t0
+    launches = {}
+    for i, run in enumerate(runs):
+        rs = [r[i] for r in out]
+        z_ref, loss_ref, grads_ref = refs[run.pp]
+        tol = ((1e-4, 1e-5, 1e-4) if run.pp == "coo" else (2.0**-8, 1e-3, 2e-2))
+        probe = {"z_err_frac": 0.0, "grad_err_frac": 0.0, "fold_err": 0.0}
+        for r in rs:
+            ez, mz = max_err(torch.from_numpy(r["z"]), z_ref)
+            check(ez <= tol[0] * mz, f"{run.name} rank {r['rank']}: z err "
+                  f"{ez} of max {mz}")
+            check(abs(r["probe_loss"] - loss_ref) <= tol[1] * abs(loss_ref),
+                  f"{run.name} rank {r['rank']}: loss {r['probe_loss']} vs "
+                  f"{loss_ref}")
+            hashed, passed = r["fold_losses"]
+            check(abs(hashed - passed) <= 1e-6 * abs(passed),
+                  f"{run.name} rank {r['rank']}: rank-folded seed's loss "
+                  f"{hashed} vs its draws passed in {passed}")
+            probe["fold_err"] = max(probe["fold_err"], abs(hashed - passed))
+            errs = {path: max_err(torch.from_numpy(g), w) for (path, g), w in
+                    zip(leaf_paths(r["probe_grads"]), grads_ref)}
+            if r["rank"] == 0:
+                probe["grad_err_by_leaf"] = errs
+            for path, (eg, mg) in errs.items():
+                check(eg <= tol[2] * mg, f"{run.name} rank {r['rank']}: grad "
+                      f"of {path} err {eg} of max {mg}; all: {errs}")
+                probe["grad_err_frac"] = max(probe["grad_err_frac"], eg / mg)
+            probe["z_err_frac"] = max(probe["z_err_frac"], ez / mz)
+        r0 = rs[0]
+        probe.update(loss=r0["probe_loss"], loss_ref=loss_ref,
+                     loss_after=r0["probe_loss_after"])
+        losses = r0["losses"]
+        check(len(losses) == run.steps and bool(np.isfinite(losses).all()),
+              f"{run.name} losses {losses}")
+        check(r0["probe_loss_after"] < r0["probe_loss"],
+              f"{run.name}: the fixed-draw loss did not fall: "
+              f"{r0['probe_loss']} -> {r0['probe_loss_after']}")
+        check(all(r["losses"] == losses and r["digests"] == r0["digests"]
+                  for r in rs), f"{run.name}: ranks disagree on the loss or "
+              "the parameters")
+        for k in ("auprc", "auroc", "ap"):
+            check(0.0 <= r0["final"][k] <= 1.0, f"{run.name} metric {k}")
+            per = r0["per_relation"][k]
+            check(per.shape == (data.n_et,) and bool(np.all((per >= 0) & (per <= 1))),
+                  f"{run.name} per-relation {k}")
+        want0 = expected_launches(run.name, run.steps)
+        for r in rs:
+            want = want0 if r["rank"] == 0 else expected_launches(
+                run.name, run.steps, eval_rank=False)
+            for name in kernels.KERNELS:
+                check(r["launches"][name] == want.get(name, 0),
+                      f"{run.name} rank {r['rank']} launched {name} "
+                      f"{r['launches'][name]} times, expected {want.get(name, 0)}")
+        launches[run.name] = dict(r0["launches"])
+        step_ms = sorted(r0["step_ms"][1:]) or r0["step_ms"]
+        print("sharded: " + json.dumps({
+            "variant": "tip-cat", "path": run.name, "ranks": SHARDED_RANKS,
+            "mesh": [run.n_ring, SHARDED_RANKS // run.n_ring], "pp": run.pp,
+            "note": f"{SHARDED_RANKS} ranks time-sliced on one "
+                    f"{torch.cuda.get_device_name(0)}, not a multi-GPU figure",
+            "losses": losses, "step_ms_median": step_ms[len(step_ms) // 2],
+            "step_ms_all": r0["step_ms"], "final": r0["final"],
+            "peak_bytes_by_rank": [r.get("peak_bytes") for r in rs],
+            "device_by_rank": [r["device"] for r in rs],
+            "ring_rank_by_rank": [r["ring_rank"] for r in rs],
+            "launches_rank0": r0["launches"],
+            "train_launches_by_rank": [r["train_launches"] for r in rs],
+            "probe": probe, "dd_n_chunks": r0["dd_n_chunks"],
+            "spawn_sec": spawn_sec}))
+    return launches
+
+
 AB_WARMUP, AB_REPS = 2, 10  # the decoder A/B's calls of each route
 
 
@@ -1522,11 +1812,13 @@ KERNEL_PATH = {
     "nn_sddmm": "tip-nn dense",
     "distmult_sddmm_v1": "decoder ab",
     "nn_sddmm_v1": "decoder ab",
+    "ring_spmm": "tip sharded ring",
 }
 PATH_CHECKS = {"tip dense": "decagon_dense", "tip pages": "decagon_dense",
                "dr-nn dense": "decagon_dense", "tip chunked": "main",
                "tip-nn dense": "decagon_chunked",
-               "decoder ab": "decagon_chunked"}
+               "decoder ab": "decagon_chunked",
+               "tip sharded ring": "decagon_ring"}
 
 
 def main() -> int:
@@ -1598,7 +1890,6 @@ def main() -> int:
         run_variant(variant, data, dev, OTHER_STEPS)
     run_variant("dr-df", data, dev, OTHER_STEPS, matmul_precision="highest")
     launches["decoder ab"] = run_decoder_ab(data, dev)
-    del data
     # the chunked kernels at the shapes of the chunked path (main) and, on
     # a graph too wide for any shared-memory table, through their
     # global-memory modes and B10's two-draw mode (wide, untimed)
@@ -1620,6 +1911,16 @@ def main() -> int:
                                           TRAIN_STEPS, None, decoder="nn")
     launches["dr-nn chunked"] = run_variant("dr-nn", big, dev, VARIANT_STEPS,
                                             profiled=True)
+    del big
+    torch.cuda.empty_cache()
+
+    # sharded: B11 across SHARDED_RANKS processes on this card, then the
+    # sharded paths, on the Decagon-shaped graph
+    checks["decagon_ring"] = {"ring_spmm": check_ring_spmm(data, dev)}
+    print("kernel ring_spmm [decagon]:",
+          json.dumps(checks["decagon_ring"]["ring_spmm"]))
+    launches.update(run_sharded(data, dev))
+    del data
 
     entries = []
     for name, spec in kernels.KERNELS.items():

@@ -263,3 +263,6 @@ def test_port_imports_with_jax_blocked():
     assert out.returncode == 0, out.stderr
     assert "tip_tpu_torch.train.loop" in mods and "tip_tpu_torch.kernels" in mods
     assert "tip_tpu_torch.scripts.decoder_ab" in mods
+    assert {"tip_tpu_torch.parallel.mesh", "tip_tpu_torch.parallel.collectives",
+            "tip_tpu_torch.parallel.ring", "tip_tpu_torch.parallel.sharded",
+            "tip_tpu_torch.ops.ring", "tip_tpu_torch.scripts.sharded"} <= set(mods)

@@ -22,7 +22,9 @@
 // w of chunk c is u24 = mix32(key_c ^ mix32(w)) >> 8 with key_c =
 // mix32(seed + mix32(c + 0x9e3779b9)) (lowbias32 mixer), the field that
 // ops/sampler.py:sampler_u24 computes in PyTorch, so kernel and plain
-// version give the same pairs.
+// version give the same pairs.  Given a draws buffer u24 [n_chunks,
+// draws * C] int32 instead (a non-null pointer), it reads word w of chunk c
+// from there, as the plain version does with explicit draws.
 //
 // The TPU kernel streams each relation's bitmap slice through VMEM and
 // gathers bytes with one-hot matmuls.  Here each thread reads its one byte
@@ -52,27 +54,34 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x;
 }
 
-__device__ __forceinline__ int scaled(uint32_t key, uint32_t word, float scale,
+// Draw word w of a chunk: from its row of the draws buffer where one is
+// given, else hashed from the chunk's key.
+__device__ __forceinline__ int scaled(const int32_t* __restrict__ row,
+                                      uint32_t key, uint32_t word, float scale,
                                       int hi) {
-  const uint32_t u = mix32(key ^ mix32(word)) >> 8;
+  const uint32_t u =
+      row != nullptr ? (uint32_t)row[word] : mix32(key ^ mix32(word)) >> 8;
   return min((int)__fmul_rn((float)u, scale), hi);
 }
 
 __global__ void __launch_bounds__(THREADS)
 sample(const int32_t* __restrict__ ct, const uint8_t* __restrict__ bitmap,
-       uint32_t seed, int n_chunks, int C, int n, int draws, float scale,
-       long long stride_bytes, int32_t* __restrict__ out) {
+       const int32_t* __restrict__ u24, uint32_t seed, int n_chunks, int C,
+       int n, int draws, float scale, long long stride_bytes,
+       int32_t* __restrict__ out) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (size_t)n_chunks * C) return;
   const int c = (int)(idx / C), j = (int)(idx % C);
   const uint32_t key = mix32(seed + mix32((uint32_t)c + 0x9e3779b9U));
+  const int32_t* row =
+      u24 != nullptr ? u24 + (size_t)c * draws * C : nullptr;
   int pair;
   if (draws == 2) {
-    const int src = scaled(key, (uint32_t)j, scale, n - 1);
-    const int dst = scaled(key, (uint32_t)(C + j), scale, n - 1);
+    const int src = scaled(row, key, (uint32_t)j, scale, n - 1);
+    const int dst = scaled(row, key, (uint32_t)(C + j), scale, n - 1);
     pair = dst * n + src;
   } else {
-    pair = scaled(key, (uint32_t)j, scale, n * n - 1);
+    pair = scaled(row, key, (uint32_t)j, scale, n * n - 1);
   }
   const uint8_t byte = bitmap[(long long)ct[c] * stride_bytes + (pair >> 3)];
   out[idx] = ((byte >> (pair & 7)) & 1) ? -pair - 1 : pair;
@@ -81,16 +90,17 @@ sample(const int32_t* __restrict__ ct, const uint8_t* __restrict__ bitmap,
 }  // namespace
 
 // Plain C entry point (bound with ctypes by ops/sampler.py).  bitmap: the
-// relation-strided uint32 words, read as bytes; out: [n_chunks, C] int32.
-// Returns the first CUDA error.
+// relation-strided uint32 words, read as bytes; u24: null (hash the draws
+// from seed) or [n_chunks, draws * C] int32 draws below 2^24; out:
+// [n_chunks, C] int32.  Returns the first CUDA error.
 extern "C" int tip_typed_neg_sampler(const int32_t* ct, const uint8_t* bitmap,
-                                     unsigned int seed, int n_chunks, int C,
-                                     int n, int draws, float scale,
-                                     long long stride_bytes, int32_t* out,
-                                     void* stream) {
+                                     const int32_t* u24, unsigned int seed,
+                                     int n_chunks, int C, int n, int draws,
+                                     float scale, long long stride_bytes,
+                                     int32_t* out, void* stream) {
   const size_t slots = (size_t)n_chunks * C;
   const unsigned blocks = (unsigned)((slots + THREADS - 1) / THREADS);
   sample<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      ct, bitmap, seed, n_chunks, C, n, draws, scale, stride_bytes, out);
+      ct, bitmap, u24, seed, n_chunks, C, n, draws, scale, stride_bytes, out);
   return cudaGetLastError();
 }

@@ -89,6 +89,11 @@ KERNELS = {
         source="tip_tpu_torch/csrc/nn_sddmm_v1.cu",
         replaces="tip_tpu/ops/pallas_segment.py:534",
     ),
+    "ring_spmm": KernelSpec(
+        name="ring_spmm",
+        source="tip_tpu_torch/csrc/ring_spmm.cu",
+        replaces="tip_tpu/ops/pallas_ring.py:124",
+    ),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

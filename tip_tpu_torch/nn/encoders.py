@@ -1,5 +1,5 @@
 """Encoders (port of tip_tpu/nn/encoders.py:36-100, 100-218 without the
-sharded branches, and 226-242).
+EP branches, and 226-242).
 
 P-P: two GCN layers, dense over the int8 (A+I) where the graph ships it,
 else windowed over the P-P edge buffers (kernel B5, the JAX package's
@@ -11,6 +11,11 @@ full count pages where the graph ships them, else two chunked layers
 encoder takes the windowed P-P path where the JAX package's XLA backend
 takes the COO one; the COO path (:func:`pp_encoder_apply`, plain
 ``index_add_``) serves PP-GAE where its dense (A+I) cannot be built.
+Under a mesh (parallel/mesh.py) with ring-sharded protein rows
+(``gs.pp_ring_shards``) the P-P GCN runs row-sharded over the ring (the
+dense row blocks where ``pp_a1r`` ships, else the COO ring, kernel B11)
+and the hierarchy completes its sum over the ring (parallel/ring.py); the
+D-D side runs only chunked there, each rank on its own chunks.
 The P-D-only hierarchy encoder (PR-HMP-NN) embeds drugs from their
 protein targets alone.
 """
@@ -35,6 +40,11 @@ from tip_tpu_torch.nn.rgcn import (
     rgcn_init,
 )
 from tip_tpu_torch.ops.matmul import bf16_round
+from tip_tpu_torch.parallel.ring import (
+    ring_hierarchy_apply,
+    ring_pp_encoder_apply,
+    ring_pp_encoder_apply_dense,
+)
 
 
 def pp_encoder_init(gen, in_dim: int, hid1: int = 32, hid2: int = 16,
@@ -89,17 +99,35 @@ def fm_encoder_init(gen, cfg: ModelConfig, n_drug: int, n_prot: int,
 
 
 def fm_encoder_apply(params, graph, cfg: ModelConfig, gs, x_drug=None,
-                     x_prot=None, d_norm=None):
+                     x_prot=None, d_norm=None, mesh=None):
     """Final drug embeddings z [n_drug, n_hid2]; ``gs.pp_layout`` and
-    ``gs.dd_layout`` say which buffers ``graph`` carries."""
-    if gs.pp_layout == "dense":
-        hp = pp_encoder_apply_dense(params["pp"], x_prot, graph["pp_a1"],
-                                    graph["pp_dinv"])
+    ``gs.dd_layout`` say which buffers ``graph`` carries.  ``mesh``: this
+    rank's place when ``graph`` is its view of a sharded graph
+    (parallel/sharded.py:place_graph)."""
+    if mesh is not None and gs.dd_layout != "chunked":
+        raise ValueError(f"a mesh shards the chunked D-D layout, not "
+                         f"{gs.dd_layout!r} (parallel/sharded.py:shard_graph)")
+    if mesh is not None and gs.pp_ring_shards > 0:
+        if "pp_a1r" in graph:
+            hp_local = ring_pp_encoder_apply_dense(params["pp"], graph, gs,
+                                                   mesh, x_prot)
+        else:
+            hp_local = ring_pp_encoder_apply(params["pp"], graph, gs, mesh,
+                                             x_prot)
+        hd = ring_hierarchy_apply(params["hier"], hp_local, graph,
+                                  graph["dp_deg"], gs.n_drug, mesh)
     else:
-        hp = pp_encoder_apply_windowed(params["pp"], x_prot, graph, gs,
-                                       cfg.kernel_dtype)
-    hd = hierarchy_conv_apply(params["hier"], hp, graph["dp_src"],
-                              graph["dp_dst"], graph["dp_deg"], gs.n_drug)
+        if gs.pp_layout == "dense":
+            hp = pp_encoder_apply_dense(params["pp"], x_prot, graph["pp_a1"],
+                                        graph["pp_dinv"])
+        elif gs.pp_layout == "windowed":
+            hp = pp_encoder_apply_windowed(params["pp"], x_prot, graph, gs,
+                                           cfg.kernel_dtype)
+        else:
+            raise ValueError("the graph ships no P-P side: add the ring "
+                             "(parallel/ring.py:add_ring_pp)")
+        hd = hierarchy_conv_apply(params["hier"], hp, graph["dp_src"],
+                                  graph["dp_dst"], graph["dp_deg"], gs.n_drug)
     xd = params["embed"] if x_drug is None else x_drug @ params["embed"]
     if d_norm is not None:
         xd = xd / d_norm[:, None]
@@ -113,9 +141,9 @@ def fm_encoder_apply(params, graph, cfg: ModelConfig, gs, x_drug=None,
     dd = (graph["dd_src2d"], graph["dd_dst2d"], graph["dd_chunk_type"],
           graph["dd_deg"], gs.n_drug, gs.n_et)
     x = torch.relu(rgcn_apply_padded(params["rgcn1"], x, *dd,
-                                     kernel_dtype=cfg.kernel_dtype))
+                                     kernel_dtype=cfg.kernel_dtype, mesh=mesh))
     return rgcn_apply_padded(params["rgcn2"], x, *dd,
-                             kernel_dtype=cfg.kernel_dtype)
+                             kernel_dtype=cfg.kernel_dtype, mesh=mesh)
 
 
 def hier_encoder_init(gen, source_dim: int, embed_dim: int, target_dim: int,

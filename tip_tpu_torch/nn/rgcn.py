@@ -23,7 +23,9 @@ are, bf16 pages bf16-rounded ones.
 
 The chunked layer bins neighbour sums per (relation, dst) with kernel B4
 (ops/typed_segment.py) in the transposed [n_et, d, n] layout, which the
-basis einsums contract directly, in float32.
+basis einsums contract directly, in float32.  Under a mesh
+(parallel/mesh.py) each rank bins only its own chunks and the basis-mixed
+intermediate ``q`` is summed over the ranks (the JAX package's psum).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from tip_tpu_torch.nn import initializers as init
 from tip_tpu_torch.ops.matmul import bf16_round, mm_bf16
 from tip_tpu_torch.ops.segment import mean_from_sum
 from tip_tpu_torch.ops.typed_segment import typed_neighbor_sum_padded_t
+from tip_tpu_torch.parallel.collectives import psum
 
 
 def rgcn_init(gen, in_dim: int, out_dim: int, n_et: int, n_base: int,
@@ -119,14 +122,19 @@ def dense_rgcn_pair_apply(params1, params2, x, pages, degree):
 
 
 def rgcn_apply_padded(params, x, src2d, dst2d, chunk_type, degree,
-                      n_nodes: int, n_et: int, kernel_dtype: str = "float32"):
+                      n_nodes: int, n_et: int, kernel_dtype: str = "float32",
+                      mesh=None):
     """One R-GCN layer over chunk-aligned typed edges
     (data/packing.py:pad_typed_edges): src2d/dst2d [n_chunks, chunk] int32
     with pad slots at dst = n_nodes, chunk_type [n_chunks] int32; x
-    [n_nodes, d_in], degree [n_nodes].  Returns [n_nodes, d_out]."""
+    [n_nodes, d_in], degree [n_nodes].  Returns [n_nodes, d_out].  Under
+    ``mesh`` the chunks are this rank's shard and ``q`` (linear in the
+    edges) is summed over all ranks."""
     pt = typed_neighbor_sum_padded_t(x, src2d, dst2d, chunk_type, n_et,
                                      kernel_dtype)
     q = torch.einsum("tb,tdn->bdn", params["att"], pt)
+    if mesh is not None:
+        q = psum(q)
     agg = torch.einsum("bdn,bde->ne", q, params["basis"])
     out = mean_from_sum(agg, degree) + x @ params["root"]
     if "bias" in params:

@@ -20,9 +20,9 @@ chunk c's draw row is ``u24 = mix32(key_c ^ mix32(w)) >> 8`` with
 ``key_c = mix32(seed + mix32(c + 0x9E3779B9))`` — the 32-bit counter hash
 of ops/dense_bce_sym.py with the chunk in place of the relation — in the
 CUDA kernel (``csrc/typed_neg_sampler.cu``) and in the plain version
-alike, so both give the same pairs for a seed.  The plain version also
-takes an explicit ``u24 [n_chunks, 1, draws * chunk]``, the layout of the
-bits the JAX kernel streams in on the CPU.
+alike, so both give the same pairs for a seed.  Both also take explicit draws
+``u24 [n_chunks, 1, draws * chunk]`` (values below 2^24), the layout of
+the bits the JAX kernel streams in on the CPU, in place of the hashed ones.
 """
 
 from __future__ import annotations
@@ -96,9 +96,9 @@ def typed_negative_sampling_plain(seed: int, chunk_type, bitmap, n_nodes: int,
 
 
 def typed_negative_sampling_cuda(seed: int, chunk_type, bitmap, n_nodes: int,
-                                 chunk: int):
-    """Launch csrc/typed_neg_sampler.cu: the hashed draws of
-    :func:`typed_negative_sampling_plain`, on the card."""
+                                 chunk: int, u24: Optional[torch.Tensor] = None):
+    """Launch csrc/typed_neg_sampler.cu: :func:`typed_negative_sampling_plain`
+    on the card, from the seed's hashed draws or from ``u24``."""
     _check_nodes(n_nodes)
     dev = chunk_type.device
     if not chunk_type.is_cuda:
@@ -106,12 +106,18 @@ def typed_negative_sampling_cuda(seed: int, chunk_type, bitmap, n_nodes: int,
     kernels.require(chunk_type, "chunk_type", torch.int32, 1, dev)
     kernels.require(bitmap, "bitmap", torch.int32, 1, dev)
     n_chunks = chunk_type.shape[0]
+    draws = draws_per_slot(n_nodes)
+    if u24 is not None:
+        if u24.numel() != n_chunks * draws * chunk:
+            raise ValueError(f"u24 has {u24.numel()} draws, expected "
+                             f"{n_chunks} x {draws * chunk}")
+        u24 = u24.to(device=dev, dtype=torch.int32).contiguous()
     stride_bytes = bitmap_stride_bits(n_nodes) // 8
     out = torch.empty((n_chunks, chunk), dtype=torch.int32, device=dev)
-    kernels.launch(KERNEL, "tip_typed_neg_sampler", "ppuiiiifqp", chunk_type,
-                   bitmap, seed & 0xFFFFFFFF, n_chunks, chunk, n_nodes,
-                   draws_per_slot(n_nodes), float(draw_scale(n_nodes)),
-                   stride_bytes, out, device=dev)
+    kernels.launch(KERNEL, "tip_typed_neg_sampler", "pppuiiiifqp", chunk_type,
+                   bitmap, u24, seed & 0xFFFFFFFF, n_chunks, chunk, n_nodes,
+                   draws, float(draw_scale(n_nodes)), stride_bytes, out,
+                   device=dev)
     return out
 
 
@@ -137,18 +143,15 @@ def typed_negative_sampling_padded(seed: int, chunk_type, bitmap,
 
     seed: uint32 step seed; chunk_type [n_chunks] int32 (non-decreasing);
     bitmap: relation-strided uint32 words as int32 [n_et * stride / 32].
-    ``u24`` (CPU only) replaces the hashed draws.  Returns pair
+    ``u24`` replaces the hashed draws.  Returns pair
     [n_chunks, chunk] int32 with pair = dst * n_nodes + src (raw and
     sign-flagged with ``resolve=False``)."""
     if bitmap.numel() * 32 != n_et * bitmap_stride_bits(n_nodes):
         raise ValueError(f"bitmap has {bitmap.numel()} words, expected "
                          f"{n_et * bitmap_stride_bits(n_nodes) // 32}")
     if chunk_type.is_cuda:
-        if u24 is not None:
-            raise ValueError("explicit u24 draws are for the plain version on "
-                             "the CPU; the kernel hashes its own")
         out = typed_negative_sampling_cuda(seed, chunk_type, bitmap, n_nodes,
-                                           chunk)
+                                           chunk, u24)
     elif chunk_type.device.type == "cpu":
         out = typed_negative_sampling_plain(seed, chunk_type, bitmap, n_nodes,
                                             chunk, u24)

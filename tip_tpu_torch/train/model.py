@@ -37,6 +37,14 @@ P-P side is dense (``pp_a1``, ``pp_dinv``) where ``pp_dense`` ships it,
 else windowed (``ppw_*``, kernel B5).  Parameters are nested dicts of
 tensors in the JAX package's layout; every method is a plain function of
 (params, graph).
+
+Sharded (port of tip_tpu/train/model.py:387-405 and 424-554 without the
+EP branches): ``encode`` and ``loss`` take a ``mesh``
+(parallel/mesh.py) where the JAX package takes ``axis_name``; ``graph`` is
+then this rank's view (parallel/sharded.py), chunked: each rank samples
+and scores its own chunks with the rank folded into the seed, and the
+loss sums are summed over the ranks before dividing by the global edge
+count.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from tip_tpu_torch.config import ModelConfig
@@ -78,6 +87,7 @@ from tip_tpu_torch.nn.decoders import (
 )
 from tip_tpu_torch.ops.dense_bce import dense_bce_sum
 from tip_tpu_torch.ops.dense_bce_sym import dense_bce_sym_sum, softplus
+from tip_tpu_torch.parallel.collectives import psum
 from tip_tpu_torch.sampling import (
     bitmap_tensor,
     typed_negative_sampling,
@@ -90,6 +100,12 @@ POISSON_NEEDS_DENSE = (
     "here (it needs the dense adjacency pages and the distmult decoder, and "
     "under shard_map an EP-partitioned graph); use negatives='auto' to allow "
     "the sampled fallback")
+
+
+def fold_seed(seed: int, index: int) -> int:
+    """A uint32 seed for rank ``index`` (``jax.random.fold_in``'s role)."""
+    return int(np.random.SeedSequence([seed & 0xFFFFFFFF, index])
+               .generate_state(1)[0])
 
 
 def resolve_device(device=None) -> torch.device:
@@ -123,8 +139,11 @@ class GraphStatic:
     # the decoder whose loss the D-D side was packed for
     dd_decoder: str = "distmult"
     # 'dense' (pp_a1, pp_dinv) | 'windowed' (ppw_*, B5) | 'none' (no P-P
-    # side: models/dd.py)
+    # side: models/dd.py, or a sharded graph whose P-P side is the ring)
     pp_layout: str = "dense"
+    # > 0: the protein rows ring-sharded over the mesh's ring axis
+    # (parallel/ring.py:add_ring_pp)
+    pp_ring_shards: int = 0
 
 
 def dense_rgcn_feasible(n_drug: int, n_et: int, itemsize: int = 2) -> bool:
@@ -384,11 +403,12 @@ class TIP:
                                 self.cfg.nn_decoder_l1_dim, device=self.device)),
         }
 
-    def encode(self, params, graph):
-        """Drug embeddings z [n_drug, n_hid2] from the training graph."""
+    def encode(self, params, graph, mesh=None):
+        """Drug embeddings z [n_drug, n_hid2] from the training graph (this
+        rank's view of it under ``mesh``; z is replicated)."""
         return fm_encoder_apply(params["encoder"], graph, self.cfg, self.gs,
                                 x_drug=graph.get("drug_feat"),
-                                d_norm=graph.get("d_norm"))
+                                d_norm=graph.get("d_norm"), mesh=mesh)
 
     def score(self, params, z, src, dst, et, sigmoid: bool = True):
         """Scores of (src, dst, relation) triples, flat (the eval's)."""
@@ -404,9 +424,11 @@ class TIP:
         return apply(params["decoder"], z, src2d, dst2d, chunk_type, sigmoid,
                      kernel_dtype=self.cfg.kernel_dtype)
 
-    def loss(self, params, graph, seed: int, u24=None):
+    def loss(self, params, graph, seed: int, u24=None, mesh=None):
         """Mean BCE over the train edges.  ``seed`` (uint32) keys the
-        negatives; ``u24`` (CPU only) replaces their random bits.
+        negatives; ``u24`` replaces their random bits: the fused dense
+        BCEs' cell field (CPU only), or the sampler's draws (kernel B10
+        reads them on the card).
 
         DistMult on the strips or pages with ``negatives`` auto or poisson:
         positives plus Poissonized negatives from the fused dense BCE,
@@ -417,9 +439,16 @@ class TIP:
         decoder's SDDMM (kernel B8 or B9), positives scored by it over the
         chunk buffers, except DistMult's on the dense layouts, which are
         scored over the full pages; softplus terms of slots masked by
-        ``dd_valid``."""
+        ``dd_valid``.
+
+        Under ``mesh``: the chunked layout only; ``graph`` is this rank's
+        view, the sampler's seed is folded with the rank (``u24``: this
+        rank's slice of the draws), and the masked sums are summed over the
+        ranks before the division, so every rank returns the same loss."""
         gs = self.gs
-        z = self.encode(params, graph)
+        if mesh is not None:
+            seed = fold_seed(seed, mesh.rank)
+        z = self.encode(params, graph, mesh)
         if (gs.dd_layout != "chunked" and self.cfg.decoder == "distmult"
                 and self.cfg.negatives != "sampled"):
             w = params["decoder"]["weight"]
@@ -446,6 +475,8 @@ class TIP:
         neg = self.score_padded(params, z, neg_src2d, neg_dst2d, ct,
                                 sigmoid=False)
         total = pos_sum + torch.sum(softplus(neg) * valid)
+        if mesh is not None:
+            total = psum(total)
         return total / float(gs.dd_n_valid)
 
     def sample_test_negatives(self, gen: torch.Generator, test):
