@@ -74,6 +74,7 @@ sys.path.insert(0, ROOT)
 # H100 SXM peaks (NVIDIA data sheet) used for the roofline bound
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_TF32_FLOP_PER_S = 495e12  # dense, on the tensor cores
 
 # The Decagon shape (645 drugs, 19,081 proteins, 1,097 relations) is the
 # decoder A/B's DECAGON_SHAPE (tip_tpu_torch/scripts/decoder_ab.py).
@@ -83,9 +84,10 @@ PEAK_F32_FLOP_PER_S = 67e12
 # the protein side are Decagon's.
 BEYOND_DENSE = dict(n_drug=1536, n_prot=19081, n_et=800, pairs_per_et=4600,
                     n_pp_pairs=715612, n_dp=18596, seed=0)
-# Wider than any shared-memory table: B8 (> 3,417 drugs forward, > 1,693
-# backward) and B4's backward (> 6,456) take their global-memory modes, and
-# B10 (> 4,096) draws src and dst separately
+# Wider than any shared-memory table of B8 (> 3,417 drugs forward, > 1,693
+# backward), which takes its global-memory mode, and B10 (> 4,096) draws src
+# and dst separately; B4's forward keeps eight-feature slices of x in shared
+# memory (up to 7,128 drugs), and its check forces the global mode too
 WIDE = dict(n_drug=7000, n_prot=300, n_et=3, pairs_per_et=40000,
             n_pp_pairs=600, n_dp=400, seed=0)
 TRAIN_STEPS = 5  # TIP-cat paths
@@ -306,17 +308,31 @@ def check_dense_bce_sym(graph, gs, data, dev, timed: bool = True) -> dict:
     rep["plain_ms"] = cuda_ms(lambda: bce.dense_bce_sym_plain(
         w, z, pages, q8, seed, True), reps=3, warmup=1)
 
-    # bound: each input read once, each output written once; float32
-    # operations over the cells this graph needs (those inside n x n)
+    # bound: each input read once, each output written once; operations
+    # over the cells this graph needs (those inside n x n).  The kernel runs
+    # the three d-long dots on the tensor cores as 3xTF32 (three TF32
+    # products each) and ~20 elementwise float operations a cell on the
+    # SIMT units, which overlap: the least time is the largest of the
+    # tensor-core, SIMT and bytes times.  bound_simt_ms is the bound with
+    # every operation on the SIMT units (6 d + 20 a cell), which a kernel
+    # on the tensor cores can beat.
     nb = -(-n // 128)
     cells = sum(min(128, n - i * 128) * (n - i * 128) for i in range(nb)) * n_et
-    flops = cells * (6 * d + 20)  # three d-long dots + ~20 elementwise ops
+    dot_flops, elem_flops = cells * 6 * d, cells * 20
     nbytes = (pages.numel() + 4 * (w.numel() + z.numel() + q8.numel())
               + 4 * (1 + w.numel() + z.numel()))
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_tensor = 3 * dot_flops / PEAK_TF32_FLOP_PER_S
+    t_simt = elem_flops / PEAK_F32_FLOP_PER_S
+    t_ops = max(t_tensor, t_simt)
     rep.update(bound_ms=1e3 * max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
-               cells=cells, bytes=nbytes, flops=flops, library_ms=None)
+               bound_tensor_ms=1e3 * t_tensor, bound_elementwise_ms=1e3 * t_simt,
+               bound_bytes_ms=1e3 * t_bytes,
+               bound_simt_ms=1e3 * max(t_bytes, (dot_flops + elem_flops)
+                                       / PEAK_F32_FLOP_PER_S),
+               cells=cells, bytes=nbytes, flops=dot_flops + elem_flops,
+               library_ms=None)
     return rep
 
 
@@ -479,84 +495,113 @@ def nbytes(*tensors) -> int:
 
 def check_typed_neighbor_sum(graph, gs, data, dev, timed: bool = True) -> dict:
     """Kernel B4 forward and backward against the plain version at both
-    R-GCN widths (d = 64, layer 1; d = 32, layer 2), the backward in the
-    mode the wrapper picks for this graph (a shared-memory feature slice,
-    two slices at n = 1,536 and d = 64, or global memory past 6,456 nodes)
-    and forced to global memory.  The kernel sums each (relation, dst) run
-    in slot order, the plain version with index_add_: float32 order only,
-    hence 1e-5 (forward) and 1e-4 (backward) of the largest magnitude."""
+    R-GCN widths (d = 64, layer 1; d = 32, layer 2); the forward in the
+    mode the wrapper picks for this graph (x in shared memory: whole at n =
+    645, two 32-feature slices at n = 1,536 and d = 64, eight-feature
+    slices on the 7,000-drug graph) and forced to its global mode, on the
+    whole buffers and on each of SHARDED_RANKS ranks' blocks of them (most
+    relations own no chunk there, and their rows must come out zero).  The
+    forward sums each (relation, dst) run in slot order, the backward adds
+    with atomics, the plain version with index_add_: float32 order only,
+    hence 1e-5 (forward) and 1e-4 (backward) of the largest magnitude; the
+    forward is deterministic.  Timed: both directions at both widths,
+    beside the plain versions and torch.sparse.mm over the typed CSR
+    (forward) and its transpose (backward)."""
     import torch
 
     from tip_tpu_torch.config import ModelConfig
     from tip_tpu_torch.ops import typed_segment as ts
+    from tip_tpu_torch.scripts.tns_bench import rank_blocks
 
     src2d, dst2d, ct = graph["dd_src2d"], graph["dd_dst2d"], graph["dd_chunk_type"]
     n, n_et = gs.n_drug, gs.n_et
     cfg = ModelConfig.tip_cat()
     args = (src2d, dst2d, ct)
     gen = torch.Generator().manual_seed(21)
-    rep, worst = {}, 0.0
+    rep, worst, inputs = {}, 0.0, {}
     for d in (cfg.rgcn_in_dim, cfg.n_hid1):
         x = torch.randn(n, d, generator=gen).to(dev)
         dpt = torch.randn(n_et, d, n, generator=gen).to(dev)
-        pk = ts.typed_neighbor_sum_fwd_cuda(x, *args, n_et)
+        inputs[d] = (x, dpt)
         pp = ts.typed_neighbor_sum_fwd_plain(x, *args, n_et)
         dxp = ts.typed_neighbor_sum_bwd_plain(dpt, *args)
-        ef, mf = max_err(pk, pp)
-        check(ef <= 1e-5 * mf, f"B4 d={d} forward err {ef} of max {mf}")
-        check(torch.equal(pk, ts.typed_neighbor_sum_fwd_cuda(x, *args, n_et)),
-              f"B4 d={d} forward is not deterministic")
-        r = {"kslice": ts.tns_bwd_kslice(n, d), "fwd_max_abs_err": ef,
-             "fwd_max": mf}
-        for table in (None, "global"):
-            dxk = ts.typed_neighbor_sum_bwd_cuda(dpt, *args, table=table)
-            eb, mb = max_err(dxk, dxp)
+        r = {"kslice": ts.tns_fwd_kslice(n, d)}
+        for mode in ("auto", "global"):
+            pk = ts.typed_neighbor_sum_fwd_cuda(x, *args, n_et,
+                                                force_global=mode == "global")
+            ef, mf = max_err(pk, pp)
+            check(ef <= 1e-5 * mf,
+                  f"B4 d={d} forward ({mode}) err {ef} of max {mf}")
+            check(torch.equal(pk, ts.typed_neighbor_sum_fwd_cuda(
+                x, *args, n_et, force_global=mode == "global")),
+                  f"B4 d={d} forward ({mode}) is not deterministic")
+            r[f"fwd_{mode}_max_abs_err"] = ef
+            worst = max(worst, ef)
+        r["fwd_max"] = mf
+        eb, mb = max_err(ts.typed_neighbor_sum_bwd_cuda(dpt, *args), dxp)
+        check(eb <= 1e-4 * mb, f"B4 d={d} backward err {eb} of max {mb}")
+        r.update(bwd_max_abs_err=eb, bwd_max=mb)
+        worst = max(worst, eb)
+        shard_worst = 0.0
+        for rank, blk in enumerate(rank_blocks(graph, gs, SHARDED_RANKS)):
+            want = ts.typed_neighbor_sum_fwd_plain(x, *blk, n_et)
+            for mode in ("auto", "global"):
+                ef, mf = max_err(ts.typed_neighbor_sum_fwd_cuda(
+                    x, *blk, n_et, force_global=mode == "global"), want)
+                check(ef <= 1e-5 * mf, f"B4 d={d} rank {rank} forward "
+                      f"({mode}) err {ef} of max {mf}")
+                shard_worst = max(shard_worst, ef / mf)
+            eb, mb = max_err(ts.typed_neighbor_sum_bwd_cuda(dpt, *blk),
+                             ts.typed_neighbor_sum_bwd_plain(dpt, *blk))
             check(eb <= 1e-4 * mb,
-                  f"B4 d={d} backward ({table or 'auto'}) err {eb} of max {mb}")
-            r[f"bwd_{table or 'auto'}_max_abs_err"] = eb
-            worst = max(worst, eb)
-        r["bwd_max"] = mb
-        worst = max(worst, ef)
+                  f"B4 d={d} rank {rank} backward err {eb} of max {mb}")
+            shard_worst = max(shard_worst, eb / mb)
+        r["ranks_err_frac"] = shard_worst
         rep[f"d{d}"] = r
     rep["max_abs_err"] = worst
     if not timed:
         return rep
 
-    # times at layer 1's width (the wider, slower call)
+    # times at both widths; the kernels line reports layer 1's (the wider,
+    # slower call)
+    adj = ts.typed_csr(*args, n, n_et)
+    adj_t = ts.typed_csr(*args, n, n_et, transpose=True)
+    e_valid = int((dst2d < n).sum())
+    for d, (x, dpt) in inputs.items():
+        r = rep[f"d{d}"]
+        r["ms"] = cuda_ms(lambda: ts.typed_neighbor_sum_fwd_cuda(
+            x, *args, n_et), reps=20, primed=True)
+        r["fwd_global_ms"] = cuda_ms(lambda: ts.typed_neighbor_sum_fwd_cuda(
+            x, *args, n_et, force_global=True), reps=20, primed=True)
+        r["bwd_ms"] = cuda_ms(lambda: ts.typed_neighbor_sum_bwd_cuda(
+            dpt, *args), reps=20, primed=True)
+        # yardsticks: the typed adjacency as one CSR [n_et * n, n] times x,
+        # and its transpose [n, n_et * n] times dP [n_et * n, d]
+        r["library_ms"] = library_call(
+            lambda: torch.sparse.mm(adj, x),
+            ts.typed_neighbor_sum_fwd_plain(x, *args, n_et).transpose(
+                1, 2).reshape(n_et * n, d), 1e-5, "B4 forward")
+        dp = dpt.transpose(1, 2).reshape(n_et * n, d)
+        r["bwd_library_ms"] = library_call(
+            lambda: torch.sparse.mm(adj_t, dp),
+            ts.typed_neighbor_sum_bwd_plain(dpt, *args), 1e-4, "B4 backward")
+        fwd = bound(nbytes(src2d, dst2d, ct, x) + n_et * d * n * 4, e_valid * d)
+        bwd = bound(nbytes(src2d, dst2d, ct, dpt) + n * d * 4, e_valid * d)
+        r.update(fwd)
+        r.update(bwd_bound_ms=bwd["bound_ms"], bwd_bound_by=bwd["bound_by"])
+    del adj, adj_t
     d = cfg.rgcn_in_dim
-    x = torch.randn(n, d, generator=gen).to(dev)
-    dpt = torch.randn(n_et, d, n, generator=gen).to(dev)
+    x, dpt = inputs[d]
     rep["d"] = d
-    rep["ms"] = cuda_ms(lambda: ts.typed_neighbor_sum_fwd_cuda(x, *args, n_et),
-                        reps=20, primed=True)
-    rep["bwd_ms"] = cuda_ms(lambda: ts.typed_neighbor_sum_bwd_cuda(dpt, *args),
-                            reps=20, primed=True)
-    rep["bwd_global_ms"] = cuda_ms(lambda: ts.typed_neighbor_sum_bwd_cuda(
-        dpt, *args, table="global"), reps=20, primed=True)
+    rep.update({k: rep[f"d{d}"][k] for k in (
+        "ms", "bwd_ms", "library_ms", "bwd_library_ms",
+        "bound_ms", "bound_by", "bytes", "flops", "bwd_bound_ms",
+        "bwd_bound_by")})
     rep["plain_ms"] = cuda_ms(
         lambda: ts.typed_neighbor_sum_fwd_plain(x, *args, n_et), reps=3, warmup=1)
     rep["bwd_plain_ms"] = cuda_ms(
         lambda: ts.typed_neighbor_sum_bwd_plain(dpt, *args), reps=3, warmup=1)
-
-    # yardstick: the typed adjacency as one [n_et * n, n] CSR matrix times x
-    valid = dst2d < n
-    rows = (ct.long()[:, None] * n + dst2d.long())[valid]
-    cols = src2d.long()[valid]
-    crow = torch.zeros(n_et * n + 1, dtype=torch.int64, device=dev)
-    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=n_et * n), 0)
-    adj = torch.sparse_csr_tensor(crow, cols, torch.ones_like(cols, dtype=torch.float32),
-                                  (n_et * n, n))
-    rep["library_ms"] = library_call(
-        lambda: torch.sparse.mm(adj, x),
-        ts.typed_neighbor_sum_fwd_plain(x, *args, n_et).transpose(1, 2).reshape(
-            n_et * n, d), 1e-5, "B4")
-
-    e_valid = int(valid.sum())
-    fwd = bound(nbytes(src2d, dst2d, ct, x) + n_et * d * n * 4, e_valid * d)
-    bwd = bound(nbytes(src2d, dst2d, ct, dpt) + n * d * 4, e_valid * d)
-    rep.update(fwd)
-    rep.update(bwd_bound_ms=bwd["bound_ms"], bwd_bound_by=bwd["bound_by"],
-               slots=src2d.numel(), valid_edges=e_valid)
+    rep.update(slots=src2d.numel(), valid_edges=e_valid)
     return rep
 
 

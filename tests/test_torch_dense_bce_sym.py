@@ -180,7 +180,7 @@ def test_cuda_wrapper_rejects_cpu_tensors(setup):
 
 
 @pytest.mark.parametrize("bad", ["dtype", "contiguous", "width", "shape",
-                                 "rows"])
+                                 "rows", "aligned"])
 def test_cuda_argument_checks(setup, bad):
     """The checks the CUDA wrapper runs before it hands pointers to the
     kernel (they need no card)."""
@@ -196,7 +196,84 @@ def test_cuda_argument_checks(setup, bad):
         args["w"], args["z"] = args["w"][:, :6].contiguous(), args["z"][:, :6].contiguous()
     elif bad == "shape":
         args["w"] = args["w"][:-1].contiguous()
+    elif bad == "aligned":  # the kernel copies page tiles 16 bytes at a time
+        flat = torch.empty(pages.size + 1, dtype=torch.int8)[1:]
+        args["pages"] = flat.view(pages.shape).copy_(args["pages"])
     else:  # n outside the strips' row range
         args["z"] = args["z"][:100].contiguous()
     with pytest.raises(ValueError):
         port._check_cuda_args(**args)
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32: float32 rounded to 10 mantissa bits, ties away
+    from zero (the low 13 bits cleared)."""
+    b = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return ((b + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(np.asarray(x, np.float32) - hi)
+
+
+def _mma(a, b, passes: int):
+    """a @ b as the kernel's mma.sync m16n8k8 chain computes it: k-steps of
+    8, each adding its TF32 products (exact in float32) to a float32
+    accumulator; 3 passes (lo*hi, hi*lo, hi*hi: 3xTF32) or 1 (hi*hi)."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    terms = [(al, bh), (ah, bl), (ah, bh)] if passes == 3 else [(ah, bh)]
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k in range(0, a.shape[1], 8):
+        for x, y in terms:
+            acc = (acc + x[:, k:k + 8].astype(np.float64)
+                   @ y[k:k + 8].astype(np.float64)).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("d", [8, 16, 32])
+def test_3xtf32_contractions_hold_the_kernel_tolerances(d):
+    """CPU evidence for the tensor-core design of csrc/dense_bce_sym.cu: a
+    128 x 128 tile's logits (z_I w_t) z_J^T and its gradient contractions
+    G z_J and G^T z_I, at the magnitudes chip_smoke.py checks B1 with
+    (z ~ 0.5 N(0, 1), w ~ 0.3 N(0, 1)), computed as 3xTF32 products stay
+    ~100 times inside the tolerances the kernel is held to on the card
+    (loss 1e-5 relative, dw and dz 1e-3 of their max) against float64;
+    one TF32 product keeps only ~3 digits of each contraction."""
+    rng = np.random.default_rng(d)
+    zi = (0.5 * rng.standard_normal((128, d))).astype(np.float32)
+    zj = (0.5 * rng.standard_normal((128, d))).astype(np.float32)
+    w = (0.3 * rng.standard_normal(d)).astype(np.float32)
+    hi, lo = _split(zi)
+    assert not (hi.view(np.uint32) & 0x1FFF).any()
+    assert np.abs(zi - (hi.astype(np.float64) + lo)).max() <= 2.0**-21 * np.abs(zi).max()
+
+    a = zi * w
+    l64 = a.astype(np.float64) @ zj.T.astype(np.float64)
+    da = (rng.random((128, 128)) < 0.02).astype(np.float64)
+    cnt = np.where(da > 0, 0.0, rng.poisson(0.05, (128, 128)))
+
+    def loss_and_g(logits):
+        sp = np.maximum(-logits, 0) + np.log1p(np.exp(-np.abs(logits)))
+        g = cnt - (da + cnt) / (1.0 + np.exp(logits))
+        return (sp * da + (sp + logits) * cnt).sum(), g
+
+    loss64, g64 = loss_and_g(l64)
+    g = g64.astype(np.float32)
+    hi64 = g64 @ zj.astype(np.float64)
+    hj64 = g64.T @ zi.astype(np.float64)
+    errs = {}
+    for passes in (3, 1):
+        logits = _mma(a, np.ascontiguousarray(zj.T), passes)
+        loss, _ = loss_and_g(logits.astype(np.float64))
+        errs[passes] = (
+            np.abs(logits - l64).max() / np.abs(l64).max(),
+            abs(loss - loss64) / abs(loss64),
+            np.abs(_mma(g, zj, passes) - hi64).max() / np.abs(hi64).max(),
+            np.abs(_mma(np.ascontiguousarray(g.T), zi, passes) - hj64).max()
+            / np.abs(hj64).max())
+    logit3, loss3, gzj3, gtzi3 = errs[3]
+    assert logit3 < 1e-6 and loss3 < 1e-7
+    assert gzj3 < 1e-5 and gtzi3 < 1e-5
+    # one TF32 product: errors of a few 1e-4 of the largest magnitude
+    assert min(errs[1][0], errs[1][2], errs[1][3]) > 100 * max(logit3, gzj3, gtzi3)

@@ -191,14 +191,93 @@ def test_cpu_tensors_take_plain_versions_and_cuda_wrappers_refuse_them(
 
 
 def test_backward_feature_slice_fits_shared_memory():
-    assert port.tns_bwd_kslice(645, 64) == 64
-    assert port.tns_bwd_kslice(1536, 64) == 32
-    assert port.tns_bwd_kslice(1536, 48) == 16
-    # the narrowest slice is 8 features; past it the backward accumulates
-    # in global memory (kslice 0), at any node count
-    assert port.tns_bwd_kslice(6456, 64) == 8
-    assert port.tns_bwd_kslice(6457, 64) == 0
-    assert port.tns_bwd_kslice(10**6, 64) == 0
+    """The backward adds into dx in device memory; a block holds only its
+    16 warps' dP^T tiles [slice, 17], the slice the widest power of two up
+    to 64 dividing d, so three blocks share an SM at d = 64."""
+    for d, ks in ((64, 64), (32, 32), (48, 16), (16, 16), (12, 4), (7, 1)):
+        assert port._pow2_slice(d) == ks
+        assert port._tns_warps(0, ks) == 16
+    assert 3 * 4 * 16 * 64 * 17 <= port.kernels.SMEM_BYTES
+
+
+def test_forward_feature_slice_fits_shared_memory():
+    """The forward keeps x whole in shared memory at Decagon's 645 drugs
+    and in two 32-feature slices at 1,536 (one plan serves both
+    directions); a slice always divides d, and the warps' staging tiles fit
+    beside it."""
+    assert port.tns_fwd_kslice(645, 64) == 64
+    assert port.tns_fwd_kslice(645, 32) == 32
+    assert port.tns_fwd_kslice(1536, 64) == 32
+    assert port.tns_fwd_kslice(7128, 64) == 8
+    assert port.tns_fwd_kslice(7129, 64) == 0
+    for n in (40, 645, 1536, 3000, 7000, 7129):
+        for d in (4, 8, 16, 24, 32, 48, 64, 128):
+            ks = port.tns_fwd_kslice(n, d)
+            if ks:
+                assert d % ks == 0 and ks <= 64 and ks & (ks - 1) == 0
+                assert ks >= min(8, d)
+                warps = port._tns_warps(n, ks)
+                assert 8 <= warps <= 16
+                assert 4 * (n * ks + warps * ks * 17) <= port.kernels.SMEM_BYTES
+            gks = port._pow2_slice(d)  # the global mode's slice
+            assert d % gks == 0 and port._tns_warps(0, gks) == 16
+
+
+@pytest.mark.parametrize("n_shards", [1, 3])
+def test_typed_csr_yardstick_matches_plain_versions(packed, n_shards):
+    """torch.sparse.mm over the typed CSR reproduces the forward (P^T
+    transposed to [n_et * n, d]) and over its transpose the backward, on
+    the whole buffers and on a rank's contiguous share of the chunks
+    (relations it does not hold are zero)."""
+    n, edges, bufs = packed
+    rng = np.random.default_rng(8)
+    k = -(-bufs[0].shape[0] // n_shards)
+    lo = k if n_shards > 1 else 0  # the second rank's share
+    src2d, dst2d, ct = (b[lo:lo + k] for b in _t(bufs))
+    x = torch.from_numpy(rng.normal(size=(n, 8)).astype(np.float32))
+    dpt = torch.from_numpy(rng.normal(size=(edges.n_et, 8, n)).astype(np.float32))
+    want = port.typed_neighbor_sum_fwd_plain(x, src2d, dst2d, ct, edges.n_et)
+    got = torch.sparse.mm(port.typed_csr(src2d, dst2d, ct, n, edges.n_et), x)
+    np.testing.assert_allclose(
+        got.numpy(), want.transpose(1, 2).reshape(-1, 8).numpy(), atol=1e-5)
+    want_dx = port.typed_neighbor_sum_bwd_plain(dpt, src2d, dst2d, ct)
+    adj_t = port.typed_csr(src2d, dst2d, ct, n, edges.n_et, transpose=True)
+    assert adj_t.shape == (n, edges.n_et * n)
+    got_dx = torch.sparse.mm(adj_t, dpt.transpose(1, 2).reshape(-1, 8))
+    np.testing.assert_allclose(got_dx.numpy(), want_dx.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_rank_blocks_split_the_sum_and_zero_the_relations_a_rank_lacks(
+        ranks):
+    """tns_bench.rank_blocks gives each rank its block of the padded chunk
+    buffers, as the sharded path places them; the ranks' forwards sum to
+    the whole one, and the P^T rows of the relations a block lacks are zero
+    (kernel B4 writes them with no zero-fill pass before it)."""
+    from tip_tpu_torch.data import build_trigraph
+    from tip_tpu_torch.data import synthetic_trigraph as t_raw
+    from tip_tpu_torch.scripts.tns_bench import rank_blocks
+    from tip_tpu_torch.train.model import make_graph_arrays
+
+    data = build_trigraph(t_raw(n_drug=40, n_prot=70, n_et=5, pairs_per_et=60,
+                                seed=8), split_rate=0.9, seed=8)
+    graph, gs = make_graph_arrays(data, "cpu", dense_dtype=None, dd_chunk=16,
+                                  pp_window=64, pp_chunk=32)
+    bufs = graph["dd_src2d"], graph["dd_dst2d"], graph["dd_chunk_type"]
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(gs.n_drug, 8)).astype(np.float32))
+    whole = port.typed_neighbor_sum_fwd_plain(x, *bufs, gs.n_et)
+    total, lacking = torch.zeros_like(whole), 0
+    for src2d, dst2d, ct in rank_blocks(graph, gs, ranks):
+        assert src2d.shape == (-(-bufs[0].shape[0] // ranks), 16)
+        part = port.typed_neighbor_sum_fwd_plain(x, src2d, dst2d, ct, gs.n_et)
+        owned = torch.zeros(gs.n_et, dtype=torch.bool)
+        owned[ct.long()] = True
+        assert not part[~owned].any()
+        lacking += int((~owned).sum())
+        total += part
+    assert lacking > 0
+    np.testing.assert_allclose(total.numpy(), whole.numpy(), atol=1e-5)
 
 
 _CTYPE_CHAR = {"int": "i", "unsigned int": "u", "float": "f", "long long": "q"}

@@ -1,5 +1,5 @@
 // Order-preserving block-wide compaction, shared by the run-sum kernels
-// (typed_neighbor_sum.cu, gcn_spmm.cu).
+// (gcn_spmm.cu, ring_spmm.cu).
 #pragma once
 
 #include <cuda_runtime.h>

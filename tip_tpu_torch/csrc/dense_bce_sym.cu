@@ -10,36 +10,52 @@
 //          on the tail), zeroed where da > 0 or the cell lies past n
 //   daw  = da * (1 on the diagonal block, 2 on the tail)
 //   loss = sum softplus(-L) * daw + (softplus(-L) + L) * cnt
-//   G    = cnt - (1 - exp(-softplus(-L))) * (daw + cnt)
+//   G    = cnt - sigmoid(-L) * (daw + cnt)
 //   dw_t += sum_r z_I[r] * (G z_J)[r];  dz[I] += w_t * (G z_J);
 //   dz[J] += w_t * (G^T z_I)
 // The TPU kernel draws u24 from the on-chip PRNG in strip order.  Here u24
 // is a counter-based hash of (seed, t, row, col) -- cell_u24 of
-// bce_cell.cuh, shared with B2 and B3 -- and
-// ops/dense_bce_sym.py computes the same field in PyTorch, so the kernel
-// and its plain version see identical counts.
+// bce_cell.cuh, shared with B2 and B3 -- and ops/dense_bce_sym.py computes
+// the same field in PyTorch, so the kernel and its plain version see
+// identical counts.
 //
-// Design.  The TPU kernel runs on a grid of (1,), streams relation pages
-// through a VMEM ring and adds dz up serially.  Here one block owns one
-// 128 x 128 tile (I, J) of the strip layout for a chunk of RC relations:
-// z_I and z_J stay in shared memory across the chunk (only w_t changes),
-// the G tile goes through shared memory for the two gradient contractions,
-// and dz for the tile accumulates in registers across the chunk.  Every
-// block writes its loss, dw and dz partials to scratch, and small second
-// passes sum them in a fixed order: the result is deterministic, and the
-// value-only and fused launches give the same loss bit for bit (the loss
-// arithmetic uses explicit round-to-nearest intrinsics, so the compiler
-// contracts nothing differently between the two instantiations).
+// Design.  One block (8 warps) owns one 128 x 128 tile (I, J) of the strip
+// layout for a chunk of RC relations; z_I and z_J stay in shared memory
+// across the chunk (only w_t changes), split into TF32 high and low parts.
+// Warp w owns rows 16w..16w+15 of the tile.
+//  * The three contractions run on the tensor cores, mma.sync m16n8k8 TF32,
+//    each float32 product as three TF32 products (hi*hi + hi*lo + lo*hi,
+//    "3xTF32": float32-level error, where one TF32 product would keep ~3
+//    digits).  L comes 32 columns at a time into accumulator fragments; the
+//    cell math turns them into G in the same registers, which are at once
+//    the A operand of G z_J (the contraction index permuted to the
+//    fragment's column order, so G never goes through shared memory for
+//    it).  G is also stored to a shared [128][132] tile, from which each
+//    warp reads the transposed fragments of G^T z_I for 16 columns (the
+//    row stride makes those reads free of bank conflicts).
+//  * One exponential per cell: e = exp(-|L|) gives softplus(-L) =
+//    max(-L, 0) + log(1 + e) and sigmoid(-L) = (L >= 0 ? e : 1) / (1 + e).
+//    Fast intrinsics: ex2.approx and lg2.approx (a few 1e-7 absolute in
+//    softplus), __fdividef in the sigmoid (gradients only).
+//  * The page stream is asynchronous: the next relation's 16 KB int8 page
+//    tile is copied into shared memory by cp.async while the current one
+//    computes (double buffer).
+//  * Warps skip the rows and 32-column groups of the tile that lie past n.
+// Every block writes its loss, dw and dz partials to scratch, and small
+// second passes sum them in a fixed order: the result is deterministic, and
+// the value-only and fused launches give the same loss bit for bit (the
+// logits come from the same tensor-core sequence, and the loss arithmetic
+// uses explicit round-to-nearest intrinsics, so the compiler contracts
+// nothing differently between the two instantiations).
 //
-// Bound on an H100 at Decagon shape (R = 1097, n = 645, d = 16): the
-// 377 MB page read takes 0.11 ms at 3.35 TB/s; the fused form does three
-// d-long dots (6 d flops) and ~20 elementwise float operations per cell
-// (softplus, counts, G; 3 of them transcendental) besides the hash's
-// integer operations.  The float operations alone, ~3.2e10 over the 273 M
-// cells inside n x n, bound it: ~0.47 ms at 67 TFLOP/s (chip_smoke.py
-// reckons this bound from its run).  This first version spends its time in shared-memory
-// traffic and scalar FMAs; wgmma for the three contractions and TMA for the
-// page stream are later work.
+// Bound on an H100 at Decagon shape (R = 1097, n = 645, d = 16; ~273 M
+// cells inside n x n): the 377 MB page read takes 0.11 ms at 3.35 TB/s;
+// the three d-long dots are 6 d flops a cell, 18 d as 3xTF32, ~79 GFLOP,
+// 0.16 ms at 495 TFLOP/s (dense TF32); the ~20 elementwise float operations
+// a cell (softplus, counts, G) take 0.08 ms at 67 TFLOP/s beside them (the
+// units overlap).  So the tensor-core operations bound it, at ~0.16 ms
+// (chip_smoke.py reckons the bound from its run).  The cell's integer hash
+// (~20 operations) is not counted.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,34 +66,106 @@ namespace {
 
 using bce_cell::cell_u24;  // cell = row * npad + col of the padded plane
 using bce_cell::relation_key;
-using bce_cell::softplus;
 
 constexpr int B = 128;          // block edge of the strip layout
-constexpr int THREADS = 256;    // 8 warps
+constexpr int THREADS = 256;    // 8 warps, 16 rows each
 constexpr int WARPS = THREADS / 32;
-constexpr int GSTRIDE = B + 1;  // padded row stride of the G tile
+constexpr int CW = 32;          // columns a warp computes at a time (4 n-tiles)
+constexpr int GS = B + 4;       // row stride of the G tile (== 4 mod 16)
+constexpr int PS = B + 16;      // row stride of a page tile, in bytes
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-__host__ __device__ __forceinline__ int smem_floats(int d, bool grads) {
-  // zi [B][d], ziw [B][d], zjT [d][B]; with grads also red [B][d] and G
-  return 3 * B * d + (grads ? B * d + B * GSTRIDE : 0);
+// row stride of the z tiles: D + 4 spreads the fragment reads over banks
+__host__ __device__ constexpr int zstride(int d) { return d + 4; }
+
+__host__ __device__ inline int smem_bytes(int d, bool grads) {
+  // zI hi, zI lo, zJ hi, zJ lo [B][D + 4] words; two page tiles [B][PS]
+  // bytes; with grads the G tile [B][GS] and the dw partials [WARPS][D]
+  return 4 * (4 * B * zstride(d) + (grads ? B * GS + WARPS * d : 0)) +
+         2 * B * PS;
+}
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// x = hi + lo + O(2^-22 |x|), both parts TF32
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], uint32_t a0, uint32_t a1,
+                                    uint32_t a2, uint32_t a3, uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// c += A B as 3xTF32: the small products first
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma(c, al[0], al[1], al[2], al[3], bh0, bh1);
+  mma(c, ah[0], ah[1], ah[2], ah[3], bl0, bl1);
+  mma(c, ah[0], ah[1], ah[2], ah[3], bh0, bh1);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// Start copying relation t's 128 x 128 page tile into pg [B][PS].
+__device__ __forceinline__ void fetch_page(const int8_t* pages, int t,
+                                           int tile, int totcols, int8_t* pg) {
+  const int8_t* src = pages + ((size_t)t * B) * totcols + (size_t)tile * B;
+  for (int i = threadIdx.x; i < B * (B / 16); i += THREADS) {
+    const int r = i / (B / 16), c = (i % (B / 16)) * 16;
+    cp_async16(pg + r * PS + c, src + (size_t)r * totcols + c);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
 }
 
 template <int D, bool GRADS>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 tile_kernel(const float* __restrict__ w, const float* __restrict__ z,
             const int8_t* __restrict__ pages, const int32_t* __restrict__ q8,
             uint32_t seed, int n_et, int n, int nb, int totcols, int rc,
             float* __restrict__ loss_part, float* __restrict__ dw_part,
             float* __restrict__ dz_part) {
-  extern __shared__ float smem[];
+  constexpr int ZS = zstride(D);
+  constexpr int KK = D / 8;  // k-steps of the logit, n-tiles of the gradients
+  extern __shared__ __align__(16) uint32_t smem[];
   __shared__ float warp_loss[WARPS];
-  float* zi = smem;           // [B][D]
-  float* ziw = zi + B * D;    // [B][D]
-  float* zjT = ziw + B * D;   // [D][B]
-  float* red = zjT + D * B;   // [B][D]      (GRADS)
-  float* G = red + B * D;     // [B][GSTRIDE] (GRADS)
+  uint32_t* zih = smem;            // [B][ZS] z_I, TF32 high part
+  uint32_t* zil = zih + B * ZS;    // [B][ZS] z_I, low part
+  uint32_t* zjh = zil + B * ZS;    // [B][ZS] z_J
+  uint32_t* zjl = zjh + B * ZS;
+  float* Gt = (float*)(zjl + B * ZS);             // [B][GS]      (GRADS)
+  float* red = Gt + (GRADS ? B * GS : 0);         // [WARPS][D]   (GRADS)
+  int8_t* pg = (int8_t*)(red + (GRADS ? WARPS * D : 0));  // [2][B][PS]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
   // blockIdx.x is the tile's column-block index in the packed layout,
   // which enumerates the upper block triangle row by row
   const int tile = blockIdx.x;
@@ -93,87 +181,190 @@ tile_kernel(const float* __restrict__ w, const float* __restrict__ z,
   const bool diag = i == j;
   const int qoff = diag ? 0 : 4;
   const float posw = diag ? 1.f : 2.f;
-
-  for (int idx = tid; idx < B * D; idx += THREADS) {
-    const int r = idx / D, k = idx % D;
-    zi[idx] = row0 + r < n ? z[(size_t)(row0 + r) * D + k] : 0.f;
-    zjT[k * B + r] = col0 + r < n ? z[(size_t)(col0 + r) * D + k] : 0.f;
-  }
-
   const int t0 = blockIdx.y * rc;
   const int t1 = min(t0 + rc, n_et);
-  float loss_acc = 0.f;
-  float acc[D];  // this thread's dz row (tid < B) or column, over the chunk
+
+  fetch_page(pages, t0, tile, totcols, pg);
+  for (int idx = tid; idx < B * D; idx += THREADS) {
+    const int r = idx / D, k = idx % D;
+    const float vi = row0 + r < n ? z[(size_t)(row0 + r) * D + k] : 0.f;
+    const float vj = col0 + r < n ? z[(size_t)(col0 + r) * D + k] : 0.f;
+    split(vi, zih[r * ZS + k], zil[r * ZS + k]);
+    split(vj, zjh[r * ZS + k], zjl[r * ZS + k]);
+  }
+  if constexpr (GRADS) {  // skipped rows and columns keep G = 0
+    for (int idx = tid; idx < B * GS; idx += THREADS) Gt[idx] = 0.f;
+  }
+
+  const int m0 = warp * 16;  // this warp's first row of the tile
+  const bool rows_live = row0 + m0 < n;
+  const int ncw = (min(B, n - col0) + CW - 1) / CW;  // live column groups
+  // z_I in the logit's A-fragment layout: rows m0+g, m0+g+8; features
+  // 8kk + t4, 8kk + t4 + 4
+  float za[KK][4];
+  // z_I in the accumulator layout (for dw): rows m0+g, m0+g+8; features
+  // 8f + 2t4, 8f + 2t4 + 1
+  float zc[KK][4];
 #pragma unroll
-  for (int k = 0; k < D; ++k) acc[k] = 0.f;
+  for (int kk = 0; kk < KK; ++kk) {
+    const int r0 = row0 + m0 + g, r1 = r0 + 8;
+    const int f0 = 8 * kk + t4, f1 = 8 * kk + 2 * t4;
+    za[kk][0] = r0 < n ? z[(size_t)r0 * D + f0] : 0.f;
+    za[kk][1] = r1 < n ? z[(size_t)r1 * D + f0] : 0.f;
+    za[kk][2] = r0 < n ? z[(size_t)r0 * D + f0 + 4] : 0.f;
+    za[kk][3] = r1 < n ? z[(size_t)r1 * D + f0 + 4] : 0.f;
+    zc[kk][0] = r0 < n ? z[(size_t)r0 * D + f1] : 0.f;
+    zc[kk][1] = r0 < n ? z[(size_t)r0 * D + f1 + 1] : 0.f;
+    zc[kk][2] = r1 < n ? z[(size_t)r1 * D + f1] : 0.f;
+    zc[kk][3] = r1 < n ? z[(size_t)r1 * D + f1 + 1] : 0.f;
+  }
+
+  float loss_acc = 0.f;
+  float accI[KK][4], accJ[KK][4];  // dz of rows m0+g(+8) and columns 16w+g(+8)
+#pragma unroll
+  for (int f = 0; f < KK; ++f)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) accI[f][q] = accJ[f][q] = 0.f;
 
   for (int t = t0; t < t1; ++t) {
+    const int buf = (t - t0) & 1;
+    asm volatile("cp.async.wait_all;\n" ::);
+    __syncthreads();  // page t, the z tiles, and the last relation's G reads
+    if (t + 1 < t1) fetch_page(pages, t + 1, tile, totcols, pg + (buf ^ 1) * B * PS);
+    const int8_t* page = pg + buf * B * PS;
+
     const uint32_t key = relation_key(seed, (uint32_t)t);
     const int q0 = q8[t * 8 + qoff], q1 = q8[t * 8 + qoff + 1];
     const int q2 = q8[t * 8 + qoff + 2], q3 = q8[t * 8 + qoff + 3];
-    for (int idx = tid; idx < B * D; idx += THREADS)
-      ziw[idx] = __fmul_rn(zi[idx], w[(size_t)t * D + idx % D]);
-    __syncthreads();
+    float wv[KK][2];  // w_t at features 8f + 2t4, 8f + 2t4 + 1
+    uint32_t ah[KK][4], al[KK][4];  // (z_I * w_t) as A fragments
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      const float wa = w[(size_t)t * D + 8 * kk + t4];
+      const float wb = w[(size_t)t * D + 8 * kk + t4 + 4];
+      split(__fmul_rn(za[kk][0], wa), ah[kk][0], al[kk][0]);
+      split(__fmul_rn(za[kk][1], wa), ah[kk][1], al[kk][1]);
+      split(__fmul_rn(za[kk][2], wb), ah[kk][2], al[kk][2]);
+      split(__fmul_rn(za[kk][3], wb), ah[kk][3], al[kk][3]);
+      wv[kk][0] = w[(size_t)t * D + 8 * kk + 2 * t4];
+      wv[kk][1] = w[(size_t)t * D + 8 * kk + 2 * t4 + 1];
+    }
+    float hI[KK][4];  // (G z_J) rows m0+g(+8), features 8f + 2t4 (+1)
+#pragma unroll
+    for (int f = 0; f < KK; ++f)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) hI[f][q] = 0.f;
 
-    const int8_t* page = pages + (size_t)t * B * totcols + (size_t)tile * B;
-    for (int m = 0; m < B / WARPS; ++m) {
-      const int r = warp + WARPS * m;
-      const int gr = row0 + r;
-      float a[D];
+    for (int cw = 0; rows_live && cw < ncw; ++cw) {
+      const int c0 = cw * CW;
 #pragma unroll
-      for (int k = 0; k < D; ++k) a[k] = ziw[r * D + k];
+      for (int nt = 0; nt < CW / 8; ++nt) {
+        const int cb = c0 + nt * 8;  // this n-tile's first column
+        float L[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int q = 0; q < B / 32; ++q) {
-        const int c = lane + 32 * q;
-        const int gc = col0 + c;
-        float L = __fmul_rn(a[0], zjT[c]);
+        for (int kk = 0; kk < KK; ++kk) {
+          const int o = (cb + g) * ZS + 8 * kk + t4;
+          mma3(L, ah[kk], al[kk], zjh[o], zjh[o + 4], zjl[o], zjl[o + 4]);
+        }
+        // cells (m0+g, cb+2t4), (m0+g, +1), (m0+g+8, cb+2t4), (m0+g+8, +1)
+        float Gv[4];
 #pragma unroll
-        for (int k = 1; k < D; ++k) L = __fmaf_rn(a[k], zjT[k * B + c], L);
-        const float da = (float)page[(size_t)r * totcols + c];
-        const int u = cell_u24(key, (uint32_t)gr * npad + (uint32_t)gc);
-        float cnt = (float)((u < q0) + (u < q1) + (u < q2) + (u < q3));
-        if (da > 0.f || gr >= n || gc >= n) cnt = 0.f;
-        const float daw = __fmul_rn(posw, da);
-        const float sp = softplus(-L);
-        loss_acc = __fadd_rn(
-            loss_acc, __fadd_rn(__fmul_rn(sp, daw),
-                                __fmul_rn(__fadd_rn(sp, L), cnt)));
+        for (int h = 0; h < 2; ++h) {
+          const int rl = m0 + g + 8 * h;
+          const char2 da2 = *(const char2*)(page + rl * PS + cb + 2 * t4);
+#pragma unroll
+          for (int e2 = 0; e2 < 2; ++e2) {
+            const int q = 2 * h + e2;
+            const int gr = row0 + rl, gc = col0 + cb + 2 * t4 + e2;
+            const float da = (float)(e2 ? da2.y : da2.x);
+            const int u = cell_u24(key, (uint32_t)gr * npad + (uint32_t)gc);
+            float cnt = (float)((u < q0) + (u < q1) + (u < q2) + (u < q3));
+            if (da > 0.f || gr >= n || gc >= n) cnt = 0.f;
+            const float x = L[q];
+            const float daw = __fmul_rn(posw, da);
+            const float e = ex2(__fmul_rn(-fabsf(x), LOG2E));
+            const float sp = __fadd_rn(fmaxf(-x, 0.f),
+                                       __fmul_rn(lg2(__fadd_rn(1.f, e)), LN2));
+            loss_acc = __fadd_rn(
+                loss_acc, __fadd_rn(__fmul_rn(sp, daw),
+                                    __fmul_rn(__fadd_rn(sp, x), cnt)));
+            if constexpr (GRADS) {
+              const float sg = __fdividef(x >= 0.f ? e : 1.f, 1.f + e);
+              Gv[q] = cnt - sg * (daw + cnt);
+            }
+          }
+        }
         if constexpr (GRADS) {
-          const float sg = 1.f - expf(-sp);
-          G[r * GSTRIDE + c] = cnt - sg * (daw + cnt);
+          *(float2*)(Gt + (m0 + g) * GS + cb + 2 * t4) = make_float2(Gv[0], Gv[1]);
+          *(float2*)(Gt + (m0 + g + 8) * GS + cb + 2 * t4) =
+              make_float2(Gv[2], Gv[3]);
+          // G z_J over these 8 columns: A fragment k = t4 <-> column
+          // cb + 2t4, k = t4 + 4 <-> column cb + 2t4 + 1
+          uint32_t gh[4], gl[4];
+          split(Gv[0], gh[0], gl[0]);
+          split(Gv[2], gh[1], gl[1]);
+          split(Gv[1], gh[2], gl[2]);
+          split(Gv[3], gh[3], gl[3]);
+#pragma unroll
+          for (int f = 0; f < KK; ++f) {
+            const int o = (cb + 2 * t4) * ZS + 8 * f + g;
+            mma3(hI[f], gh, gl, zjh[o], zjh[o + ZS], zjl[o], zjl[o + ZS]);
+          }
         }
       }
     }
-    __syncthreads();
+
     if constexpr (GRADS) {
-      // tid < B: row r of G z_J (dz rows I, and dw_t); else column c of
-      // G^T z_I (dz rows J)
-      float h[D];
+      // dz rows I and this warp's share of dw_t
 #pragma unroll
-      for (int k = 0; k < D; ++k) h[k] = 0.f;
-      if (tid < B) {
-        const int r = tid;
-        for (int c = 0; c < B; ++c) {
-          const float g = G[r * GSTRIDE + c];
+      for (int f = 0; f < KK; ++f) {
 #pragma unroll
-          for (int k = 0; k < D; ++k) h[k] = fmaf(g, zjT[k * B + c], h[k]);
+        for (int q = 0; q < 4; ++q) accI[f][q] = fmaf(wv[f][q & 1], hI[f][q], accI[f][q]);
+        float s0 = fmaf(zc[f][0], hI[f][0], zc[f][2] * hI[f][2]);
+        float s1 = fmaf(zc[f][1], hI[f][1], zc[f][3] * hI[f][3]);
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, off);
         }
-#pragma unroll
-        for (int k = 0; k < D; ++k) red[r * D + k] = zi[r * D + k] * h[k];
-      } else {
-        const int c = tid - B;
-        for (int r = 0; r < B; ++r) {
-          const float g = G[r * GSTRIDE + c];
-#pragma unroll
-          for (int k = 0; k < D; ++k) h[k] = fmaf(g, zi[r * D + k], h[k]);
+        if (g == 0) {
+          red[warp * D + 8 * f + 2 * t4] = s0;
+          red[warp * D + 8 * f + 2 * t4 + 1] = s1;
         }
       }
+      __syncthreads();  // the G tile and the dw partials are complete
+      // G^T z_I for columns j0..j0+15: A[m = column][k = row], k = t4 <->
+      // row kb + 2t4, k = t4 + 4 <-> row kb + 2t4 + 1
+      const int j0 = warp * 16;
+      if (col0 + j0 < n) {
+        float hJ[KK][4];
 #pragma unroll
-      for (int k = 0; k < D; ++k) acc[k] = fmaf(w[(size_t)t * D + k], h[k], acc[k]);
-      __syncthreads();
+        for (int f = 0; f < KK; ++f)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) hJ[f][q] = 0.f;
+        const int kend = min(B, n - row0);
+        for (int kb = 0; kb < kend; kb += 8) {
+          const float* g0 = Gt + (kb + 2 * t4) * GS + j0 + g;
+          uint32_t gh[4], gl[4];
+          split(g0[0], gh[0], gl[0]);
+          split(g0[8], gh[1], gl[1]);
+          split(g0[GS], gh[2], gl[2]);
+          split(g0[GS + 8], gh[3], gl[3]);
+#pragma unroll
+          for (int f = 0; f < KK; ++f) {
+            const int o = (kb + 2 * t4) * ZS + 8 * f + g;
+            mma3(hJ[f], gh, gl, zih[o], zih[o + ZS], zil[o], zil[o + ZS]);
+          }
+        }
+#pragma unroll
+        for (int f = 0; f < KK; ++f)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            accJ[f][q] = fmaf(wv[f][q & 1], hJ[f][q], accJ[f][q]);
+      }
       if (tid < D) {
         float s = 0.f;
-        for (int r = 0; r < B; ++r) s += red[r * D + tid];
+        for (int k = 0; k < WARPS; ++k) s += red[k * D + tid];
         dw_part[((size_t)tile * n_et + t) * D + tid] = s;
       }
     }
@@ -181,9 +372,16 @@ tile_kernel(const float* __restrict__ w, const float* __restrict__ z,
 
   const size_t blk = (size_t)blockIdx.y * n_tiles + tile;
   if constexpr (GRADS) {
-    float* out = dz_part + ((blk * 2 + (tid < B ? 0 : 1)) * B + (tid % B)) * D;
+    float* outI = dz_part + (blk * 2 * B + m0) * D;
+    float* outJ = dz_part + ((blk * 2 + 1) * B + warp * 16) * D;
 #pragma unroll
-    for (int k = 0; k < D; ++k) out[k] = acc[k];
+    for (int f = 0; f < KK; ++f) {
+      const int k = 8 * f + 2 * t4;
+      *(float2*)(outI + g * D + k) = make_float2(accI[f][0], accI[f][1]);
+      *(float2*)(outI + (g + 8) * D + k) = make_float2(accI[f][2], accI[f][3]);
+      *(float2*)(outJ + g * D + k) = make_float2(accJ[f][0], accJ[f][1]);
+      *(float2*)(outJ + (g + 8) * D + k) = make_float2(accJ[f][2], accJ[f][3]);
+    }
   }
   // fixed-order block reduction of the loss
 #pragma unroll
@@ -255,7 +453,7 @@ cudaError_t launch(const float* w, const float* z, const int8_t* pages,
                    cudaStream_t stream) {
   const int n_tiles = nb * (nb + 1) / 2;
   const int n_chunks = (n_et + rc - 1) / rc;
-  const int smem = smem_floats(D, GRADS) * (int)sizeof(float);
+  const int smem = smem_bytes(D, GRADS);
   cudaError_t err = cudaFuncSetAttribute(
       tile_kernel<D, GRADS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -294,8 +492,10 @@ cudaError_t dispatch(int grads, const float* w, const float* z,
 // Plain C entry point (bound with ctypes by ops/dense_bce_sym.py).
 // Scratch sizes, in floats: loss_part n_tiles * n_chunks; dw_part
 // n_tiles * n_et * d; dz_part n_chunks * n_tiles * 2 * 128 * d, where
-// n_tiles = nb (nb + 1) / 2 and n_chunks = ceil(n_et / rc).  With grads 0
-// the dw/dz pointers are not touched.  Returns the first CUDA error.
+// n_tiles = nb (nb + 1) / 2 and n_chunks = ceil(n_et / rc).  pages and
+// totcols 16-byte aligned (the page tiles are copied 16 bytes at a time).
+// With grads 0 the dw/dz pointers are not touched.  Returns the first CUDA
+// error.
 extern "C" int tip_dense_bce_sym(const float* w, const float* z,
                                  const int8_t* pages, const int32_t* q8,
                                  unsigned int seed, int n_et, int n, int d,
@@ -304,6 +504,8 @@ extern "C" int tip_dense_bce_sym(const float* w, const float* z,
                                  float* dz_part, float* loss, float* dw,
                                  float* dz, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (((uintptr_t)pages | (uintptr_t)totcols) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   switch (d) {
     case 8:
       return dispatch<8>(grads, w, z, pages, q8, seed, n_et, n, nb, totcols,

@@ -174,6 +174,9 @@ def _check_cuda_args(w, z, pages, q8):
         raise ValueError(f"feature width {d} not in {SUPPORTED_D}")
     if (nb * B) ** 2 >= 2**32:
         raise ValueError("cell index exceeds 32 bits")
+    if pages.data_ptr() % 16:
+        raise ValueError("pages must be 16-byte aligned (the kernel copies "
+                         "its page tiles 16 bytes at a time)")
     return n_et, n, d, nb, totcols
 
 

@@ -10,9 +10,10 @@ the TPU has no fast scatter; the CUDA kernels (``csrc/typed_neighbor_sum.cu``,
 whose headers say what bounds them and how they are laid out) gather and
 scatter directly.  B4's and B5's buffers are destination-sorted inside each
 relation bin or window, so their forward passes sum each run of equal
-destinations in one thread, in slot order, and write it once: no atomics,
-deterministic results.  B6 and B7 score one slot a thread and scatter
-their gradients with atomics.
+destinations in slot order (B4 a warp a run, its lanes over the features;
+B5 a thread a run and feature) and write it once: no atomics,
+deterministic results.  B4's backward and B6 and B7 scatter their
+gradients with atomics.
 
 B6 and B7 are the JAX package's first SDDMMs, which its decoder A/B
 benchmark (scripts/decoder_ab.py; the port's is
@@ -83,8 +84,54 @@ def _check_chunked(src2d, dst2d, chunk_type, dev):
                          f"{tuple(chunk_type.shape)}")
 
 
-def typed_neighbor_sum_fwd_cuda(x, src2d, dst2d, chunk_type, n_et: int):
-    """Launch the forward of csrc/typed_neighbor_sum.cu."""
+# Plans of csrc/typed_neighbor_sum.cu: each of a block's 8-16 warps has a
+# [slice, 17] staging tile in shared memory; the forward's block also holds
+# a feature slice of x, [n, slice] floats, where one fits
+_SDS = 17
+_MIN_WARPS, _MAX_WARPS = 8, 16
+
+
+def _tns_warps(n: int, ks: int) -> int:
+    """Warps of a block whose x slice [n, ks] (n = 0: none) and staging
+    tiles fit its shared memory (at most 16)."""
+    return min(_MAX_WARPS, (kernels.SMEM_BYTES // 4 - n * ks) // (ks * _SDS))
+
+
+def _pow2_slice(d: int) -> int:
+    """The largest power of two up to 64 that divides d."""
+    return next(ks for ks in (64, 32, 16, 8, 4, 2, 1) if d % ks == 0)
+
+
+def tns_fwd_kslice(n: int, d: int) -> int:
+    """Widest feature slice of B4's forward (a power of two up to 64
+    dividing d, of at least 8 features or all d) whose x slice [n, slice]
+    fits a block's shared memory beside the staging tiles of 8 warps; 0
+    where none fits (n > 7,128), and the forward reads x from device
+    memory."""
+    for ks in (64, 32, 16, 8, 4, 2, 1):
+        if (d % ks == 0 and ks >= min(8, d)
+                and _tns_warps(n, ks) >= _MIN_WARPS):
+            return ks
+    return 0
+
+
+def _tns_plan(n: int, ks: int, d: int, n_chunks: int, dev):
+    """(warps, groups) of a B4 launch with slice ks and an x slice of n
+    rows a block (n = 0: none): as many blocks a slice as fit the SMs at
+    once, each warp taking whole chunks from a counter."""
+    warps = _tns_warps(n, ks)
+    smem = 4 * (n * ks + warps * ks * _SDS)
+    per_sm = max(1, min(2048 // (32 * warps), kernels.SMEM_BYTES // smem))
+    groups = max(1, min(-(-n_chunks // warps),
+                        per_sm * kernels.sm_count(dev) // (d // ks)))
+    return warps, groups
+
+
+def typed_neighbor_sum_fwd_cuda(x, src2d, dst2d, chunk_type, n_et: int,
+                                force_global: bool = False):
+    """Launch the forward of csrc/typed_neighbor_sum.cu: x's feature slice
+    in shared memory where one fits (:func:`tns_fwd_kslice`), else, or with
+    ``force_global``, x read from device memory."""
     dev = x.device
     if not x.is_cuda:
         raise ValueError("typed_neighbor_sum_fwd_cuda needs CUDA tensors")
@@ -92,54 +139,67 @@ def typed_neighbor_sum_fwd_cuda(x, src2d, dst2d, chunk_type, n_et: int):
     _check_chunked(src2d, dst2d, chunk_type, dev)
     n, d = x.shape
     n_chunks, chunk = src2d.shape
+    if n_chunks == 0:
+        return torch.zeros((n_et, d, n), dtype=torch.float32, device=dev)
+    ks = 0 if force_global else tns_fwd_kslice(n, d)
+    if ks:
+        warps, groups = _tns_plan(n, ks, d, n_chunks, dev)
+        kslice = ks
+    else:
+        ks = _pow2_slice(d)
+        warps, groups = _tns_plan(0, ks, d, n_chunks, dev)
+        kslice = -ks
     out = torch.empty((n_et, d, n), dtype=torch.float32, device=dev)
-    kernels.launch(TNS, "tip_tns_fwd", "ppppiiiiip", x, src2d, dst2d,
-                   chunk_type, n_chunks, chunk, n, d, n_et, out, device=dev)
+    counters = torch.empty(d // ks, dtype=torch.int32, device=dev)
+    kernels.launch(TNS, "tip_tns_fwd", "ppppiiiiiiiipp", x, src2d, dst2d,
+                   chunk_type, n_chunks, chunk, n, d, n_et, kslice, warps,
+                   groups, counters, out, device=dev)
     return out
 
 
-def tns_bwd_kslice(n: int, d: int) -> int:
-    """Widest feature slice (a divisor of d, of at least 8 features or all
-    d) whose [n, slice + 1] float accumulator fits a block's shared memory;
-    0 where none fits (n > 6,456), and the backward adds into a global dx."""
-    for ks in (64, 32, 16, 8, 4, 2, 1):
-        if (d % ks == 0 and ks >= min(8, d)
-                and n * (ks + 1) * 4 <= kernels.SMEM_BYTES):
-            return ks
-    return 0
-
-
-def typed_neighbor_sum_bwd_cuda(dpt, src2d, dst2d, chunk_type, table=None):
-    """Launch the backward of csrc/typed_neighbor_sum.cu.  ``table`` None
-    accumulates in shared memory where a slice fits, else in global memory;
-    "shared" raises where none fits; "global" forces global."""
+def typed_neighbor_sum_bwd_cuda(dpt, src2d, dst2d, chunk_type):
+    """Launch the backward of csrc/typed_neighbor_sum.cu (atomic adds into
+    dx in device memory)."""
     dev = dpt.device
     if not dpt.is_cuda:
         raise ValueError("typed_neighbor_sum_bwd_cuda needs CUDA tensors")
     kernels.require(dpt, "dpt", torch.float32, 3, dev)
     _check_chunked(src2d, dst2d, chunk_type, dev)
-    if table not in (None, "shared", "global"):
-        raise ValueError(f"table {table!r} is not 'shared' or 'global'")
     _, d, n = dpt.shape
     n_chunks, chunk = src2d.shape
-    kslice = 0 if table == "global" else tns_bwd_kslice(n, d)
-    if table == "shared" and kslice == 0:
-        raise ValueError(f"n = {n} nodes do not fit the backward's "
-                         "shared-memory accumulator")
-    sms = kernels.sm_count(dev)
-    if kslice:  # one block per SM (the accumulator fills its shared memory)
-        groups = max(1, min(n_chunks, sms // (d // kslice)))
-    else:  # two 1,024-thread blocks per SM
-        groups = max(1, min(n_chunks, 2 * sms))
-    # scratch freed on return while the kernel may still run: the caching
-    # allocator reuses it only for later work on this same stream
-    f32 = dict(dtype=torch.float32, device=dev)
-    part = torch.empty((groups if kslice else 0, n, d), **f32)
-    dx = torch.empty((n, d), **f32)
-    kernels.launch(TNS, "tip_tns_bwd", "ppppiiiiiipp", dpt, src2d, dst2d,
-                   chunk_type, n_chunks, chunk, n, d, kslice, groups, part, dx,
-                   device=dev)
+    if n_chunks == 0:
+        return torch.zeros((n, d), dtype=torch.float32, device=dev)
+    dx = torch.empty((n, d), dtype=torch.float32, device=dev)
+    ks = _pow2_slice(d)
+    warps, groups = _tns_plan(0, ks, d, n_chunks, dev)
+    counters = torch.empty(d // ks, dtype=torch.int32, device=dev)
+    kernels.launch(TNS, "tip_tns_bwd", "ppppiiiiiiipp", dpt, src2d, dst2d,
+                   chunk_type, n_chunks, chunk, n, d, ks, warps, groups,
+                   counters, dx, device=dev)
     return dx
+
+
+def typed_csr(src2d, dst2d, chunk_type, n: int, n_et: int,
+              transpose: bool = False):
+    """The typed adjacency of the chunk buffers as one CSR matrix: A [n_et
+    * n, n] with a 1 at (t * n + dst, src) for each edge, or with
+    ``transpose`` A^T [n, n_et * n].  ``torch.sparse.mm(A, x)`` is the
+    forward's P^T as [n_et * n, d] (P^T transposed), and
+    ``torch.sparse.mm(A^T, dP)`` with dP^T transposed to [n_et * n, d] is
+    the backward: the one-library-call yardstick that chip_smoke.py times
+    beside kernel B4 (the port never calls it)."""
+    valid = dst2d < n
+    rows = (chunk_type.long()[:, None] * n + dst2d.long())[valid]
+    cols = src2d.long()[valid]
+    shape = (n_et * n, n)
+    if transpose:
+        order = torch.argsort(cols, stable=True)
+        rows, cols, shape = cols[order], rows[order], (n, n_et * n)
+    crow = torch.zeros(shape[0] + 1, dtype=torch.int64, device=rows.device)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=shape[0]), 0)
+    return torch.sparse_csr_tensor(
+        crow, cols, torch.ones(cols.shape, dtype=torch.float32,
+                               device=cols.device), shape)
 
 
 def _tns_fwd(x, src2d, dst2d, chunk_type, n_et):
