@@ -15,7 +15,8 @@ Phases, each fatal on failure:
      proteins, 1,097 relations), pack it in both layouts, and hold each
      kernel against its plain PyTorch version (KERNEL_CHECKS: B1 on the
      dense strips, B2 on the full float32 and bf16 pages and B3 on DR-NN's
-     uint8, bf16 and float32 pages, the dense paths' shapes; B4-B10 on the
+     uint8, bf16 and float32 pages, the dense paths' shapes, B2 and B3
+     also on float32 pages holding counts past 256; B4-B10 on the
      chunked buffers, B6 and B7 also against B8 and B9);
   5. the dense TIP paths: train TIP-cat at full width for a few Adam steps
      on the Decagon-shaped graph through tip_tpu_torch.train.loop.train,
@@ -23,7 +24,9 @@ Phases, each fatal on failure:
      before and read just after; then profile a few more steps (device
      time by kernel, idle share).  "tip dense" on the strips (B1), "tip
      pages" with float32 matmuls pinned (train(..., matmul_precision=
-     "highest")), which takes the float32 full pages (B2), "tip strips
+     "highest")), which takes the float32 full pages (B2), "tip pages
+     bf16" on the same graph with one count past 127 (with_heavy_pair),
+     which takes the bf16 pages (B2; unprofiled), "tip strips
      sampled" with sampled negatives on the strips (B10, B8; unprofiled),
      and "tip-nn dense", TIP-cat with the NN decoder: the strips for the
      encoder, the chunk buffers for its sampled loss (B10, B9);
@@ -201,6 +204,46 @@ def dense_bce_oracle(w, z, da, mode: str):
     return distmult_bce_oracle(w, z, da, lambda dac: 3.0 * (dac == 0))
 
 
+def tensor_core_bound(nbytes: float, cells: int, d: int) -> dict:
+    """The bound of a DistMult dense loss kernel (B1, B2) that runs the
+    three d-long dots of a cell (6 d flops) on the tensor cores as 3xTF32
+    (three TF32 products each) and ~20 elementwise float operations a cell
+    on the SIMT units, which overlap: the least time is the largest of the
+    tensor-core, SIMT and bytes times.  ``bound_simt_ms`` is the bound with
+    every operation on the SIMT units (6 d + 20 a cell), which a kernel on
+    the tensor cores can beat."""
+    dot_flops, elem_flops = cells * 6 * d, cells * 20
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_tensor = 3 * dot_flops / PEAK_TF32_FLOP_PER_S
+    t_simt = elem_flops / PEAK_F32_FLOP_PER_S
+    t_ops = max(t_tensor, t_simt)
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_tensor_ms=1e3 * t_tensor,
+                bound_elementwise_ms=1e3 * t_simt,
+                bound_bytes_ms=1e3 * t_bytes,
+                bound_simt_ms=1e3 * max(t_bytes, (dot_flops + elem_flops)
+                                        / PEAK_F32_FLOP_PER_S),
+                cells=cells, bytes=int(nbytes), flops=dot_flops + elem_flops,
+                library_ms=None)
+
+
+def check_nan_reaches_loss(call, x, what: str) -> None:
+    """A NaN in one element of the input x (the middle one, on a real row)
+    makes the loss NaN, fused and value-only, as it does in the plain
+    versions: the training loop stops on a non-finite loss.  ``call(x,
+    grads)`` launches the kernel."""
+    import math
+
+    xn = x.clone()
+    xn.view(-1)[x.numel() // 2] = float("nan")
+    for grads in (True, False):
+        out = call(xn, grads)
+        loss = float(out[0] if grads else out)
+        check(math.isnan(loss), f"{what}: a NaN input element gave the loss "
+              f"{loss!r} (grads {grads})")
+
+
 def check_dense_bce_sym_widths(dev) -> list:
     """B1's other feature widths (d = 8, 32) and strip counts (nb = 1, 2, 3)
     against the plain version on small random symmetric pages, with the
@@ -272,6 +315,8 @@ def check_dense_bce_sym(graph, gs, data, dev, timed: bool = True) -> dict:
     val_only = bce.dense_bce_sym_cuda(w, z, pages, q8, seed, False)
     check(float(val_only) == float(loss_k),
           f"B1 value-only {float(val_only)!r} != fused {float(loss_k)!r}")
+    check_nan_reaches_loss(lambda zz, gr: bce.dense_bce_sym_cuda(
+        w, zz, pages, q8, seed, gr), z, "B1 z")
     rep["other_shapes"] = check_dense_bce_sym_widths(dev)
 
     # deterministic modes against the float64 oracle
@@ -309,38 +354,21 @@ def check_dense_bce_sym(graph, gs, data, dev, timed: bool = True) -> dict:
         w, z, pages, q8, seed, True), reps=3, warmup=1)
 
     # bound: each input read once, each output written once; operations
-    # over the cells this graph needs (those inside n x n).  The kernel runs
-    # the three d-long dots on the tensor cores as 3xTF32 (three TF32
-    # products each) and ~20 elementwise float operations a cell on the
-    # SIMT units, which overlap: the least time is the largest of the
-    # tensor-core, SIMT and bytes times.  bound_simt_ms is the bound with
-    # every operation on the SIMT units (6 d + 20 a cell), which a kernel
-    # on the tensor cores can beat.
+    # over the cells this graph needs (those inside n x n)
     nb = -(-n // 128)
     cells = sum(min(128, n - i * 128) * (n - i * 128) for i in range(nb)) * n_et
-    dot_flops, elem_flops = cells * 6 * d, cells * 20
-    nbytes = (pages.numel() + 4 * (w.numel() + z.numel() + q8.numel())
-              + 4 * (1 + w.numel() + z.numel()))
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_tensor = 3 * dot_flops / PEAK_TF32_FLOP_PER_S
-    t_simt = elem_flops / PEAK_F32_FLOP_PER_S
-    t_ops = max(t_tensor, t_simt)
-    rep.update(bound_ms=1e3 * max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
-               bound_tensor_ms=1e3 * t_tensor, bound_elementwise_ms=1e3 * t_simt,
-               bound_bytes_ms=1e3 * t_bytes,
-               bound_simt_ms=1e3 * max(t_bytes, (dot_flops + elem_flops)
-                                       / PEAK_F32_FLOP_PER_S),
-               cells=cells, bytes=nbytes, flops=dot_flops + elem_flops,
-               library_ms=None)
+    rep.update(tensor_core_bound(
+        pages.numel() + 4 * (w.numel() + z.numel() + q8.numel())
+        + 4 * (1 + w.numel() + z.numel()), cells, d))
     return rep
 
 
 def check_dense_bce_shapes(dev) -> list:
     """B2 against its plain version on small random pages in both page
     dtypes, at its other feature widths and with ragged tiles (n = 100: one
-    partial tile; n = 1,000: eight tiles a side, the last partial), with
-    the main check's tolerances."""
+    partial tile; n = 1,000: eight tiles a side, the last partial), and on
+    float32 pages holding counts past 256 (n = 645, Decagon's ragged
+    edge), with the main check's tolerances."""
     import numpy as np
     import torch
 
@@ -349,20 +377,25 @@ def check_dense_bce_shapes(dev) -> list:
 
     rng = np.random.default_rng(13)
     out = []
-    for d, n, r in ((8, 100, 5), (16, 1000, 3), (32, 300, 3)):
+    for d, n, r, past_256 in ((8, 100, 5, False), (16, 1000, 3, False),
+                              (32, 300, 3, False), (16, 645, 3, True)):
         da = rng.poisson(0.05, (r, n, n)).astype(np.uint16)
+        if past_256:  # counts only the float32 pages hold exactly
+            hot = rng.random(da.shape) < 0.01
+            da[hot] = rng.integers(257, 2000, int(hot.sum()))
         q = torch.from_numpy(
             rng.integers(0, 1 << 22, (r, 3)).astype(np.int32)).to(dev)
         w = torch.from_numpy(0.3 * rng.standard_normal((r, d))).float().to(dev)
         z = torch.from_numpy(0.5 * rng.standard_normal((n, d))).float().to(dev)
-        for dtype in ("float32", "bfloat16"):
+        for dtype in ("float32",) if past_256 else ("float32", "bfloat16"):
             pages = pages_tensor(da, dtype, dev)
             lk, dwk, dzk = bce.dense_bce_cuda(w, z, pages, q, 5, True)
             lp, dwp, dzp = bce.dense_bce_plain(w, z, pages, q, 5, True)
             vk = bce.dense_bce_cuda(w, z, pages, q, 5, False)
             rel = abs(float(lk) - float(lp)) / abs(float(lp))
             errs = _frac_errs((dwk, dzk), (dwp, dzp))
-            shape = f"d={d} n={n} R={r} {dtype}"
+            shape = f"d={d} n={n} R={r} {dtype}" + (" past 256" if past_256
+                                                     else "")
             check(rel < 1e-5, f"B2 {shape} loss rel err {rel}")
             check(max(errs) <= 1e-3, f"B2 {shape} grads {errs}")
             check(float(vk) == float(lk), f"B2 {shape} value-only != fused")
@@ -415,6 +448,8 @@ def check_dense_bce(graph, gs, data, dev, timed: bool = True) -> dict:
         again = bce.dense_bce_cuda(w, z, pages, q, seed, True)
         check(all(torch.equal(a, b) for a, b in zip(again, (loss_k, dw_k, dz_k))),
               f"B2 {dtype} is not deterministic")
+        check_nan_reaches_loss(lambda zz, gr: bce.dense_bce_cuda(
+            w, zz, pages, q, seed, gr), z, f"B2 {dtype} z")
         # deterministic modes against the float64 oracle
         for mode, qv in (("positives_only", 0), ("saturated", 1 << 24)):
             lk, dwk, dzk = bce.dense_bce_cuda(w, z, pages, torch.full_like(q, qv),
@@ -441,12 +476,11 @@ def check_dense_bce(graph, gs, data, dev, timed: bool = True) -> dict:
                 w, z, pages, q, seed, False), reps=20, primed=True)
             r["plain_ms"] = cuda_ms(lambda: bce.dense_bce_plain(
                 w, z, pages, q, seed, True), reps=3, warmup=1)
-            # bound: each input read once, each output written once; three
-            # d-long dots and ~20 elementwise float operations a cell
-            cells = n_et * n * n
-            r.update(bound(nbytes(pages, w, z, q) + 4 * (1 + w.numel() + z.numel()),
-                           cells * (6 * d + 20)))
-            r["cells"] = cells
+            # bound: each input read once, each output written once; the
+            # three dots of every cell of the pages on the tensor cores
+            r.update(tensor_core_bound(
+                nbytes(pages, w, z, q) + 4 * (1 + w.numel() + z.numel()),
+                n_et * n * n, d))
         rep[dtype] = r
         del pages
         torch.cuda.empty_cache()
@@ -824,17 +858,26 @@ def _frac_errs(got, want) -> list:
 def check_dense_bce_nn_shapes(dev) -> list:
     """B3 against its plain version on small random pages whose row tiles
     and column strips are ragged (n = 100: one partial tile; n = 1,000: two
-    column strips of the kernel), with the main check's tolerances."""
+    column strips of the kernel), and on float32 pages holding counts past
+    256 (n = 645, Decagon's ragged edge), with the main check's
+    tolerances."""
     import numpy as np
     import torch
 
     from tip_tpu_torch.ops import dense_bce_nn as bce
+    from tip_tpu_torch.train.model import pages_tensor
 
     rng = np.random.default_rng(12)
     out = []
-    for n, r in ((100, 5), (1000, 3)):
-        pages = torch.from_numpy(
-            (rng.random((r, n, n)) < 0.05).astype(np.uint8)).to(dev)
+    for n, r, dtype in ((100, 5, "uint8"), (1000, 3, "uint8"),
+                        (645, 3, "float32")):
+        da = (rng.random((r, n, n)) < 0.05).astype(np.uint16)
+        if dtype == "float32":  # counts only the float32 pages hold exactly
+            hot = rng.random(da.shape) < 0.01
+            da[hot] = rng.integers(257, 2000, int(hot.sum()))
+            pages = pages_tensor(da, dtype, dev)
+        else:
+            pages = torch.from_numpy(da.astype(np.uint8)).to(dev)
         q = torch.from_numpy(
             rng.integers(0, 1 << 22, (r, 3)).astype(np.int32)).to(dev)
         args = [torch.from_numpy(a).float().to(dev) for a in (
@@ -846,10 +889,11 @@ def check_dense_bce_nn_shapes(dev) -> list:
         vk = bce.dense_bce_nn_cuda(*args, pages, q, 5, False)
         rel = abs(float(lk) - float(lp)) / abs(float(lp))
         errs = _frac_errs(gk, gp)
-        check(rel < 1e-5, f"B3 n={n} R={r} loss rel err {rel}")
-        check(max(errs) <= 1e-3, f"B3 n={n} R={r} grads {errs}")
-        check(float(vk) == float(lk), f"B3 n={n} R={r} value-only != fused")
-        out.append({"shape": f"n={n} R={r}", "loss_rel_err": rel,
+        shape = f"n={n} R={r} {dtype}"
+        check(rel < 1e-5, f"B3 {shape} loss rel err {rel}")
+        check(max(errs) <= 1e-3, f"B3 {shape} grads {errs}")
+        check(float(vk) == float(lk), f"B3 {shape} value-only != fused")
+        out.append({"shape": shape, "loss_rel_err": rel,
                     "grad_err_frac": errs})
     return out
 
@@ -899,6 +943,8 @@ def check_dense_bce_nn(graph, gs, data, dev, timed: bool = True) -> dict:
           f"B3 value-only {float(val_only)!r} != fused {float(loss_k)!r}")
     check(torch.equal(bce.dense_bce_nn_cuda(*args, pages, q, seed, True)[1],
                       grads_k[0]), "B3 is not deterministic")
+    check_nan_reaches_loss(lambda h1, gr: bce.dense_bce_nn_cuda(
+        args[0], args[1], h1, args[3], pages, q, seed, gr), args[2], "B3 h1")
     rep["other_shapes"] = check_dense_bce_nn_shapes(dev)
 
     # deterministic modes against the float64 oracle
@@ -1364,7 +1410,8 @@ def graph_summary(data, build_sec: float) -> dict:
 def expected_launches(path: str, steps: int, eval_rank: bool = True) -> dict:
     """Launches of each kernel in ``steps`` training steps plus the final
     eval, per path (a sharded path's: one rank's; ``eval_rank`` False
-    leaves the eval out, which rank 0 alone runs).  TIP dense: B1 once a step.  TIP pages: B2 once a step.
+    leaves the eval out, which rank 0 alone runs).  TIP dense: B1 once a
+    step.  TIP pages, on the float32 or the bf16 pages: B2 once a step.
     TIP strips sampled: B10 once and B8 twice (the negatives' forward and
     backward; the positives are scored over the full pages in PyTorch).
     TIP chunked: B10 once, B8 twice forward (positives, negatives) and
@@ -1395,6 +1442,7 @@ def expected_launches(path: str, steps: int, eval_rank: bool = True) -> dict:
     return {
         "tip dense": {"dense_bce_sym": steps},
         "tip pages": {"dense_bce": steps},
+        "tip pages bf16": {"dense_bce": steps},
         "tip strips sampled": {"typed_neg_sampler": steps,
                                "distmult_sddmm": 2 * steps},
         "tip chunked": {"typed_neg_sampler": steps, "distmult_sddmm": 4 * steps,
@@ -1450,6 +1498,22 @@ def train_line(fields: dict, result, launches, peak: int) -> str:
 
 
 DD_DENSE_KEYS = ("dd_adj_sym", "dd_adj_t", "dd_adj_u8")
+
+
+def with_heavy_pair(raw, copies: int = 200):
+    """The raw graph with ``copies`` more copies of relation 0's first pair.
+    ~180 of them land in the train split: a D-D count past int8's 127,
+    within bf16's exact 256, so train() cannot build the strips and takes
+    the bf16 pages (kernel B2's bf16 instantiation), as it does for any
+    graph whose counts pass 127."""
+    import dataclasses
+
+    import numpy as np
+
+    pairs = raw.dd_pair_list[0]
+    heavy = np.concatenate([pairs, np.repeat(pairs[:, :1], copies, 1)], 1)
+    return dataclasses.replace(raw, dd_pair_list=[heavy,
+                                                  *raw.dd_pair_list[1:]])
 
 
 def run_path(path: str, data, dev, steps: int, dense_dtype,
@@ -1922,6 +1986,15 @@ def main() -> int:
     # float32 matmuls pinned: train() and the runner take the float32 pages
     launches["tip pages"] = run_path("tip pages", data, dev, TRAIN_STEPS,
                                      "float32", matmul_precision="highest")
+    # a count past 127: train() takes the bf16 pages
+    t0 = time.time()
+    heavy = build_trigraph(with_heavy_pair(synthetic_trigraph(**DECAGON_SHAPE)),
+                           0.9, 1111)
+    print("graph:", json.dumps(graph_summary(heavy, time.time() - t0)))
+    launches["tip pages bf16"] = run_path("tip pages bf16", heavy, dev,
+                                          OTHER_STEPS, "bfloat16",
+                                          profiled=False)
+    del heavy
     launches["tip strips sampled"] = run_path(
         "tip strips sampled", data, dev, OTHER_STEPS, "bfloat16",
         negatives="sampled", profiled=False)

@@ -20,6 +20,10 @@ from jax.experimental.pallas import tpu as pltpu
 from tip_tpu.data import build_trigraph, synthetic_trigraph
 from tip_tpu.data.packing import dense_relation_adj
 from tip_tpu.ops.pallas_dense_bce import dense_bce_sum
+from tests.torch_tile_math import (
+    JAX_ULPS, PLAIN_ULPS, assert_within_sum_bound, mma, softplus_sigmoid,
+    split, tf32,
+)
 from tip_tpu_torch import kernels
 from tip_tpu_torch.data.packing import poisson_neg_thresholds
 from tip_tpu_torch.ops import dense_bce as port
@@ -53,6 +57,11 @@ def _torch_value_and_grads(w, z, pages, q, seed, u24=None):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_plain_u24_zero_matches_jax_interpret_kernel(setup, dtype):
+    """The port's plain version and the JAX kernel (interpret mode) under
+    u24 = 0, each against the float64 oracle and against each other,
+    within a few float32 roundings of the sum of each result's absolute
+    terms (tests/torch_tile_math.py: PLAIN_ULPS for the plain version,
+    JAX_ULPS where the JAX kernel takes part), on both page dtypes."""
     data, da, _, w, z = setup
     q = np.zeros((data.n_et, 3), np.int32)
     for t, c in enumerate([0, 1, 2, 3, 1, 2]):  # count #{k: q_k > 0}
@@ -72,17 +81,27 @@ def test_plain_u24_zero_matches_jax_interpret_kernel(setup, dtype):
     with pltpu.force_tpu_interpret_mode():
         jval, (jdw, jdz) = jax.block_until_ready(
             value_and_grad(jnp.asarray(w), jnp.asarray(z)))
-    val, dw, dz = _torch_value_and_grads(
+    port_out = _torch_value_and_grads(
         w, z, pages_tensor(da, dtype), q, seed=3,
         u24=torch.zeros((), dtype=torch.int64))
-    # f32 sums in another order: the repo's own kernel tolerances
-    np.testing.assert_allclose(val, float(jval), rtol=1e-5)
-    np.testing.assert_allclose(dw, np.asarray(jdw), rtol=2e-4, atol=1e-5)
-    np.testing.assert_allclose(dz, np.asarray(jdz), rtol=2e-4, atol=1e-5)
+    jax_out = (float(jval), np.asarray(jdw), np.asarray(jdz))
+    dan = da.astype(np.float64)
+    cnt = (q > 0).sum(1)[:, None, None] * (dan == 0)
+    oracle, sabs = _oracle(w, z, dan, cnt, abs_sums=True)
+    for name, got, want, exact, s in zip(("value", "dw", "dz"), port_out,
+                                         jax_out, oracle, sabs):
+        assert_within_sum_bound(got, exact, s, f"port {name} vs float64",
+                                PLAIN_ULPS)
+        assert_within_sum_bound(want, exact, s, f"JAX {name} vs float64",
+                                JAX_ULPS)
+        assert_within_sum_bound(got, want, s, f"port {name} vs JAX",
+                                JAX_ULPS)
 
 
-def _oracle(w, z, da, cnt):
-    """float64 value and grads of the estimator for a fixed count field."""
+def _oracle(w, z, da, cnt, abs_sums: bool = False):
+    """float64 value and grads of the estimator for a fixed count field;
+    with ``abs_sums`` also the sums of the absolute values of the terms of
+    each."""
     wn, zn = np.asarray(w, np.float64), np.asarray(z, np.float64)
     L = np.einsum("nf,tf,mf->tnm", zn, wn, zn)
     sp = np.logaddexp(0.0, -L)
@@ -91,7 +110,14 @@ def _oracle(w, z, da, cnt):
     dw = np.einsum("tnm,nf,mf->tf", g, zn, zn)
     dz = (np.einsum("tf,tnm,mf->nf", wn, g, zn)
           + np.einsum("tf,tnm,nf->mf", wn, g, zn))
-    return val, dw, dz
+    if not abs_sums:
+        return val, dw, dz
+    ga, za, wa = np.abs(g), np.abs(zn), np.abs(wn)
+    sval = (np.abs(sp * da) + np.abs((sp + L) * cnt)).sum()
+    sdw = np.einsum("tnm,nf,mf->tf", ga, za, za)
+    sdz = (np.einsum("tf,tnm,mf->nf", wa, ga, za)
+           + np.einsum("tf,tnm,nf->mf", wa, ga, za))
+    return (val, dw, dz), (sval, sdw, sdz)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -162,7 +188,7 @@ def test_value_only_equals_fused_and_cpu_wrapper_launches_nothing(setup):
 
 
 @pytest.mark.parametrize("bad", ["page_dtype", "dtype", "contiguous", "width",
-                                 "shape", "square", "q"])
+                                 "shape", "square", "q", "aligned"])
 def test_cuda_argument_checks(setup, bad):
     """The checks the CUDA wrapper runs before it hands pointers to the
     kernel (they need no card)."""
@@ -184,7 +210,138 @@ def test_cuda_argument_checks(setup, bad):
         kw["w"] = kw["w"][:-1].contiguous()
     elif bad == "square":
         kw["pages"] = kw["pages"][:, :-1].contiguous()
+    elif bad == "aligned":  # the kernel stages page rows by 16-byte chunks
+        flat = torch.empty(da.size + 1, dtype=torch.float32)[1:]
+        kw["pages"] = flat.view(da.shape).copy_(kw["pages"])
     else:
         kw["q"] = kw["q"][:, :2].contiguous()
     with pytest.raises(ValueError):
         port._check_cuda_args(**kw)
+
+
+@pytest.mark.parametrize("d", [8, 16, 32])
+def test_3xtf32_contractions_of_a_full_page_tile_hold_the_kernel_tolerances(d):
+    """CPU evidence for the tensor-core design of csrc/dense_bce.cu: a full,
+    non-symmetric 128 x 128 tile (z_I and z_J distinct rows) with float32
+    page counts past 256, at the magnitudes chip_smoke.py checks B2 with
+    (z ~ 0.5 N(0, 1), w ~ 0.3 N(0, 1)).  The logits (z_I w_t) z_J^T and
+    the gradient contractions G z_J and G^T z_I as 3xTF32 products stay
+    ~100 times inside the tolerances the kernel is held to on the card
+    (loss 1e-5 relative, dw and dz 1e-3 of their max) against float64;
+    one TF32 product keeps only ~3 digits of each contraction."""
+    rng = np.random.default_rng(100 + d)
+    zi = (0.5 * rng.standard_normal((128, d))).astype(np.float32)
+    zj = (0.5 * rng.standard_normal((128, d))).astype(np.float32)
+    w = (0.3 * rng.standard_normal(d)).astype(np.float32)
+    da = rng.poisson(0.05, (128, 128)).astype(np.float64)
+    hot = rng.random((128, 128)) < 0.01  # counts past bf16's exact range
+    da[hot] = rng.integers(257, 2000, int(hot.sum()))
+    cnt = np.where(da > 0, 0.0, rng.integers(0, 4, (128, 128)))
+    a = zi * w
+    l64 = a.astype(np.float64) @ zj.T.astype(np.float64)
+
+    def loss_and_g(logits):
+        sp = np.logaddexp(0.0, -logits)
+        g = cnt - (da + cnt) / (1.0 + np.exp(logits))
+        return (sp * da + (sp + logits) * cnt).sum(), g
+
+    loss64, g64 = loss_and_g(l64)
+    g = g64.astype(np.float32)
+    hi64 = g64 @ zj.astype(np.float64)
+    hj64 = g64.T @ zi.astype(np.float64)
+    errs = {}
+    for passes in (3, 1):
+        logits = mma(a, np.ascontiguousarray(zj.T), passes)
+        loss, _ = loss_and_g(logits.astype(np.float64))
+        errs[passes] = (
+            np.abs(logits - l64).max() / np.abs(l64).max(),
+            abs(loss - loss64) / abs(loss64),
+            np.abs(mma(g, zj, passes) - hi64).max() / np.abs(hi64).max(),
+            np.abs(mma(np.ascontiguousarray(g.T), zi, passes) - hj64).max()
+            / np.abs(hj64).max())
+    logit3, loss3, gzj3, gtzi3 = errs[3]
+    assert logit3 < 1e-6 and loss3 < 1e-7
+    assert gzj3 < 1e-5 and gtzi3 < 1e-5
+    # one TF32 product: errors of a few 1e-4 of the largest magnitude
+    assert min(errs[1][0], errs[1][2], errs[1][3]) > 100 * max(logit3, gzj3, gtzi3)
+
+
+@pytest.mark.parametrize("signs", [(0, 0, 0), (1, 1, 1), (-1, -1, -1),
+                                   (1, -1, 1), (-1, 1, -1)])
+def test_one_exponential_cell_holds_the_kernel_tolerances(signs):
+    """The cell of B1, B2 and B3 (tile_math.cuh: softplus_neg, sigmoid_neg)
+    computes softplus(-x) and sigmoid(-x) from one exponential with the
+    card's approximate ex2 and lg2 and __fdividef.  Emulated in float32,
+    each approximation moved by ``signs`` times its worst-case error, over
+    logits in [-40, 40] (the checks' logits stay within +-15) against
+    float64: softplus within 5e-7 + 2^-23 |x| and sigmoid within 5e-7 a
+    cell, and on a page of counts (past 256 too) the loss within 1e-6
+    relative and G within 1e-6 of its largest magnitude, against the 1e-5
+    and 1e-3 the kernels are held to on the card."""
+    rng = np.random.default_rng(7)
+    x = np.concatenate([np.linspace(-40.0, 40.0, 40001),
+                        3.0 * rng.standard_normal(40000)]).astype(np.float32)
+    sp, sg = softplus_sigmoid(x, *signs)
+    x64 = x.astype(np.float64)
+    sp64 = np.logaddexp(0.0, -x64)
+    sg64 = 1.0 / (1.0 + np.exp(x64))
+    assert np.all(np.abs(sp - sp64) <= 5e-7 + 2.0**-23 * np.abs(x64))
+    assert np.all(np.abs(sg - sg64) <= 5e-7)
+    da = rng.poisson(0.05, x.shape).astype(np.float64)
+    da[rng.random(x.shape) < 1e-3] = 300.0
+    cnt = np.where(da > 0, 0.0, rng.integers(0, 4, x.shape))
+    # the kernels' per-cell float32 terms, summed exactly
+    f = np.float32
+    terms = (sp * f(1) * da.astype(f) + (sp + x) * cnt.astype(f)).astype(f)
+    loss64 = (sp64 * da + (sp64 + x64) * cnt).sum()
+    assert abs(terms.astype(np.float64).sum() - loss64) < 1e-6 * loss64
+    g = (cnt.astype(f) - sg * (da.astype(f) + cnt.astype(f))).astype(f)
+    g64 = cnt - sg64 * (da + cnt)
+    assert np.abs(g - g64).max() < 1e-6 * np.abs(g64).max()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_a_nan_in_z_reaches_the_loss(setup, dtype):
+    """A NaN in one element of z makes the plain version's loss NaN, as in
+    the JAX package; chip_smoke.py holds the kernel to the same (the
+    training loop stops on a non-finite loss)."""
+    _, da, q, w, z = setup
+    z = z.copy()
+    z[75, 3] = np.nan
+    loss, _, _ = _torch_value_and_grads(w, z, pages_tensor(da, dtype, "cpu"),
+                                        q, seed=5)
+    assert np.isnan(loss)
+
+
+# NaN bit patterns: the one float32 arithmetic produces on x86 (0xffc00000)
+# and on the card (0x7fffffff), and others with high or low mantissa bits
+NAN_BITS = [0x7FFFFFFF, 0xFFFFFFFF, 0x7FC00000, 0xFFC00000, 0x7F800001]
+
+
+@pytest.mark.parametrize("part", ["tf32", "mma", "cell"])
+def test_a_nan_operand_stays_nan_in_the_kernel_arithmetic(part):
+    """The arithmetic of B1 and B2 (tile_math.cuh, emulated) carries a NaN
+    operand to the loss: tf32 and split keep every NaN a NaN (and an
+    infinity infinite), a NaN in one element of a 3xTF32 product's operand
+    makes that row of the product NaN and leaves the rest finite, and the
+    one-exponential cell gives NaN softplus, sigmoid and loss terms, also
+    where the cell's weights are 0."""
+    if part == "tf32":
+        x = np.array(NAN_BITS, np.uint32).view(np.float32)
+        with np.errstate(invalid="ignore"):
+            hi, _ = split(x)
+        assert np.isnan(tf32(x)).all() and np.isnan(hi).all()
+        assert np.isinf(tf32(np.float32([np.inf, -np.inf]))).all()
+    elif part == "mma":
+        rng = np.random.default_rng(1)
+        a = rng.standard_normal((16, 16)).astype(np.float32)
+        b = rng.standard_normal((16, 8)).astype(np.float32)
+        a[5, 9] = np.uint32(0x7FFFFFFF).view(np.float32)
+        out = mma(a, b, 3)
+        assert np.isnan(out[5]).all()
+        assert np.isfinite(np.delete(out, 5, axis=0)).all()
+    else:
+        sp, sg = softplus_sigmoid(np.float32([np.nan]))
+        assert np.isnan(sp).all() and np.isnan(sg).all()
+        for pos, cnt in ((0.0, 0.0), (1.0, 0.0), (0.0, 3.0)):
+            assert np.isnan(sp * pos + (sp + np.float32(np.nan)) * cnt).all()

@@ -23,6 +23,9 @@ from jax.experimental.pallas import tpu as pltpu
 from tip_tpu.data import build_trigraph, synthetic_trigraph
 from tip_tpu.data.packing import dense_relation_adj, pad_dense_adj
 from tip_tpu.ops.pallas_dense_bce_nn import dense_bce_nn_sum
+from tests.torch_tile_math import (
+    JAX_ULPS, PLAIN_ULPS_NN, assert_within_sum_bound,
+)
 from tip_tpu_torch import kernels
 from tip_tpu_torch.data.packing import cast_dense_adj, poisson_neg_thresholds
 from tip_tpu_torch.ops import dense_bce_nn as port
@@ -54,6 +57,28 @@ def _torch_value_and_grads(args, pages, q, seed, u24=None):
     return loss.item(), [t.grad.numpy() for t in ts]
 
 
+def _check_u24_zero(port_out, jax_out, args, da, q):
+    """The port's plain version and the JAX kernel under u24 = 0, each
+    against the float64 oracle and against each other, within a few
+    float32 roundings of the sum of each result's absolute terms
+    (tests/torch_tile_math.py: PLAIN_ULPS_NN for the plain version,
+    JAX_ULPS where the JAX kernel takes part): with u24 = 0 every
+    non-positive cell counts, so dh sums ~n * R terms of O(1) that cancel
+    to small entries."""
+    dan = np.asarray(da, np.float64)
+    cnt = (q > 0).sum(1)[:, None, None] * (dan == 0)
+    oracle, sabs = _oracle(args, dan, cnt, abs_sums=True)
+    names = ("value", "dw1", "dw2", "dh1", "dh2")
+    for name, got, want, exact, s in zip(names, port_out, jax_out, oracle,
+                                         sabs):
+        assert_within_sum_bound(got, exact, s, f"port {name} vs float64",
+                                PLAIN_ULPS_NN)
+        assert_within_sum_bound(want, exact, s, f"JAX {name} vs float64",
+                                JAX_ULPS)
+        assert_within_sum_bound(got, want, s, f"port {name} vs JAX",
+                                JAX_ULPS)
+
+
 def test_plain_u24_zero_matches_jax_interpret_kernel(setup):
     data, da, pages, _, args = setup
     # per-relation counts #{k: q_k > 0}, every value 0..3
@@ -68,24 +93,27 @@ def test_plain_u24_zero_matches_jax_interpret_kernel(setup):
             tuple(map(jnp.asarray, args)))
     val, grads = _torch_value_and_grads(args, pages, q, seed=3,
                                         u24=torch.zeros((), dtype=torch.int64))
-    # f32 sums over the n x R cells in another order.  With u24 = 0 every
-    # non-positive cell counts, so dh sums ~n * R terms of O(1) and cancels
-    # to small entries: atol is f32 rounding of the largest magnitude.
-    np.testing.assert_allclose(val, float(jval), rtol=1e-5)
-    for got, want in zip(grads, map(np.asarray, jgrads)):
-        np.testing.assert_allclose(got, want, rtol=2e-4,
-                                   atol=max(1e-5, 1e-6 * np.abs(want).max()))
+    _check_u24_zero((val, *grads), (float(jval), *map(np.asarray, jgrads)),
+                    args, da, q)
 
 
-def _oracle(args, da, cnt):
-    """float64 value and grads of the estimator for a fixed count field."""
+def _oracle(args, da, cnt, abs_sums: bool = False):
+    """float64 value and grads of the estimator for a fixed count field;
+    with ``abs_sums`` also the sums of the absolute values of the terms of
+    each."""
     w1, w2, h1, h2 = (np.asarray(a, np.float64) for a in args)
     L = (h2 @ w2.T).T[:, :, None] + (h1 @ w1.T).T[:, None, :]  # [R, i, j]
     sp = np.logaddexp(0.0, -L)
     val = (sp * da + (sp + L) * cnt).sum()
     g = cnt - (da + cnt) / (1.0 + np.exp(L))
     r, c = g.sum(2), g.sum(1)
-    return val, [c @ h1, r @ h2, c.T @ w1, r.T @ w2]
+    grads = [c @ h1, r @ h2, c.T @ w1, r.T @ w2]
+    if not abs_sums:
+        return val, grads
+    ra, ca = np.abs(g).sum(2), np.abs(g).sum(1)
+    sval = (np.abs(sp * da) + np.abs((sp + L) * cnt)).sum()
+    return (val, *grads), (sval, ca @ np.abs(h1), ra @ np.abs(h2),
+                           ca.T @ np.abs(w1), ra.T @ np.abs(w2))
 
 
 @pytest.mark.parametrize("mode", ["positives_only", "saturated"])
@@ -125,6 +153,17 @@ def test_plain_hashed_field_mean_matches_expectation(setup):
         vals.mean(), expect, se)
 
 
+def test_a_nan_in_h_reaches_the_loss(setup):
+    """A NaN in one element of h1 makes the plain version's loss NaN, as in
+    the JAX package; chip_smoke.py holds the kernel to the same (the
+    training loop stops on a non-finite loss)."""
+    _, _, pages, q, (w1, w2, h1, h2) = setup
+    h1 = h1.copy()
+    h1[75, 3] = np.nan
+    loss, _ = _torch_value_and_grads((w1, w2, h1, h2), pages, q, seed=5)
+    assert np.isnan(loss)
+
+
 def test_value_only_equals_fused_and_cpu_wrapper_launches_nothing(setup):
     _, _, pages, q, args = setup
     kernels.reset_launch_counts()
@@ -139,7 +178,7 @@ def test_value_only_equals_fused_and_cpu_wrapper_launches_nothing(setup):
 
 
 @pytest.mark.parametrize("bad", ["dtype", "contiguous", "width", "shape",
-                                 "square", "q"])
+                                 "square", "q", "aligned"])
 def test_cuda_argument_checks(setup, bad):
     """The checks the CUDA wrapper runs before it hands pointers to the
     kernel (they need no card)."""
@@ -158,6 +197,9 @@ def test_cuda_argument_checks(setup, bad):
         kw["w2"] = kw["w2"][:-1].contiguous()
     elif bad == "square":
         kw["pages"] = kw["pages"][:, :-1].contiguous()
+    elif bad == "aligned":  # the kernel stages page rows by 16-byte chunks
+        flat = torch.empty(pages.size + 1, dtype=torch.uint8)[1:]
+        kw["pages"] = flat.view(pages.shape).copy_(kw["pages"])
     else:
         kw["q"] = kw["q"][:, :2].contiguous()
     with pytest.raises(ValueError):
@@ -224,7 +266,5 @@ def test_plain_u24_zero_on_float32_pages_past_255_matches_jax(setup):
     loss = port.dense_bce_nn_sum(*ts, torch.from_numpy(da), torch.from_numpy(q),
                                  3, u24=torch.zeros((), dtype=torch.int64))
     loss.backward()
-    np.testing.assert_allclose(loss.item(), float(jval), rtol=1e-5)
-    for t, want in zip(ts, map(np.asarray, jgrads)):
-        np.testing.assert_allclose(t.grad.numpy(), want, rtol=2e-4,
-                                   atol=max(1e-5, 1e-6 * np.abs(want).max()))
+    _check_u24_zero((loss.item(), *(t.grad.numpy() for t in ts)),
+                    (float(jval), *map(np.asarray, jgrads)), args, da, q)

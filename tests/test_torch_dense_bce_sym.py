@@ -24,6 +24,9 @@ from tip_tpu.data.packing import (
     sym_strip_pack,
 )
 from tip_tpu.ops.pallas_dense_bce_sym import dense_bce_sym_sum
+from tests.torch_tile_math import (
+    JAX_ULPS, PLAIN_ULPS, assert_within_sum_bound, mma, split,
+)
 from tip_tpu_torch import kernels
 from tip_tpu_torch.ops import dense_bce_sym as port
 
@@ -52,8 +55,40 @@ def _torch_value_and_grads(w, z, pages, q8, seed, u24=None):
     return loss.item(), wt.grad.numpy(), zt.grad.numpy()
 
 
+def _oracle_u24_zero(w, z, da, q8):
+    """float64 value, dw and dz of the symmetric estimator under u24 = 0
+    on the full matrix, and the sums of the absolute values of the terms
+    of each: a cell counts #{k : q_k > 0} of its rate class, the
+    diagonal 128-blocks' single rate for themselves, the doubled rate of a
+    mirrored pair split evenly between its two cells."""
+    wn, zn, dan = (np.asarray(x, np.float64) for x in (w, z, da))
+    ii = np.arange(zn.shape[0])
+    same_block = (ii[:, None] // 128) == (ii[None, :] // 128)
+    cs = (q8[:, :4] > 0).sum(1)[:, None, None]
+    cd = (q8[:, 4:] > 0).sum(1)[:, None, None]
+    cnt = np.where(same_block, cs, cd / 2.0) * (dan == 0)
+    L = np.einsum("nf,tf,mf->tnm", zn, wn, zn)
+    sp = np.logaddexp(0.0, -L)
+    val = (sp * dan + (sp + L) * cnt).sum()
+    sval = (np.abs(sp * dan) + np.abs((sp + L) * cnt)).sum()
+    g = cnt - (dan + cnt) / (1.0 + np.exp(L))
+    dw = np.einsum("tnm,nf,mf->tf", g, zn, zn)
+    sdw = np.einsum("tnm,nf,mf->tf", np.abs(g), np.abs(zn), np.abs(zn))
+    dz = (np.einsum("tf,tnm,mf->nf", wn, g, zn)
+          + np.einsum("tf,tnm,nf->mf", wn, g, zn))
+    sdz = (np.einsum("tf,tnm,mf->nf", np.abs(wn), np.abs(g), np.abs(zn))
+           + np.einsum("tf,tnm,nf->mf", np.abs(wn), np.abs(g), np.abs(zn)))
+    return (val, dw, dz), (sval, sdw, sdz)
+
+
 def test_plain_u24_zero_matches_jax_interpret_kernel(setup):
-    data, _, pages, _, w, z = setup
+    """The port's plain version and the JAX kernel (interpret mode) under
+    u24 = 0, each against the float64 oracle and against each other,
+    within a few float32 roundings of the sum of each result's absolute
+    terms (tests/torch_tile_math.py: PLAIN_ULPS for the plain version,
+    JAX_ULPS where the JAX kernel takes part): the error of an f32 sum is
+    bounded relative to that sum, and dw's and dz's elements cancel."""
+    data, da, pages, _, w, z = setup
     # per-rate-class counts #{k: q_k > 0}, varied over relations
     q8 = np.zeros((data.n_et, 8), np.int32)
     for t, (cs, cd) in enumerate(zip([0, 1, 2, 3, 1], [1, 2, 0, 4, 3])):
@@ -74,12 +109,18 @@ def test_plain_u24_zero_matches_jax_interpret_kernel(setup):
     with pltpu.force_tpu_interpret_mode():
         jval, (jdw, jdz) = jax.block_until_ready(
             value_and_grad(jnp.asarray(w), jnp.asarray(z)))
-    val, dw, dz = _torch_value_and_grads(w, z, pages, q8, seed=5,
-                                         u24=torch.zeros((), dtype=torch.int64))
-    # f32 sums in another order: the repo's own kernel tolerances
-    np.testing.assert_allclose(val, float(jval), rtol=1e-5)
-    np.testing.assert_allclose(dw, np.asarray(jdw), rtol=2e-4, atol=1e-5)
-    np.testing.assert_allclose(dz, np.asarray(jdz), rtol=2e-4, atol=1e-5)
+    port_out = _torch_value_and_grads(w, z, pages, q8, seed=5,
+                                      u24=torch.zeros((), dtype=torch.int64))
+    jax_out = (float(jval), np.asarray(jdw), np.asarray(jdz))
+    oracle, sabs = _oracle_u24_zero(w, z, da, q8)
+    for name, got, want, exact, s in zip(("value", "dw", "dz"), port_out,
+                                         jax_out, oracle, sabs):
+        assert_within_sum_bound(got, exact, s, f"port {name} vs float64",
+                                PLAIN_ULPS)
+        assert_within_sum_bound(want, exact, s, f"JAX {name} vs float64",
+                                JAX_ULPS)
+        assert_within_sum_bound(got, want, s, f"port {name} vs JAX",
+                                JAX_ULPS)
 
 
 @pytest.mark.parametrize("mode", ["positives_only", "saturated"])
@@ -161,6 +202,17 @@ def test_mix32_matches_uint32_arithmetic():
     np.testing.assert_array_equal(got.numpy(), ref.astype(np.int64))
 
 
+def test_a_nan_in_z_reaches_the_loss(setup):
+    """A NaN in one element of z makes the plain version's loss NaN, as in
+    the JAX package; chip_smoke.py holds the kernel to the same (the
+    training loop stops on a non-finite loss)."""
+    _, _, pages, q8, w, z = setup
+    z = z.copy()
+    z[75, 3] = np.nan
+    loss, _, _ = _torch_value_and_grads(w, z, pages, q8, seed=5)
+    assert np.isnan(loss)
+
+
 def test_value_only_equals_fused_and_cpu_wrapper_launches_nothing(setup):
     _, _, pages, q8, w, z = setup
     kernels.reset_launch_counts()
@@ -205,32 +257,6 @@ def test_cuda_argument_checks(setup, bad):
         port._check_cuda_args(**args)
 
 
-def _tf32(x):
-    """cvt.rna.tf32.f32: float32 rounded to 10 mantissa bits, ties away
-    from zero (the low 13 bits cleared)."""
-    b = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
-    return ((b + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
-
-
-def _split(x):
-    hi = _tf32(x)
-    return hi, _tf32(np.asarray(x, np.float32) - hi)
-
-
-def _mma(a, b, passes: int):
-    """a @ b as the kernel's mma.sync m16n8k8 chain computes it: k-steps of
-    8, each adding its TF32 products (exact in float32) to a float32
-    accumulator; 3 passes (lo*hi, hi*lo, hi*hi: 3xTF32) or 1 (hi*hi)."""
-    (ah, al), (bh, bl) = _split(a), _split(b)
-    terms = [(al, bh), (ah, bl), (ah, bh)] if passes == 3 else [(ah, bh)]
-    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
-    for k in range(0, a.shape[1], 8):
-        for x, y in terms:
-            acc = (acc + x[:, k:k + 8].astype(np.float64)
-                   @ y[k:k + 8].astype(np.float64)).astype(np.float32)
-    return acc
-
-
 @pytest.mark.parametrize("d", [8, 16, 32])
 def test_3xtf32_contractions_hold_the_kernel_tolerances(d):
     """CPU evidence for the tensor-core design of csrc/dense_bce_sym.cu: a
@@ -244,7 +270,7 @@ def test_3xtf32_contractions_hold_the_kernel_tolerances(d):
     zi = (0.5 * rng.standard_normal((128, d))).astype(np.float32)
     zj = (0.5 * rng.standard_normal((128, d))).astype(np.float32)
     w = (0.3 * rng.standard_normal(d)).astype(np.float32)
-    hi, lo = _split(zi)
+    hi, lo = split(zi)
     assert not (hi.view(np.uint32) & 0x1FFF).any()
     assert np.abs(zi - (hi.astype(np.float64) + lo)).max() <= 2.0**-21 * np.abs(zi).max()
 
@@ -264,13 +290,13 @@ def test_3xtf32_contractions_hold_the_kernel_tolerances(d):
     hj64 = g64.T @ zi.astype(np.float64)
     errs = {}
     for passes in (3, 1):
-        logits = _mma(a, np.ascontiguousarray(zj.T), passes)
+        logits = mma(a, np.ascontiguousarray(zj.T), passes)
         loss, _ = loss_and_g(logits.astype(np.float64))
         errs[passes] = (
             np.abs(logits - l64).max() / np.abs(l64).max(),
             abs(loss - loss64) / abs(loss64),
-            np.abs(_mma(g, zj, passes) - hi64).max() / np.abs(hi64).max(),
-            np.abs(_mma(np.ascontiguousarray(g.T), zi, passes) - hj64).max()
+            np.abs(mma(g, zj, passes) - hi64).max() / np.abs(hi64).max(),
+            np.abs(mma(np.ascontiguousarray(g.T), zi, passes) - hj64).max()
             / np.abs(hj64).max())
     logit3, loss3, gzj3, gtzi3 = errs[3]
     assert logit3 < 1e-6 and loss3 < 1e-7

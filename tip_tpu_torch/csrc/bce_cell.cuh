@@ -1,9 +1,8 @@
-// Per-cell pieces of the fused dense BCE kernels, shared by
-// dense_bce_sym.cu (B1), dense_bce.cu (B2) and dense_bce_nn.cu (B3): the
-// counter hash that draws a cell's 24 uniform bits, and the softplus of
-// the loss.  ops/dense_bce_sym.py (mix32, u24_field, softplus) computes the
-// same functions in PyTorch, so every kernel and its plain version see the
-// same negative counts.
+// The counter hash that draws a cell's 24 uniform bits in the fused dense
+// BCE kernels dense_bce_sym.cu (B1), dense_bce.cu (B2) and dense_bce_nn.cu
+// (B3).  ops/dense_bce_sym.py (mix32, u24_field) computes the same
+// function in PyTorch, so every kernel and its plain version see the same
+// negative counts.  The cell's softplus and sigmoid are tile_math.cuh's.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,11 +28,6 @@ __device__ __forceinline__ uint32_t relation_key(uint32_t seed, uint32_t t) {
 // col (stride: the padded strip extent for B1, n for B2 and B3).
 __device__ __forceinline__ int cell_u24(uint32_t key, uint32_t cell) {
   return (int)(mix32(key ^ mix32(cell)) >> 8);
-}
-
-// log(1 + e^x) without a large-x threshold, as jax.nn.softplus.
-__device__ __forceinline__ float softplus(float x) {
-  return __fadd_rn(fmaxf(x, 0.f), log1pf(expf(-fabsf(x))));
 }
 
 }  // namespace bce_cell

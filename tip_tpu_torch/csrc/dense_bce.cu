@@ -19,170 +19,362 @@
 // the TPU kernel.  The pages are the unpadded counts in float32 or bf16 (the
 // two page dtypes the JAX package gives its kernel), read as float.
 //
-// Design (that of dense_bce_sym.cu, B1).  The TPU kernel streams pages
-// through a VMEM ring on one core and adds dz up serially.  Here one block
-// owns one 128 x 128 tile (I, J) of the page plane for a chunk of RC
-// relations: z_I and z_J stay in shared memory across the chunk (only w_t
-// changes), the G tile goes through shared memory for the two gradient
-// contractions, and dz for the tile's rows (threads 0..127) and columns
-// (threads 128..255) accumulates in registers across the chunk.  Unlike B1
-// every (I, J) tile of the plane is visited, not only the upper triangle:
-// the pages need not be symmetric, so there is no mirror weight.  Every
-// block writes its loss, dw and dz partials to scratch, and small second
-// passes sum them in a fixed order: the result is deterministic, and the
-// value-only and fused launches give the same loss bit for bit (the loss
-// arithmetic uses explicit round-to-nearest intrinsics).  One fused launch
-// a training step.
+// Design (that of dense_bce_sym.cu, B1, over the whole plane).  One block
+// (8 warps) owns one 128 x 128 tile (I, J) of the page plane for a chunk of
+// RC relations; z_I and z_J stay in shared memory across the chunk (only
+// w_t changes), split into TF32 high and low parts.  Warp w owns rows
+// 16w..16w+15 of the tile.  Every (I, J) tile of the plane is visited, not
+// only the upper triangle: the pages need not be symmetric, so there is no
+// mirror weight, and one rate class of three thresholds.
+//  * The three contractions run on the tensor cores as 3xTF32 mma.sync
+//    m16n8k8 (tile_math.cuh).  L comes 32 columns at a time into
+//    accumulator fragments; the cell math turns them into G in the same
+//    registers, which are at once the A operand of G z_J.  G also goes to a
+//    shared [128][132] tile, from which each warp reads the transposed
+//    fragments of G^T z_I for 16 columns (free of bank conflicts).
+//  * One exponential a cell (tile_math.cuh: softplus_neg, sigmoid_neg).
+//  * Warps skip the rows and the 32-column groups of the tile past n: at n =
+//    645 the 36 tiles evaluate 441 K cells a relation, not 768^2 = 590 K.
+//  * The page stream is asynchronous and per warp.  A float32 128 x 128
+//    page tile (64 KB) does not fit twice beside the z and G tiles (142 KB
+//    at d = 32), so each warp streams its own 16 rows of the 32-column group
+//    it computes next: a ring of STAGES stages of [16][RS] bytes (2.3 KB
+//    float32, 1.3 KB bf16) that runs STAGES - 1 groups ahead, across
+//    relations, by cp.async.  The pages are unpadded (row stride n), so a
+//    row segment starts at any byte: it is copied as the whole 16-byte
+//    chunks that cover it (tile_math.cuh: stage_span_chunk), and read back
+//    at its shift into the first chunk.  A warp waits only for its own copies
+//    (cp.async.wait_group, __syncwarp); block barriers remain only around
+//    the G tile, with gradients.
+// Every block writes its loss, dw and dz partials to scratch, and small
+// second passes sum them in a fixed order: the result is deterministic, and
+// the value-only and fused launches give the same loss bit for bit (the
+// logits come from the same tensor-core sequence, and the loss arithmetic
+// uses explicit round-to-nearest intrinsics).  One fused launch a training
+// step.
 //
 // Bound on an H100 at Decagon shape (R = 1,097, n = 645, d = 16: 456 M
 // cells): the float32 page read takes 0.545 ms at 3.35 TB/s (bf16 pages
-// 0.272 ms); three d-long dots (6 d flops) and ~20 elementwise float
-// operations a cell (softplus, sigmoid, counts, G) take ~0.79 ms at 67
-// TFLOP/s, so operations bound it, besides the hash's integer work.
-// chip_smoke.py reckons the bound from its run.  The 128-wide tiles cover
-// a 768 x 768 plane at n = 645, so 29 % of the cells evaluated are padding;
-// wgmma for the contractions and TMA for the page stream are later work.
+// 0.273 ms); the three d-long dots are 6 d flops a cell, 18 d as 3xTF32,
+// 131 GFLOP, 0.266 ms at 495 TFLOP/s; ~20 elementwise float operations a
+// cell take 0.136 ms at 67 TFLOP/s beside them.  So the bytes bound it
+// (chip_smoke.py reckons the bound from its run); the cell's integer hash
+// (~20 operations) is not counted.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bce_cell.cuh"
+#include "tile_math.cuh"
 
 namespace {
 
 using bce_cell::cell_u24;  // cell = row * n + col of relation t's plane
 using bce_cell::relation_key;
-using bce_cell::softplus;
+using tile_math::cell_loss;
+using tile_math::mma3;
+using tile_math::page_value;
+using tile_math::sigmoid_neg;
+using tile_math::softplus_neg;
+using tile_math::split;
 
 constexpr int B = 128;          // tile edge
-constexpr int THREADS = 256;    // 8 warps
+constexpr int THREADS = 256;    // 8 warps, 16 rows each
 constexpr int WARPS = THREADS / 32;
-constexpr int GSTRIDE = B + 1;  // padded row stride of the G tile
+constexpr int CW = 32;          // columns a warp computes at a time (4 n-tiles)
+constexpr int GS = B + 4;       // row stride of the G tile (== 4 mod 16)
+constexpr int STAGES = 3;       // page stages in a warp's ring
 
-__device__ __forceinline__ float page_value(float x) { return x; }
-__device__ __forceinline__ float page_value(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// row stride of the z tiles: D + 4 spreads the fragment reads over banks
+__host__ __device__ constexpr int zstride(int d) { return d + 4; }
+
+// bytes of a staged row: CW page values after a shift of up to 15 bytes,
+// in whole 16-byte chunks
+__host__ __device__ constexpr int stage_row_bytes(int esize) {
+  return (CW * esize + 15 + 15) & ~15;
 }
 
-__host__ __device__ __forceinline__ int smem_floats(int d, bool grads) {
-  // zi [B][d], ziw [B][d], zjT [d][B]; with grads also red [B][d] and G
-  return 3 * B * d + (grads ? B * d + B * GSTRIDE : 0);
+__host__ __device__ inline int smem_bytes(int d, int esize, bool grads) {
+  // zI hi, zI lo, zJ hi, zJ lo [B][D + 4] words; with grads the G tile
+  // [B][GS] and the dw partials [WARPS][D]; each warp's page ring
+  return 4 * (4 * B * zstride(d) + (grads ? B * GS + WARPS * d : 0)) +
+         WARPS * STAGES * 16 * stage_row_bytes(esize);
+}
+
+// Start copying a warp's page stage: rows row0 + m0 .. + 15 (those below n)
+// of relation t, columns c0 .. c0 + CW - 1 (those below n), row r at
+// st + r * RS from its 16-byte chunk on.  One cp.async group.
+template <typename P>
+__device__ __forceinline__ void fetch_stage(const P* pages, const uint8_t* end,
+                                            int t, int n, int r0, int c0,
+                                            uint8_t* st, int lane) {
+  constexpr int ESZ = sizeof(P);
+  constexpr int RS = stage_row_bytes(ESZ);
+  constexpr int CH = RS / 16;  // chunks a row may need
+  const int nbytes = min(CW, n - c0) * ESZ;
+  const int rows = min(16, n - r0);
+  for (int idx = lane; idx < 16 * CH; idx += 32) {  // lanes over rows x chunks
+    const int r = idx / CH;
+    if (r >= rows) break;
+    tile_math::stage_span_chunk(
+        st + r * RS, (const uint8_t*)(pages + ((size_t)t * n + r0 + r) * n + c0),
+        nbytes, end, idx % CH);
+  }
+  tile_math::cp_async_commit();
 }
 
 // grid: (nb * nb tiles, ceil(n_et / rc) relation chunks); tile = I * nb + J.
 // Writes loss_part[blk]; with GRADS also dw_part[tile][t] and the tile's dz
 // row and column partials dz_part[blk][side][r], blk = chunk * nb^2 + tile.
 template <typename P, int D, bool GRADS>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 tile_kernel(const float* __restrict__ w, const float* __restrict__ z,
             const P* __restrict__ pages, const int32_t* __restrict__ q,
             uint32_t seed, int n_et, int n, int nb, int rc,
             float* __restrict__ loss_part, float* __restrict__ dw_part,
             float* __restrict__ dz_part) {
-  extern __shared__ float smem[];
+  constexpr int ZS = zstride(D);
+  constexpr int KK = D / 8;  // k-steps of the logit, n-tiles of the gradients
+  constexpr int ESZ = sizeof(P);
+  constexpr int RS = stage_row_bytes(ESZ);
+  constexpr int SB = 16 * RS;  // bytes of one stage
+  extern __shared__ __align__(16) uint32_t smem[];
   __shared__ float warp_loss[WARPS];
-  float* zi = smem;           // [B][D]
-  float* ziw = zi + B * D;    // [B][D]
-  float* zjT = ziw + B * D;   // [D][B]
-  float* red = zjT + D * B;   // [B][D]      (GRADS)
-  float* G = red + B * D;     // [B][GSTRIDE] (GRADS)
+  uint32_t* zih = smem;            // [B][ZS] z_I, TF32 high part
+  uint32_t* zil = zih + B * ZS;    // [B][ZS] z_I, low part
+  uint32_t* zjh = zil + B * ZS;    // [B][ZS] z_J
+  uint32_t* zjl = zjh + B * ZS;
+  float* Gt = (float*)(zjl + B * ZS);             // [B][GS]      (GRADS)
+  float* red = Gt + (GRADS ? B * GS : 0);         // [WARPS][D]   (GRADS)
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  uint8_t* ring = (uint8_t*)(red + (GRADS ? WARPS * D : 0)) +
+                  warp * STAGES * SB;  // this warp's [STAGES][16][RS]
+  const uint8_t* end = (const uint8_t*)(pages + (size_t)n_et * n * n);
   const int tile = blockIdx.x;
   const int n_tiles = gridDim.x;
   const int row0 = (tile / nb) * B, col0 = (tile % nb) * B;
+  const int t0 = blockIdx.y * rc;
+  const int t1 = min(t0 + rc, n_et);
+
+  const int m0 = warp * 16;  // this warp's first row of the tile
+  const bool rows_live = row0 + m0 < n;
+  const int ncw = (min(B, n - col0) + CW - 1) / CW;  // live column groups
+  // the warp's stages: k = (t - t0) * ncw + cw
+  const int n_stages = rows_live ? (t1 - t0) * ncw : 0;
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_stages)
+      fetch_stage(pages, end, t0 + s / ncw, n, row0 + m0, col0 + (s % ncw) * CW,
+                  ring + s * SB, lane);
+    else
+      tile_math::cp_async_commit();
+  }
 
   for (int idx = tid; idx < B * D; idx += THREADS) {
     const int r = idx / D, k = idx % D;
-    zi[idx] = row0 + r < n ? z[(size_t)(row0 + r) * D + k] : 0.f;
-    zjT[k * B + r] = col0 + r < n ? z[(size_t)(col0 + r) * D + k] : 0.f;
+    const float vi = row0 + r < n ? z[(size_t)(row0 + r) * D + k] : 0.f;
+    const float vj = col0 + r < n ? z[(size_t)(col0 + r) * D + k] : 0.f;
+    split(vi, zih[r * ZS + k], zil[r * ZS + k]);
+    split(vj, zjh[r * ZS + k], zjl[r * ZS + k]);
+  }
+  if constexpr (GRADS) {  // skipped rows and columns keep G = 0
+    for (int idx = tid; idx < B * GS; idx += THREADS) Gt[idx] = 0.f;
+  }
+  __syncthreads();  // the z tiles
+
+  // z_I in the logit's A-fragment layout: rows m0+g, m0+g+8; features
+  // 8kk + t4, 8kk + t4 + 4
+  float za[KK][4];
+  // z_I in the accumulator layout (for dw): rows m0+g, m0+g+8; features
+  // 8f + 2t4, 8f + 2t4 + 1
+  float zc[KK][4];
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk) {
+    const int r0 = row0 + m0 + g, r1 = r0 + 8;
+    const int f0 = 8 * kk + t4, f1 = 8 * kk + 2 * t4;
+    za[kk][0] = r0 < n ? z[(size_t)r0 * D + f0] : 0.f;
+    za[kk][1] = r1 < n ? z[(size_t)r1 * D + f0] : 0.f;
+    za[kk][2] = r0 < n ? z[(size_t)r0 * D + f0 + 4] : 0.f;
+    za[kk][3] = r1 < n ? z[(size_t)r1 * D + f0 + 4] : 0.f;
+    zc[kk][0] = r0 < n ? z[(size_t)r0 * D + f1] : 0.f;
+    zc[kk][1] = r0 < n ? z[(size_t)r0 * D + f1 + 1] : 0.f;
+    zc[kk][2] = r1 < n ? z[(size_t)r1 * D + f1] : 0.f;
+    zc[kk][3] = r1 < n ? z[(size_t)r1 * D + f1 + 1] : 0.f;
   }
 
-  const int t0 = blockIdx.y * rc;
-  const int t1 = min(t0 + rc, n_et);
   float loss_acc = 0.f;
-  float acc[D];  // this thread's dz row (tid < B) or column, over the chunk
+  float accI[KK][4], accJ[KK][4];  // dz of rows m0+g(+8) and columns 16w+g(+8)
 #pragma unroll
-  for (int k = 0; k < D; ++k) acc[k] = 0.f;
+  for (int f = 0; f < KK; ++f)
+#pragma unroll
+    for (int q4 = 0; q4 < 4; ++q4) accI[f][q4] = accJ[f][q4] = 0.f;
 
+  int k = 0;  // this warp's next stage
   for (int t = t0; t < t1; ++t) {
+    if constexpr (GRADS) __syncthreads();  // the last relation's G reads
     const uint32_t key = relation_key(seed, (uint32_t)t);
     const int q0 = q[t * 3], q1 = q[t * 3 + 1], q2 = q[t * 3 + 2];
-    for (int idx = tid; idx < B * D; idx += THREADS)
-      ziw[idx] = __fmul_rn(zi[idx], w[(size_t)t * D + idx % D]);
-    __syncthreads();
+    float wv[KK][2];  // w_t at features 8f + 2t4, 8f + 2t4 + 1
+    uint32_t ah[KK][4], al[KK][4];  // (z_I * w_t) as A fragments
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      const float wa = w[(size_t)t * D + 8 * kk + t4];
+      const float wb = w[(size_t)t * D + 8 * kk + t4 + 4];
+      split(__fmul_rn(za[kk][0], wa), ah[kk][0], al[kk][0]);
+      split(__fmul_rn(za[kk][1], wa), ah[kk][1], al[kk][1]);
+      split(__fmul_rn(za[kk][2], wb), ah[kk][2], al[kk][2]);
+      split(__fmul_rn(za[kk][3], wb), ah[kk][3], al[kk][3]);
+      wv[kk][0] = w[(size_t)t * D + 8 * kk + 2 * t4];
+      wv[kk][1] = w[(size_t)t * D + 8 * kk + 2 * t4 + 1];
+    }
+    float hI[KK][4];  // (G z_J) rows m0+g(+8), features 8f + 2t4 (+1)
+#pragma unroll
+    for (int f = 0; f < KK; ++f)
+#pragma unroll
+      for (int q4 = 0; q4 < 4; ++q4) hI[f][q4] = 0.f;
 
-    const P* page = pages + (size_t)t * n * n;
-    for (int m = 0; m < B / WARPS; ++m) {
-      const int r = warp + WARPS * m;
-      const int gr = row0 + r;
-      float a[D];
+    for (int cw = 0; rows_live && cw < ncw; ++cw, ++k) {
+      tile_math::cp_async_wait<STAGES - 2>();
+      __syncwarp();  // stage k is in; every lane is done with stage k - 1
+      const int kn = k + STAGES - 1;
+      if (kn < n_stages)
+        fetch_stage(pages, end, t0 + kn / ncw, n, row0 + m0,
+                    col0 + (kn % ncw) * CW, ring + (kn % STAGES) * SB, lane);
+      else
+        tile_math::cp_async_commit();
+      const int c0 = cw * CW;
+      // rows m0+g and m0+g+8 of the stage, at their shifts
+      const uint8_t* st = ring + (k % STAGES) * SB;
+      const uint8_t* prow[2];
 #pragma unroll
-      for (int k = 0; k < D; ++k) a[k] = ziw[r * D + k];
+      for (int h = 0; h < 2; ++h) {
+        const int rl = g + 8 * h;
+        const size_t e = ((size_t)t * n + row0 + m0 + rl) * n + col0 + c0;
+        prow[h] = st + rl * RS + (int)((e * ESZ) & 15);
+      }
 #pragma unroll
-      for (int qq = 0; qq < B / 32; ++qq) {
-        const int c = lane + 32 * qq;
-        const int gc = col0 + c;
-        float L = __fmul_rn(a[0], zjT[c]);
+      for (int nt = 0; nt < CW / 8; ++nt) {
+        const int cb = c0 + nt * 8;  // this n-tile's first column
+        float L[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int k = 1; k < D; ++k) L = __fmaf_rn(a[k], zjT[k * B + c], L);
-        const bool inside = gr < n && gc < n;
-        const float da =
-            inside ? page_value(page[(size_t)gr * n + gc]) : 0.f;
-        const int u = cell_u24(key, (uint32_t)gr * (uint32_t)n + (uint32_t)gc);
-        float cnt = (float)((u < q0) + (u < q1) + (u < q2));
-        if (da > 0.f || !inside) cnt = 0.f;
-        const float sp = softplus(-L);
-        loss_acc = __fadd_rn(
-            loss_acc, __fadd_rn(__fmul_rn(sp, da),
-                                __fmul_rn(__fadd_rn(sp, L), cnt)));
+        for (int kk = 0; kk < KK; ++kk) {
+          const int o = (cb + g) * ZS + 8 * kk + t4;
+          mma3(L, ah[kk], al[kk], zjh[o], zjh[o + 4], zjl[o], zjl[o + 4]);
+        }
+        // cells (m0+g, cb+2t4), (m0+g, +1), (m0+g+8, cb+2t4), (m0+g+8, +1)
+        float Gv[4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int e2 = 0; e2 < 2; ++e2) {
+            const int q4 = 2 * h + e2;
+            const int c = nt * 8 + 2 * t4 + e2;  // column in the stage
+            const int gr = row0 + m0 + g + 8 * h, gc = col0 + c0 + c;
+            const bool inside = gr < n && gc < n;
+            const float pv = page_value((const P*)(prow[h] + c * ESZ));
+            const float da = inside ? pv : 0.f;
+            const int u = cell_u24(key, (uint32_t)gr * (uint32_t)n + (uint32_t)gc);
+            float cnt = (float)((u < q0) + (u < q1) + (u < q2));
+            if (da > 0.f || !inside) cnt = 0.f;
+            const float x = L[q4];
+            float e;
+            const float sp = softplus_neg(x, e);
+            loss_acc = __fadd_rn(loss_acc, cell_loss(sp, x, da, cnt));
+            if constexpr (GRADS) Gv[q4] = cnt - sigmoid_neg(x, e) * (da + cnt);
+          }
+        }
         if constexpr (GRADS) {
-          const float sg = 1.f / (1.f + expf(L));  // sigmoid(-L)
-          G[r * GSTRIDE + c] = cnt - sg * (da + cnt);
+          *(float2*)(Gt + (m0 + g) * GS + cb + 2 * t4) = make_float2(Gv[0], Gv[1]);
+          *(float2*)(Gt + (m0 + g + 8) * GS + cb + 2 * t4) =
+              make_float2(Gv[2], Gv[3]);
+          // G z_J over these 8 columns: A fragment k = t4 <-> column
+          // cb + 2t4, k = t4 + 4 <-> column cb + 2t4 + 1
+          uint32_t gh[4], gl[4];
+          split(Gv[0], gh[0], gl[0]);
+          split(Gv[2], gh[1], gl[1]);
+          split(Gv[1], gh[2], gl[2]);
+          split(Gv[3], gh[3], gl[3]);
+#pragma unroll
+          for (int f = 0; f < KK; ++f) {
+            const int o = (cb + 2 * t4) * ZS + 8 * f + g;
+            mma3(hI[f], gh, gl, zjh[o], zjh[o + ZS], zjl[o], zjl[o + ZS]);
+          }
         }
       }
     }
-    __syncthreads();
+
     if constexpr (GRADS) {
-      // tid < B: row r of G z_J (dz rows I, and dw_t); else column c of
-      // G^T z_I (dz rows J)
-      float h[D];
+      // dz rows I and this warp's share of dw_t
 #pragma unroll
-      for (int k = 0; k < D; ++k) h[k] = 0.f;
-      if (tid < B) {
-        const int r = tid;
-        for (int c = 0; c < B; ++c) {
-          const float g = G[r * GSTRIDE + c];
+      for (int f = 0; f < KK; ++f) {
 #pragma unroll
-          for (int k = 0; k < D; ++k) h[k] = fmaf(g, zjT[k * B + c], h[k]);
+        for (int q4 = 0; q4 < 4; ++q4)
+          accI[f][q4] = fmaf(wv[f][q4 & 1], hI[f][q4], accI[f][q4]);
+        float s0 = fmaf(zc[f][0], hI[f][0], zc[f][2] * hI[f][2]);
+        float s1 = fmaf(zc[f][1], hI[f][1], zc[f][3] * hI[f][3]);
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, off);
         }
-#pragma unroll
-        for (int k = 0; k < D; ++k) red[r * D + k] = zi[r * D + k] * h[k];
-      } else {
-        const int c = tid - B;
-        for (int r = 0; r < B; ++r) {
-          const float g = G[r * GSTRIDE + c];
-#pragma unroll
-          for (int k = 0; k < D; ++k) h[k] = fmaf(g, zi[r * D + k], h[k]);
+        if (g == 0) {
+          red[warp * D + 8 * f + 2 * t4] = s0;
+          red[warp * D + 8 * f + 2 * t4 + 1] = s1;
         }
       }
+      __syncthreads();  // the G tile and the dw partials are complete
+      // G^T z_I for columns j0..j0+15: A[m = column][k = row], k = t4 <->
+      // row kb + 2t4, k = t4 + 4 <-> row kb + 2t4 + 1
+      const int j0 = warp * 16;
+      if (col0 + j0 < n) {
+        float hJ[KK][4];
 #pragma unroll
-      for (int k = 0; k < D; ++k) acc[k] = fmaf(w[(size_t)t * D + k], h[k], acc[k]);
-      __syncthreads();
+        for (int f = 0; f < KK; ++f)
+#pragma unroll
+          for (int q4 = 0; q4 < 4; ++q4) hJ[f][q4] = 0.f;
+        const int kend = min(B, n - row0);
+        for (int kb = 0; kb < kend; kb += 8) {
+          const float* g0 = Gt + (kb + 2 * t4) * GS + j0 + g;
+          uint32_t gh[4], gl[4];
+          split(g0[0], gh[0], gl[0]);
+          split(g0[8], gh[1], gl[1]);
+          split(g0[GS], gh[2], gl[2]);
+          split(g0[GS + 8], gh[3], gl[3]);
+#pragma unroll
+          for (int f = 0; f < KK; ++f) {
+            const int o = (kb + 2 * t4) * ZS + 8 * f + g;
+            mma3(hJ[f], gh, gl, zih[o], zih[o + ZS], zil[o], zil[o + ZS]);
+          }
+        }
+#pragma unroll
+        for (int f = 0; f < KK; ++f)
+#pragma unroll
+          for (int q4 = 0; q4 < 4; ++q4)
+            accJ[f][q4] = fmaf(wv[f][q4 & 1], hJ[f][q4], accJ[f][q4]);
+      }
       if (tid < D) {
         float s = 0.f;
-        for (int r = 0; r < B; ++r) s += red[r * D + tid];
+        for (int kw = 0; kw < WARPS; ++kw) s += red[kw * D + tid];
         dw_part[((size_t)tile * n_et + t) * D + tid] = s;
       }
     }
   }
+  tile_math::cp_async_wait<0>();  // no copy outlives the block
 
   const size_t blk = (size_t)blockIdx.y * n_tiles + tile;
   if constexpr (GRADS) {
-    float* out = dz_part + ((blk * 2 + (tid < B ? 0 : 1)) * B + (tid % B)) * D;
+    float* outI = dz_part + (blk * 2 * B + m0) * D;
+    float* outJ = dz_part + ((blk * 2 + 1) * B + warp * 16) * D;
 #pragma unroll
-    for (int k = 0; k < D; ++k) out[k] = acc[k];
+    for (int f = 0; f < KK; ++f) {
+      const int kf = 8 * f + 2 * t4;
+      *(float2*)(outI + g * D + kf) = make_float2(accI[f][0], accI[f][1]);
+      *(float2*)(outI + (g + 8) * D + kf) = make_float2(accI[f][2], accI[f][3]);
+      *(float2*)(outJ + g * D + kf) = make_float2(accJ[f][0], accJ[f][1]);
+      *(float2*)(outJ + (g + 8) * D + kf) = make_float2(accJ[f][2], accJ[f][3]);
+    }
   }
   // fixed-order block reduction of the loss
 #pragma unroll
@@ -192,7 +384,7 @@ tile_kernel(const float* __restrict__ w, const float* __restrict__ z,
   __syncthreads();
   if (tid == 0) {
     float s = 0.f;
-    for (int k = 0; k < WARPS; ++k) s = __fadd_rn(s, warp_loss[k]);
+    for (int kw = 0; kw < WARPS; ++kw) s = __fadd_rn(s, warp_loss[kw]);
     loss_part[blk] = s;
   }
 }
@@ -251,7 +443,7 @@ cudaError_t launch(const float* w, const float* z, const P* pages,
   const int nb = (n + B - 1) / B;
   const int n_tiles = nb * nb;
   const int n_chunks = (n_et + rc - 1) / rc;
-  const int smem = smem_floats(D, GRADS) * (int)sizeof(float);
+  const int smem = smem_bytes(D, (int)sizeof(P), GRADS);
   cudaError_t err = cudaFuncSetAttribute(
       tile_kernel<P, D, GRADS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -311,16 +503,19 @@ cudaError_t dispatch_d(int d, int grads, const float* w, const float* z,
 
 // Plain C entry point (bound with ctypes by ops/dense_bce.py).  w [n_et][d],
 // z [n][d] float32; pages [n_et][n][n] float32 (page_bf16 0) or bf16
-// (page_bf16 1); q [n_et][3] int32.  Scratch sizes, in floats: loss_part
-// nb^2 * n_chunks; dw_part nb^2 * n_et * d; dz_part n_chunks * nb^2 * 2 *
-// 128 * d, where nb = ceil(n / 128) and n_chunks = ceil(n_et / rc).  With
-// grads 0 the dw/dz pointers are not touched.  Returns the first CUDA error.
+// (page_bf16 1), 16-byte aligned (its rows are staged from the 16-byte
+// chunks that cover them); q [n_et][3] int32.  Scratch sizes, in floats:
+// loss_part nb^2 * n_chunks; dw_part nb^2 * n_et * d; dz_part n_chunks *
+// nb^2 * 2 * 128 * d, where nb = ceil(n / 128) and n_chunks = ceil(n_et /
+// rc).  With grads 0 the dw/dz pointers are not touched.  Returns the first
+// CUDA error.
 extern "C" int tip_dense_bce(const float* w, const float* z, const void* pages,
                              int page_bf16, const int32_t* q, unsigned int seed,
                              int n_et, int n, int d, int rc, int grads,
                              float* loss_part, float* dw_part, float* dz_part,
                              float* loss, float* dw, float* dz, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if ((uintptr_t)pages % 16 != 0) return (int)cudaErrorInvalidValue;
   if (page_bf16)
     return dispatch_d<__nv_bfloat16>(d, grads, w, z, pages, q, seed, n_et, n,
                                      rc, loss_part, dw_part, dz_part, loss, dw,

@@ -36,7 +36,8 @@
 //  * One exponential per cell: e = exp(-|L|) gives softplus(-L) =
 //    max(-L, 0) + log(1 + e) and sigmoid(-L) = (L >= 0 ? e : 1) / (1 + e).
 //    Fast intrinsics: ex2.approx and lg2.approx (a few 1e-7 absolute in
-//    softplus), __fdividef in the sigmoid (gradients only).
+//    softplus), __fdividef in the sigmoid (gradients only).  These helpers
+//    and the 3xTF32 ones are tile_math.cuh's, shared with B2 and B3.
 //  * The page stream is asynchronous: the next relation's 16 KB int8 page
 //    tile is copied into shared memory by cp.async while the current one
 //    computes (double buffer).
@@ -61,11 +62,18 @@
 #include <stdint.h>
 
 #include "bce_cell.cuh"
+#include "tile_math.cuh"
 
 namespace {
 
 using bce_cell::cell_u24;  // cell = row * npad + col of the padded plane
 using bce_cell::relation_key;
+using tile_math::cell_loss;
+using tile_math::cp_async16;
+using tile_math::mma3;
+using tile_math::sigmoid_neg;
+using tile_math::softplus_neg;
+using tile_math::split;
 
 constexpr int B = 128;          // block edge of the strip layout
 constexpr int THREADS = 256;    // 8 warps, 16 rows each
@@ -73,8 +81,6 @@ constexpr int WARPS = THREADS / 32;
 constexpr int CW = 32;          // columns a warp computes at a time (4 n-tiles)
 constexpr int GS = B + 4;       // row stride of the G tile (== 4 mod 16)
 constexpr int PS = B + 16;      // row stride of a page tile, in bytes
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 
 // row stride of the z tiles: D + 4 spreads the fragment reads over banks
 __host__ __device__ constexpr int zstride(int d) { return d + 4; }
@@ -86,54 +92,6 @@ __host__ __device__ inline int smem_bytes(int d, bool grads) {
          2 * B * PS;
 }
 
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t y;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
-  return y;
-}
-
-// x = hi + lo + O(2^-22 |x|), both parts TF32
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(__fsub_rn(x, __uint_as_float(hi)));
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], uint32_t a0, uint32_t a1,
-                                    uint32_t a2, uint32_t a3, uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// c += A B as 3xTF32: the small products first
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], uint32_t bh0,
-                                     uint32_t bh1, uint32_t bl0, uint32_t bl1) {
-  mma(c, al[0], al[1], al[2], al[3], bh0, bh1);
-  mma(c, ah[0], ah[1], ah[2], ah[3], bl0, bl1);
-  mma(c, ah[0], ah[1], ah[2], ah[3], bh0, bh1);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float lg2(float x) {
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
 // Start copying relation t's 128 x 128 page tile into pg [B][PS].
 __device__ __forceinline__ void fetch_page(const int8_t* pages, int t,
                                            int tile, int totcols, int8_t* pg) {
@@ -142,7 +100,7 @@ __device__ __forceinline__ void fetch_page(const int8_t* pages, int t,
     const int r = i / (B / 16), c = (i % (B / 16)) * 16;
     cp_async16(pg + r * PS + c, src + (size_t)r * totcols + c);
   }
-  asm volatile("cp.async.commit_group;\n" ::);
+  tile_math::cp_async_commit();
 }
 
 template <int D, bool GRADS>
@@ -228,7 +186,7 @@ tile_kernel(const float* __restrict__ w, const float* __restrict__ z,
 
   for (int t = t0; t < t1; ++t) {
     const int buf = (t - t0) & 1;
-    asm volatile("cp.async.wait_all;\n" ::);
+    tile_math::cp_async_wait<0>();
     __syncthreads();  // page t, the z tiles, and the last relation's G reads
     if (t + 1 < t1) fetch_page(pages, t + 1, tile, totcols, pg + (buf ^ 1) * B * PS);
     const int8_t* page = pg + buf * B * PS;
@@ -282,16 +240,10 @@ tile_kernel(const float* __restrict__ w, const float* __restrict__ z,
             if (da > 0.f || gr >= n || gc >= n) cnt = 0.f;
             const float x = L[q];
             const float daw = __fmul_rn(posw, da);
-            const float e = ex2(__fmul_rn(-fabsf(x), LOG2E));
-            const float sp = __fadd_rn(fmaxf(-x, 0.f),
-                                       __fmul_rn(lg2(__fadd_rn(1.f, e)), LN2));
-            loss_acc = __fadd_rn(
-                loss_acc, __fadd_rn(__fmul_rn(sp, daw),
-                                    __fmul_rn(__fadd_rn(sp, x), cnt)));
-            if constexpr (GRADS) {
-              const float sg = __fdividef(x >= 0.f ? e : 1.f, 1.f + e);
-              Gv[q] = cnt - sg * (daw + cnt);
-            }
+            float e;
+            const float sp = softplus_neg(x, e);
+            loss_acc = __fadd_rn(loss_acc, cell_loss(sp, x, daw, cnt));
+            if constexpr (GRADS) Gv[q] = cnt - sigmoid_neg(x, e) * (daw + cnt);
           }
         }
         if constexpr (GRADS) {

@@ -113,6 +113,9 @@ def _check_cuda_args(w1, w2, h1, h2, pages, q):
             f"pages {tuple(pages.shape)}, q {tuple(q.shape)}")
     if n * n >= 2**32:
         raise ValueError("cell index exceeds 32 bits")
+    if pages.data_ptr() % 16:
+        raise ValueError("pages must be 16-byte aligned (the kernel stages "
+                         "page rows from the 16-byte chunks that cover them)")
     return n_et, n
 
 

@@ -20,12 +20,8 @@ file, as above, for ``--root`` to take effect.  Needs a GPU.
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
-import pathlib
-import sys
 
-CHECKOUT = pathlib.Path(__file__).resolve().parents[2]
 SEED = 21  # x and dP^T
 
 
@@ -43,31 +39,19 @@ def rank_blocks(graph: dict, gs, ranks: int) -> list:
             for r in range(ranks)]
 
 
-def _chip_smoke():
-    """This checkout's chip_smoke.py, for its timing and checks."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", CHECKOUT / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
 
 def main(argv=None) -> dict:
+    import bench_root  # beside this file, first on sys.path
+
     parser = argparse.ArgumentParser(
         description="Kernel B4 on the whole chunk buffers and a rank's block")
-    parser.add_argument("--root", default=None,
-                        help="a checkout whose tip_tpu_torch is timed")
+    bench_root.add_option(parser)
     parser.add_argument("--ranks", type=int, default=4)
     args = parser.parse_args(argv)
-    root = pathlib.Path(args.root or CHECKOUT).resolve()
-    sys.path.insert(0, str(root))
+    root = bench_root.import_package(args.root)
 
     import torch
 
-    import tip_tpu_torch
-    if not pathlib.Path(tip_tpu_torch.__file__).resolve().is_relative_to(root):
-        raise SystemExit(f"tip_tpu_torch came from {tip_tpu_torch.__file__}, "
-                         f"not {root}: run this script as a file")
     if not torch.cuda.is_available():
         raise SystemExit("tns_bench needs a GPU")
     from tip_tpu_torch import kernels
@@ -76,7 +60,7 @@ def main(argv=None) -> dict:
     from tip_tpu_torch.scripts.decoder_ab import DECAGON_SHAPE
     from tip_tpu_torch.train.model import make_graph_arrays
 
-    smoke = _chip_smoke()
+    smoke = bench_root.chip_smoke()
     dev = torch.device("cuda", 0)
     kernels.build(["typed_neighbor_sum"])
     data = build_trigraph(synthetic_trigraph(**DECAGON_SHAPE), 0.9, 1111)
