@@ -87,8 +87,8 @@ PEAK_TF32_FLOP_PER_S = 495e12  # dense, on the tensor cores
 # the protein side are Decagon's.
 BEYOND_DENSE = dict(n_drug=1536, n_prot=19081, n_et=800, pairs_per_et=4600,
                     n_pp_pairs=715612, n_dp=18596, seed=0)
-# Wider than any shared-memory table of B8 (> 3,417 drugs forward, > 1,693
-# backward), which takes its global-memory mode, and B10 (> 4,096) draws src
+# Wider than B8's shared-memory table (> 3,417 drugs), whose forward takes
+# its global-memory mode, and B10 (> 4,096) draws src
 # and dst separately; B4's forward keeps eight-feature slices of x in shared
 # memory (up to 7,128 drugs), and its check forces the global mode too
 WIDE = dict(n_drug=7000, n_prot=300, n_et=3, pairs_per_et=40000,
@@ -698,12 +698,12 @@ def check_gcn_spmm(graph, gs, data, dev, timed: bool = True) -> dict:
 
 def check_distmult_sddmm(graph, gs, data, dev, timed: bool = True) -> dict:
     """Kernel B8 forward (logits) and backward (dz, dw) against the plain
-    version at d = 16, with its tables where the wrapper puts them for this
-    graph (shared memory up to 3,417 nodes forward and 1,693 backward,
-    global memory past that) and forced to global memory, and the backward
-    with the bf16 rounding of each scattered contribution; pad logits must
-    be exactly 0.  Float32 order only: 1e-5 of the largest logit, 1e-4 of
-    the largest dz and dw."""
+    version at d = 16: the forward with its z table where the wrapper puts
+    it for this graph (shared memory up to 3,417 nodes, read through L1
+    past that) and forced to global memory, the backward (z through L1 at
+    any size) in float32 and with the bf16 rounding of each scattered
+    contribution; pad logits must be exactly 0.  Float32 order only: 1e-5
+    of the largest logit, 1e-4 of the largest dz and dw."""
     import torch
 
     from tip_tpu_torch.ops import sddmm2
@@ -716,8 +716,7 @@ def check_distmult_sddmm(graph, gs, data, dev, timed: bool = True) -> dict:
     w = (0.3 * torch.randn(gs.n_et, d, generator=gen)).to(dev)
     g = torch.randn(src2d.shape, generator=gen).to(dev)
     pad = graph["dd_valid"].reshape(src2d.shape) == 0
-    rep = {"d": d, "fwd_shared": sddmm2.shared_table_fits(gs.n_drug, False),
-           "bwd_shared": sddmm2.shared_table_fits(gs.n_drug, True),
+    rep = {"d": d, "fwd_shared": sddmm2.shared_table_fits(gs.n_drug),
            "pad_slots": int(pad.sum())}
     worst = 0.0
     for bf16 in (False, True):
@@ -725,20 +724,22 @@ def check_distmult_sddmm(graph, gs, data, dev, timed: bool = True) -> dict:
         args = (zr, w, src2d, dst2d, ct)
         lp = sddmm2.distmult_logits_plain(*args)
         dzp, dwp = sddmm2.distmult_bwd_plain(*args, g, bf16)
+        dzk, dwk = sddmm2.distmult_bwd_cuda(*args, g, bf16)
+        ez, mz = max_err(dzk, dzp)
+        ew, mw = max_err(dwk, dwp)
+        check(ez <= 1e-4 * mz and ew <= 1e-4 * mw,
+              f"B8 {'bf16 ' * bf16}grads err {ez} of {mz}, {ew} of {mw}")
+        rep["bf16_bwd" if bf16 else "bwd"] = {"dz_max_abs_err": ez,
+                                              "dw_max_abs_err": ew}
+        worst = max(worst, ez, ew)
         for table in (None, "global"):
             tag = ("bf16_" if bf16 else "") + (table or "auto")
             lk = sddmm2.distmult_logits_cuda(*args, table=table)
-            dzk, dwk = sddmm2.distmult_bwd_cuda(*args, g, bf16, table=table)
             el, ml = max_err(lk, lp)
-            ez, mz = max_err(dzk, dzp)
-            ew, mw = max_err(dwk, dwp)
             check(el <= 1e-5 * ml, f"B8 {tag} logits err {el} of max {ml}")
-            check(ez <= 1e-4 * mz and ew <= 1e-4 * mw,
-                  f"B8 {tag} grads err {ez} of {mz}, {ew} of {mw}")
             check(bool((lk[pad] == 0).all()), f"B8 {tag} pad logits are not 0")
-            rep[tag] = {"logit_max_abs_err": el, "dz_max_abs_err": ez,
-                        "dw_max_abs_err": ew}
-            worst = max(worst, el, ez, ew)
+            rep[tag] = {"logit_max_abs_err": el}
+            worst = max(worst, el)
     rep["max_abs_err"] = worst
     if not timed:
         return rep
@@ -750,8 +751,6 @@ def check_distmult_sddmm(graph, gs, data, dev, timed: bool = True) -> dict:
                             reps=20, primed=True)
     rep["global_ms"] = cuda_ms(lambda: sddmm2.distmult_logits_cuda(
         *args, table="global"), reps=20, primed=True)
-    rep["bwd_global_ms"] = cuda_ms(lambda: sddmm2.distmult_bwd_cuda(
-        *args, g, table="global"), reps=20, primed=True)
     rep["plain_ms"] = cuda_ms(lambda: sddmm2.distmult_logits_plain(*args),
                               reps=3, warmup=1)
     rep["bwd_plain_ms"] = cuda_ms(lambda: sddmm2.distmult_bwd_plain(*args, g),

@@ -21,8 +21,8 @@ from tip_tpu.data import build_trigraph, synthetic_trigraph
 from tip_tpu.data.packing import dense_relation_adj
 from tip_tpu.ops.pallas_dense_bce import dense_bce_sum
 from tests.torch_tile_math import (
-    JAX_ULPS, PLAIN_ULPS, assert_within_sum_bound, mma, softplus_sigmoid,
-    split, tf32,
+    PLAIN_ULPS, assert_readings, diagnosis, digest, digests, mma,
+    softplus_sigmoid, split, tf32,
 )
 from tip_tpu_torch import kernels
 from tip_tpu_torch.data.packing import poisson_neg_thresholds
@@ -30,6 +30,7 @@ from tip_tpu_torch.ops import dense_bce as port
 from tip_tpu_torch.train.model import pages_tensor
 
 DTYPES = ["float32", "bfloat16"]
+_BUILT = {}  # digests of the fixture's inputs, taken when it built them
 
 
 @pytest.fixture(scope="module")
@@ -43,6 +44,7 @@ def setup():
     rng = np.random.default_rng(0)
     w = (rng.standard_normal((data.n_et, 8)) * 0.3).astype(np.float32)
     z = (rng.standard_normal((data.n_drug, 8)) * 0.5).astype(np.float32)
+    _BUILT.update(digests(da=da, w=w, z=z))
     return data, da, q, w, z
 
 
@@ -61,11 +63,23 @@ def test_plain_u24_zero_matches_jax_interpret_kernel(setup, dtype):
     u24 = 0, each against the float64 oracle and against each other,
     within a few float32 roundings of the sum of each result's absolute
     terms (tests/torch_tile_math.py: PLAIN_ULPS for the plain version,
-    JAX_ULPS where the JAX kernel takes part), on both page dtypes."""
+    JAX_ULPS where the JAX kernel takes part), on both page dtypes.
+
+    The port runs first, and its inputs and outputs must come through the
+    JAX call unchanged; a failing port reading recomputes the port from
+    fresh copies of the inputs, checks the inputs against their digests
+    from the fixture and names the cell with the largest error
+    (``torch_tile_math.diagnosis``)."""
     data, da, _, w, z = setup
     q = np.zeros((data.n_et, 3), np.int32)
     for t, c in enumerate([0, 1, 2, 3, 1, 2]):  # count #{k: q_k > 0}
         q[t, :c] = 7
+    pages = pages_tensor(da, dtype)
+    built = dict(_BUILT, pages=digest(pages))
+    port_out = _torch_value_and_grads(
+        w, z, pages, q, seed=3, u24=torch.zeros((), dtype=torch.int64))
+    port_digests = digests(value=np.float64(port_out[0]), dw=port_out[1],
+                           dz=port_out[2])
     jpages = jnp.asarray(da.astype(np.float32)).astype(jnp.dtype(dtype))
     # a fresh simulated memory for TPU interpret mode, whatever an earlier
     # test in this process left behind (tests/test_torch_dense_bce_sym.py)
@@ -81,21 +95,42 @@ def test_plain_u24_zero_matches_jax_interpret_kernel(setup, dtype):
     with pltpu.force_tpu_interpret_mode():
         jval, (jdw, jdz) = jax.block_until_ready(
             value_and_grad(jnp.asarray(w), jnp.asarray(z)))
-    port_out = _torch_value_and_grads(
-        w, z, pages_tensor(da, dtype), q, seed=3,
-        u24=torch.zeros((), dtype=torch.int64))
     jax_out = (float(jval), np.asarray(jdw), np.asarray(jdz))
     dan = da.astype(np.float64)
     cnt = (q > 0).sum(1)[:, None, None] * (dan == 0)
     oracle, sabs = _oracle(w, z, dan, cnt, abs_sums=True)
-    for name, got, want, exact, s in zip(("value", "dw", "dz"), port_out,
-                                         jax_out, oracle, sabs):
-        assert_within_sum_bound(got, exact, s, f"port {name} vs float64",
-                                PLAIN_ULPS)
-        assert_within_sum_bound(want, exact, s, f"JAX {name} vs float64",
-                                JAX_ULPS)
-        assert_within_sum_bound(got, want, s, f"port {name} vs JAX",
-                                JAX_ULPS)
+    after = digests(value=np.float64(port_out[0]), dw=port_out[1],
+                    dz=port_out[2])
+    moved = [k for k in after if after[k] != port_digests[k]]
+
+    def cells():
+        zt, wt = torch.tensor(z), torch.tensor(w)
+        lg = (zt[None] * wt[:, None, :]) @ zt.T
+        sp = port.softplus(-lg)
+        dat = pages_tensor(da.copy(), dtype).float()
+        ct = torch.from_numpy(cnt.astype(np.float32))
+        t32 = (sp * dat + (sp + lg) * ct).numpy()
+        L = np.einsum("nf,tf,mf->tnm", *(x.astype(np.float64)
+                                         for x in (z, w, z)))
+        sp64 = np.logaddexp(0.0, -L)
+        return t32, sp64 * dan + (sp64 + L) * cnt, dict(
+            logit32=lg.numpy(), logit64=L, count=cnt, page=dan)
+
+    names = ("value", "dw", "dz")
+    assert_readings(
+        names, port_out, jax_out, oracle, sabs, PLAIN_ULPS,
+        lambda: diagnosis(
+            lambda: _torch_value_and_grads(
+                w.copy(), z.copy(), pages_tensor(da.copy(), dtype), q.copy(),
+                seed=3, u24=torch.zeros((), dtype=torch.int64)),
+            names, oracle, sabs, PLAIN_ULPS,
+            dict(built, **{f"port {k} (before the JAX call)": v
+                           for k, v in port_digests.items()}),
+            dict(da=da, w=w, z=z, pages=pages,
+                 **{f"port {k} (before the JAX call)": a for k, a in
+                    zip(names, (np.float64(port_out[0]), *port_out[1:]))}),
+            cells))
+    assert not moved, f"the JAX call changed the port's outputs {moved}"
 
 
 def _oracle(w, z, da, cnt, abs_sums: bool = False):

@@ -24,13 +24,14 @@ from tip_tpu.data import build_trigraph, synthetic_trigraph
 from tip_tpu.data.packing import dense_relation_adj, pad_dense_adj
 from tip_tpu.ops.pallas_dense_bce_nn import dense_bce_nn_sum
 from tests.torch_tile_math import (
-    JAX_ULPS, PLAIN_ULPS_NN, assert_within_sum_bound,
+    PLAIN_ULPS_NN, assert_readings, diagnosis, digest, digests,
 )
 from tip_tpu_torch import kernels
 from tip_tpu_torch.data.packing import cast_dense_adj, poisson_neg_thresholds
 from tip_tpu_torch.ops import dense_bce_nn as port
 
 L1 = 16
+_BUILT = {}  # digests of the fixture's inputs, taken when it built them
 
 
 @pytest.fixture(scope="module")
@@ -46,6 +47,7 @@ def setup():
     w1, w2 = (0.4 * rng.standard_normal((2, data.n_et, L1))).astype(np.float32)
     h1, h2 = np.maximum(rng.standard_normal((2, data.n_drug, L1)),
                         0).astype(np.float32)
+    _BUILT.update(digests(w1=w1, w2=w2, h1=h1, h2=h2, da=da, pages=pages))
     return data, da, pages, q, (w1, w2, h1, h2)
 
 
@@ -57,26 +59,75 @@ def _torch_value_and_grads(args, pages, q, seed, u24=None):
     return loss.item(), [t.grad.numpy() for t in ts]
 
 
-def _check_u24_zero(port_out, jax_out, args, da, q):
+def _port_then_jax(args, pages, q, jpages):
+    """The port's plain value and grads under u24 = 0, then the JAX
+    kernel's (interpret mode) on ``jpages``; the port runs first, and the
+    digests of its outputs before the JAX call come with them."""
+    port_out = _torch_value_and_grads(args, pages, q, seed=3,
+                                      u24=torch.zeros((), dtype=torch.int64))
+    port_out = (port_out[0], *port_out[1])
+    before = _digests_of(port_out)
+    with pltpu.force_tpu_interpret_mode():
+        jval, jgrads = jax.value_and_grad(
+            lambda a: dense_bce_nn_sum(*a, jpages, jnp.asarray(q),
+                                       jax.random.key(3)))(
+            tuple(map(jnp.asarray, args)))
+    return port_out, (float(jval), *map(np.asarray, jgrads)), before
+
+
+_NAMES = ("value", "dw1", "dw2", "dh1", "dh2")
+
+
+def _digests_of(port_out):
+    return digests(**{f"port {k} (before the JAX call)": np.asarray(
+        v, np.float64 if k == "value" else np.float32)
+        for k, v in zip(_NAMES, port_out)})
+
+
+def _check_u24_zero(port_out, jax_out, args, da, pages, q, built, before):
     """The port's plain version and the JAX kernel under u24 = 0, each
     against the float64 oracle and against each other, within a few
     float32 roundings of the sum of each result's absolute terms
     (tests/torch_tile_math.py: PLAIN_ULPS_NN for the plain version,
     JAX_ULPS where the JAX kernel takes part): with u24 = 0 every
     non-positive cell counts, so dh sums ~n * R terms of O(1) that cancel
-    to small entries."""
+    to small entries.  The port's outputs must come through the JAX call
+    unchanged (``before``: their digests); a failing port reading
+    recomputes the port from fresh copies of the inputs, checks the
+    inputs against ``built`` and names the cell with the largest error
+    (``torch_tile_math.diagnosis``)."""
     dan = np.asarray(da, np.float64)
     cnt = (q > 0).sum(1)[:, None, None] * (dan == 0)
     oracle, sabs = _oracle(args, dan, cnt, abs_sums=True)
-    names = ("value", "dw1", "dw2", "dh1", "dh2")
-    for name, got, want, exact, s in zip(names, port_out, jax_out, oracle,
-                                         sabs):
-        assert_within_sum_bound(got, exact, s, f"port {name} vs float64",
-                                PLAIN_ULPS_NN)
-        assert_within_sum_bound(want, exact, s, f"JAX {name} vs float64",
-                                JAX_ULPS)
-        assert_within_sum_bound(got, want, s, f"port {name} vs JAX",
-                                JAX_ULPS)
+
+    def cells():
+        w1, w2, h1, h2 = (torch.tensor(a) for a in args)
+        lg = (h2 @ w2.T).T[:, :, None] + (h1 @ w1.T).T[:, None, :]
+        sp = port.softplus(-lg)
+        dat = torch.from_numpy(dan.astype(np.float32))
+        ct = torch.from_numpy(cnt.astype(np.float32))
+        t32 = (sp * dat + (sp + lg) * ct).numpy()
+        w1, w2, h1, h2 = (np.asarray(a, np.float64) for a in args)
+        L = (h2 @ w2.T).T[:, :, None] + (h1 @ w1.T).T[:, None, :]
+        sp64 = np.logaddexp(0.0, -L)
+        return t32, sp64 * dan + (sp64 + L) * cnt, dict(
+            logit32=lg.numpy(), logit64=L, count=cnt, page=dan)
+
+    inputs = dict(zip(("w1", "w2", "h1", "h2"), args), da=da, pages=pages)
+    assert_readings(
+        _NAMES, port_out, jax_out, oracle, sabs, PLAIN_ULPS_NN,
+        lambda: diagnosis(
+            lambda: (lambda v, g: (v, *g))(*_torch_value_and_grads(
+                [a.copy() for a in args], pages.copy(), q.copy(), seed=3,
+                u24=torch.zeros((), dtype=torch.int64))),
+            _NAMES, oracle, sabs, PLAIN_ULPS_NN, dict(built, **before),
+            dict(inputs, **{f"port {k} (before the JAX call)": np.asarray(
+                v, np.float64 if k == "value" else np.float32)
+                for k, v in zip(_NAMES, port_out)}),
+            cells))
+    after = _digests_of(port_out)
+    moved = [k for k in after if after[k] != before[k]]
+    assert not moved, f"the JAX call changed the port's outputs {moved}"
 
 
 def test_plain_u24_zero_matches_jax_interpret_kernel(setup):
@@ -85,16 +136,9 @@ def test_plain_u24_zero_matches_jax_interpret_kernel(setup):
     q = np.zeros((data.n_et, 3), np.int32)
     for t, c in enumerate([0, 1, 2, 3, 1, 2]):
         q[t, :c] = 7
-    dap = jnp.asarray(pad_dense_adj(da.astype(np.float32)))
-    with pltpu.force_tpu_interpret_mode():
-        jval, jgrads = jax.value_and_grad(
-            lambda a: dense_bce_nn_sum(*a, dap, jnp.asarray(q),
-                                       jax.random.key(3)))(
-            tuple(map(jnp.asarray, args)))
-    val, grads = _torch_value_and_grads(args, pages, q, seed=3,
-                                        u24=torch.zeros((), dtype=torch.int64))
-    _check_u24_zero((val, *grads), (float(jval), *map(np.asarray, jgrads)),
-                    args, da, q)
+    port_out, jax_out, before = _port_then_jax(
+        args, pages, q, jnp.asarray(pad_dense_adj(da.astype(np.float32))))
+    _check_u24_zero(port_out, jax_out, args, da, pages, q, _BUILT, before)
 
 
 def _oracle(args, da, cnt, abs_sums: bool = False):
@@ -257,14 +301,7 @@ def test_plain_u24_zero_on_float32_pages_past_255_matches_jax(setup):
     da[2, 7, 9] += 300.0
     q = np.zeros((data.n_et, 3), np.int32)
     q[::2, :2] = 7
-    with pltpu.force_tpu_interpret_mode():
-        jval, jgrads = jax.value_and_grad(
-            lambda a: dense_bce_nn_sum(*a, jnp.asarray(pad_dense_adj(da)),
-                                       jnp.asarray(q), jax.random.key(3)))(
-            tuple(map(jnp.asarray, args)))
-    ts = [torch.tensor(a, requires_grad=True) for a in args]
-    loss = port.dense_bce_nn_sum(*ts, torch.from_numpy(da), torch.from_numpy(q),
-                                 3, u24=torch.zeros((), dtype=torch.int64))
-    loss.backward()
-    _check_u24_zero((loss.item(), *(t.grad.numpy() for t in ts)),
-                    (float(jval), *map(np.asarray, jgrads)), args, da, q)
+    built = dict(_BUILT, da=digest(da), pages=digest(da))
+    port_out, jax_out, before = _port_then_jax(
+        args, da, q, jnp.asarray(pad_dense_adj(da)))
+    _check_u24_zero(port_out, jax_out, args, da, da, q, built, before)

@@ -25,10 +25,12 @@ from tip_tpu.data.packing import (
 )
 from tip_tpu.ops.pallas_dense_bce_sym import dense_bce_sym_sum
 from tests.torch_tile_math import (
-    JAX_ULPS, PLAIN_ULPS, assert_within_sum_bound, mma, split,
+    PLAIN_ULPS, assert_readings, diagnosis, digests, mma, split,
 )
 from tip_tpu_torch import kernels
 from tip_tpu_torch.ops import dense_bce_sym as port
+
+_BUILT = {}  # digests of the fixture's inputs, taken when it built them
 
 
 @pytest.fixture(scope="module")
@@ -43,6 +45,7 @@ def setup():
     rng = np.random.default_rng(0)
     w = (rng.standard_normal((data.n_et, 8)) * 0.3).astype(np.float32)
     z = (rng.standard_normal((data.n_drug, 8)) * 0.5).astype(np.float32)
+    _BUILT.update(digests(da=da, w=w, z=z, pages=pages))
     return data, da, pages, q8, w, z
 
 
@@ -57,8 +60,8 @@ def _torch_value_and_grads(w, z, pages, q8, seed, u24=None):
 
 def _oracle_u24_zero(w, z, da, q8):
     """float64 value, dw and dz of the symmetric estimator under u24 = 0
-    on the full matrix, and the sums of the absolute values of the terms
-    of each: a cell counts #{k : q_k > 0} of its rate class, the
+    on the full matrix, the sums of the absolute values of the terms of
+    each, and the count field: a cell counts #{k : q_k > 0} of its rate class, the
     diagonal 128-blocks' single rate for themselves, the doubled rate of a
     mirrored pair split evenly between its two cells."""
     wn, zn, dan = (np.asarray(x, np.float64) for x in (w, z, da))
@@ -78,7 +81,7 @@ def _oracle_u24_zero(w, z, da, q8):
           + np.einsum("tf,tnm,nf->mf", wn, g, zn))
     sdz = (np.einsum("tf,tnm,mf->nf", np.abs(wn), np.abs(g), np.abs(zn))
            + np.einsum("tf,tnm,nf->mf", np.abs(wn), np.abs(g), np.abs(zn)))
-    return (val, dw, dz), (sval, sdw, sdz)
+    return (val, dw, dz), (sval, sdw, sdz), cnt
 
 
 def test_plain_u24_zero_matches_jax_interpret_kernel(setup):
@@ -87,13 +90,23 @@ def test_plain_u24_zero_matches_jax_interpret_kernel(setup):
     within a few float32 roundings of the sum of each result's absolute
     terms (tests/torch_tile_math.py: PLAIN_ULPS for the plain version,
     JAX_ULPS where the JAX kernel takes part): the error of an f32 sum is
-    bounded relative to that sum, and dw's and dz's elements cancel."""
+    bounded relative to that sum, and dw's and dz's elements cancel.
+
+    The port runs first, and its inputs and outputs must come through the
+    JAX call unchanged; a failing port reading recomputes the port from
+    fresh copies of the inputs, checks the inputs against their digests
+    from the fixture and names the cell with the largest error
+    (``torch_tile_math.diagnosis``)."""
     data, da, pages, _, w, z = setup
     # per-rate-class counts #{k: q_k > 0}, varied over relations
     q8 = np.zeros((data.n_et, 8), np.int32)
     for t, (cs, cd) in enumerate(zip([0, 1, 2, 3, 1], [1, 2, 0, 4, 3])):
         q8[t, :cs] = 7
         q8[t, 4:4 + cd] = 7
+    port_out = _torch_value_and_grads(w, z, pages, q8, seed=5,
+                                      u24=torch.zeros((), dtype=torch.int64))
+    port_digests = digests(value=np.float64(port_out[0]), dw=port_out[1],
+                           dz=port_out[2])
     # TPU interpret mode keeps one process-wide simulated memory: start
     # from a fresh one, whatever an earlier test in this process left
     # behind, and run the fused kernel as one jitted program to its end
@@ -109,18 +122,43 @@ def test_plain_u24_zero_matches_jax_interpret_kernel(setup):
     with pltpu.force_tpu_interpret_mode():
         jval, (jdw, jdz) = jax.block_until_ready(
             value_and_grad(jnp.asarray(w), jnp.asarray(z)))
-    port_out = _torch_value_and_grads(w, z, pages, q8, seed=5,
-                                      u24=torch.zeros((), dtype=torch.int64))
     jax_out = (float(jval), np.asarray(jdw), np.asarray(jdz))
-    oracle, sabs = _oracle_u24_zero(w, z, da, q8)
-    for name, got, want, exact, s in zip(("value", "dw", "dz"), port_out,
-                                         jax_out, oracle, sabs):
-        assert_within_sum_bound(got, exact, s, f"port {name} vs float64",
-                                PLAIN_ULPS)
-        assert_within_sum_bound(want, exact, s, f"JAX {name} vs float64",
-                                JAX_ULPS)
-        assert_within_sum_bound(got, want, s, f"port {name} vs JAX",
-                                JAX_ULPS)
+    oracle, sabs, cnt = _oracle_u24_zero(w, z, da, q8)
+    after = digests(value=np.float64(port_out[0]), dw=port_out[1],
+                    dz=port_out[2])
+    moved = [k for k in after if after[k] != port_digests[k]]
+
+    def cells():
+        # the symmetric kernel sums stored strip cells; per cell of the
+        # full matrix, the same terms (a mirrored pair's count split)
+        zt, wt = torch.tensor(z), torch.tensor(w)
+        lg = (zt[None] * wt[:, None, :]) @ zt.T
+        sp = port.softplus(-lg)
+        dat = torch.from_numpy(da.astype(np.float32))
+        ct = torch.from_numpy(cnt.astype(np.float32))
+        t32 = (sp * dat + (sp + lg) * ct).numpy()
+        L = np.einsum("nf,tf,mf->tnm", *(x.astype(np.float64)
+                                         for x in (z, w, z)))
+        sp64 = np.logaddexp(0.0, -L)
+        dan = da.astype(np.float64)
+        return t32, sp64 * dan + (sp64 + L) * cnt, dict(
+            logit32=lg.numpy(), logit64=L, count=cnt, page=dan)
+
+    names = ("value", "dw", "dz")
+    assert_readings(
+        names, port_out, jax_out, oracle, sabs, PLAIN_ULPS,
+        lambda: diagnosis(
+            lambda: _torch_value_and_grads(
+                w.copy(), z.copy(), pages.copy(), q8.copy(), seed=5,
+                u24=torch.zeros((), dtype=torch.int64)),
+            names, oracle, sabs, PLAIN_ULPS,
+            dict(_BUILT, **{f"port {k} (before the JAX call)": v
+                            for k, v in port_digests.items()}),
+            dict(da=da, w=w, z=z, pages=pages,
+                 **{f"port {k} (before the JAX call)": a for k, a in
+                    zip(names, (np.float64(port_out[0]), *port_out[1:]))}),
+            cells))
+    assert not moved, f"the JAX call changed the port's outputs {moved}"
 
 
 @pytest.mark.parametrize("mode", ["positives_only", "saturated"])

@@ -171,3 +171,58 @@ def test_ring_buffer_slots_are_aligned():
         assert comm.fits(n_local, d) and not comm.fits(n_local + 64, d)
         assert comm.slot(0, 1) - comm.slot(0, 0) == slot
         assert comm.slot(0, 0) == ops_ring.HEADER
+
+
+def emulate_ring_block(h, src, dst, w):
+    """csrc/ring_spmm.cu's SpMM over one ring block in float32, in its
+    order: a warp a window of 32 slots finds the slots of its window where
+    a run starts (slot 0, or a destination above the previous slot's: the
+    pad tail, dst 0 after the last real row, starts none), and sums each
+    such run in slot order, on past its window while the destination
+    stays; one write a run."""
+    f = np.float32
+    out = np.zeros_like(h)
+    writes = 0
+    for e0 in range(len(dst)):
+        if e0 and dst[e0 - 1] >= dst[e0]:
+            continue
+        s, e = np.zeros(h.shape[1], f), e0
+        while e < len(dst) and dst[e] == dst[e0]:
+            s = s + h[src[e]] * f(w[e])
+            e += 1
+        out[dst[e0]] = out[dst[e0]] + s
+        writes += 1
+    return out, writes
+
+
+@pytest.mark.parametrize("case", ["ring", "ends_on_row0", "empty"])
+def test_ring_kernel_run_order_emulation_matches_plain(data, case):
+    """The ring kernel's run discovery and slot-order sums
+    (emulate_ring_block) give the plain block product on every block of a
+    ring of 4, on a block whose real edges end on row 0 (the pad tail
+    extends that run by zeros) and on a block of pads only; one write a
+    destination row."""
+    _, td = data
+    ring = build_ring_pp(td.pp_norm_index, td.pp_norm_weight, td.dp_edge_index,
+                         td.n_prot, K)
+    rng = np.random.default_rng(3)
+    h = rng.standard_normal((ring.n_local, D)).astype(np.float32)
+    blocks = [(ring.src_local[i, s], ring.dst_local[i, s], ring.weight[i, s])
+              for i in range(K) for s in range(K)]
+    e_pad = blocks[0][0].shape[0]
+    if case == "ends_on_row0":
+        src = rng.integers(0, ring.n_local, e_pad).astype(np.int32)
+        dst = np.zeros(e_pad, np.int32)
+        w = np.zeros(e_pad, np.float32)
+        w[:7] = rng.standard_normal(7)
+        blocks = [(src, dst, w)]
+    elif case == "empty":
+        blocks = [(np.zeros(e_pad, np.int32), np.zeros(e_pad, np.int32),
+                   np.zeros(e_pad, np.float32))]
+    for src, dst, w in blocks:
+        got, writes = emulate_ring_block(h, src, dst, w)
+        want = np.zeros_like(h, dtype=np.float64)
+        np.add.at(want, dst, h[src].astype(np.float64) * w[:, None])
+        np.testing.assert_allclose(got, want, atol=1e-5)
+        real = dst[w != 0]
+        assert writes == max(1, len(np.unique(real)))

@@ -7,12 +7,20 @@ shared by the tests of kernels B1, B2 and B3.
 * ``softplus_sigmoid``: the cell's softplus(-x) and sigmoid(-x) from one
   exponential, in float32, with the approximate ex2 and lg2 of the card
   perturbed by their documented worst-case errors.
-* ``assert_within_sum_bound``: a float32 result against a float64 one,
-  within a multiple of the unit roundoff times the sum of the absolute
-  values of the terms that make it up.  The error of a float32 sum is
-  bounded relative to that sum, not to the result, which may cancel.
-  ``PLAIN_ULPS``, ``PLAIN_ULPS_NN`` and ``JAX_ULPS`` are the multiples.
+* ``assert_readings``: the three readings of a u24 = 0 parity test (port
+  and JAX kernel against a float64 oracle, port against JAX), each a
+  float32 result against another within a multiple of the unit roundoff
+  times the sum of the absolute values of the terms that make it up (the
+  error of a float32 sum is bounded relative to that sum, not to the
+  result, which may cancel; ``PLAIN_ULPS``, ``PLAIN_ULPS_NN`` and
+  ``JAX_ULPS`` are the multiples), all taken before it raises; a failing
+  port reading appends the test's diagnosis (``diagnosis``: a
+  recomputation from fresh copies of the inputs, the inputs' digests
+  against those taken when the fixture built them, and the terms of the
+  cell with the largest error).
 """
+
+import hashlib
 
 import numpy as np
 
@@ -21,9 +29,9 @@ U32 = 2.0 ** -24  # unit roundoff of float32
 # |terms| of each result.  The port's plain versions against the float64
 # oracles, bit-stable over thread counts and MKL's and ATen's CPU kernels:
 # they read <= 1.1 on B1's and B2's inputs (PLAIN_ULPS) and <= 6.9 on B3's
-# (<= 8.5 under MKL_CBWR=COMPATIBLE; PLAIN_ULPS_NN), so a drift like the
-# one B1's dw showed once under pytest-xdist (18.8, cause not found) fails
-# and prints its reading.  The JAX interpret kernels against the oracles
+# (<= 8.5 under MKL_CBWR=COMPATIBLE; PLAIN_ULPS_NN), so a drift like those
+# seen under pytest-xdist (B1's dw at 18.8, B2's value at 61.6; cause not
+# found) fails and prints its readings and diagnosis.  The JAX interpret kernels against the oracles
 # read <= 7.9, and the port against them <= 10.6 (JAX_ULPS).
 PLAIN_ULPS = 8
 PLAIN_ULPS_NN = 16
@@ -85,20 +93,114 @@ def softplus_sigmoid(x, ex2_sign: int = 0, lg2_sign: int = 0,
     return sp, sg
 
 
-def assert_within_sum_bound(got, want, sabs, what: str, ulps: float) -> None:
-    """Assert |got - want| <= ulps * U32 * sabs elementwise; the message
-    gives the largest error in units of U32 * sabs, and the process's
-    torch settings that could change a CPU result."""
-    err = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
-    scale = U32 * np.asarray(sabs, np.float64)
+def sum_bound_reading(got, want, sabs):
+    """(largest |got - want| in units of U32 * sabs, the element where it
+    lies, got, want and sabs there)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    sabs = np.broadcast_to(np.asarray(sabs, np.float64), got.shape)
+    err = np.abs(got - want)
     with np.errstate(divide="ignore", invalid="ignore"):
-        ratio = float(np.max(np.where(err == 0, 0.0, err / scale)))
-    if ratio <= ulps:
-        return
+        ratio = np.where(err == 0, 0.0, err / (U32 * sabs))
+    ratio = np.where(np.isnan(ratio), np.inf, ratio)
+    at = np.unravel_index(int(np.argmax(ratio)), ratio.shape)
+    return float(ratio[at]), tuple(int(i) for i in at), float(got[at]), \
+        float(want[at]), float(sabs[at])
+
+
+def _torch_settings() -> str:
     import torch
 
-    raise AssertionError(
-        f"{what}: error {ratio:.2f} x U32 x sum|terms|, bound {ulps} (torch "
-        f"{torch.__version__}, {torch.get_num_threads()} threads, CPU "
-        f"capability {torch.backends.cpu.get_cpu_capability()}, float32 "
-        f"matmul precision {torch.get_float32_matmul_precision()})")
+    return (f"torch {torch.__version__}, {torch.get_num_threads()} threads, "
+            f"CPU capability {torch.backends.cpu.get_cpu_capability()}, "
+            f"float32 matmul precision "
+            f"{torch.get_float32_matmul_precision()}")
+
+
+def _reading_line(what, got, want, sabs, ulps):
+    ratio, at, g, w, s = sum_bound_reading(got, want, sabs)
+    flag = "FAIL" if ratio > ulps else "ok"
+    return ratio > ulps, (f"{flag} {what}: {ratio:.2f} x U32 x sum|terms| "
+                          f"(bound {ulps}) at {at}: {g!r} against {w!r}, "
+                          f"sum|terms| {s!r}")
+
+
+def assert_readings(names, port_out, jax_out, exact, sabs, port_ulps: float,
+                    diagnose=None) -> None:
+    """The u24 = 0 parity test's three readings of each result: the port's
+    plain version against the float64 oracle (``port_ulps``), the JAX
+    kernel against the oracle and the port against the JAX kernel
+    (JAX_ULPS).  Every reading is taken before anything raises; the
+    message lists them all with the process's torch settings and, when a
+    port reading fails, the text of ``diagnose()``, run in this same
+    process."""
+    failed = port_failed = False
+    lines = []
+    for name, got, want, ex, s in zip(names, port_out, jax_out, exact, sabs):
+        for what, a, b, ulps, port in (
+                (f"port {name} vs float64", got, ex, port_ulps, True),
+                (f"JAX {name} vs float64", want, ex, JAX_ULPS, False),
+                (f"port {name} vs JAX", got, want, JAX_ULPS, False)):
+            bad, line = _reading_line(what, a, b, s, ulps)
+            lines.append(line)
+            failed |= bad
+            port_failed |= bad and port
+    if not failed:
+        return
+    if port_failed and diagnose is not None:
+        lines.append("diagnosis, same process:")
+        lines.append(diagnose())
+    raise AssertionError("\n".join(lines + [_torch_settings()]))
+
+
+def digest(x) -> str:
+    """A short sha256 of an array's or tensor's bytes, its dtype and shape:
+    shows whether an input changed after it was built."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        h = hashlib.sha256(f"{x.dtype}{tuple(x.shape)}".encode())
+        x = x.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy()
+    else:
+        x = np.ascontiguousarray(x)
+        h = hashlib.sha256(f"{x.dtype}{x.shape}".encode())
+    h.update(x.view(np.uint8).tobytes())
+    return h.hexdigest()[:16]
+
+
+def digests(**arrays) -> dict:
+    return {k: digest(v) for k, v in arrays.items()}
+
+
+def diagnosis(recompute, names, exact, sabs, port_ulps, built: dict,
+              now: dict, cells=None) -> str:
+    """The diagnosis of a failing port reading.
+
+    recompute: () -> the port's plain outputs from fresh copies of the
+        fixture's inputs, in the order of ``names``; their readings
+        against the float64 oracle follow.
+    built, now: digests of the inputs when the fixture (or the test) built
+        them, and the arrays now; which changed.
+    cells: optional () -> (float32 terms, float64 terms, labels): arrays of
+        each cell's share of the value, recomputed in float32 by torch and
+        in float64, and a dict of per-cell arrays (logit, count, page
+        value, ...); the cell with the largest error and its terms."""
+    lines = []
+    for name, got, ex, s in zip(names, recompute(), exact, sabs):
+        lines.append(_reading_line(f"recomputed port {name} vs float64", got,
+                                   ex, s, port_ulps)[1])
+    for k, arr in now.items():
+        d = digest(arr)
+        lines.append(f"input {k}: digest {d} "
+                     + ("unchanged" if d == built[k]
+                        else f"CHANGED from {built[k]}"))
+    if cells is not None:
+        t32, t64, labels = cells()
+        err = np.abs(np.asarray(t32, np.float64) - t64)
+        at = tuple(int(i) for i in
+                   np.unravel_index(int(np.argmax(err)), err.shape))
+        terms = ", ".join(
+            f"{k} {float(np.broadcast_to(v, err.shape)[at])!r}"
+            for k, v in labels.items())
+        lines.append(f"cell with the largest float32 error {at}: "
+                     f"{float(t32[at])!r} against {float(t64[at])!r}; {terms}")
+    return "\n".join(lines)

@@ -1,5 +1,4 @@
-// Order-preserving block-wide compaction, shared by the run-sum kernels
-// (gcn_spmm.cu, ring_spmm.cu).
+// Order-preserving block-wide compaction of the run-sum kernel gcn_spmm.cu.
 #pragma once
 
 #include <cuda_runtime.h>

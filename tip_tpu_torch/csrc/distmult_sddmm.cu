@@ -20,25 +20,35 @@
 // rows of z directly, and the backward gathers again rather than reading
 // saved endpoints (2 x 0.58 GB a call at Decagon shape).
 //
-// Design.  One thread per slot; persistent blocks walk the chunks.  The
-// forward is distmult_fwd.cuh's, which the v1 kernel B6 launches too.  Two
-// table modes, which the wrapper picks by what fits a block's shared
-// memory:
-//   shared (forward n <= 3,417, backward n <= 1,693): the whole table (n + 1
-//     rows of d + 1 floats: the odd row stride spreads random rows over the
-//     banks) is loaded once per block; the backward keeps a second table,
-//     the dz accumulator, in shared memory too, writes one partial per
-//     block, and a second pass sums the partials in block order;
-//   global (any n): the rows are read from zp in global memory (L2-resident:
-//     64 bytes a node) and dz is added straight into a zeroed global
-//     [n + 1, d] accumulator.
-// In both, a warp whose slots share a dst, as the dst-sorted positives do,
-// first sums its dst contributions with a segmented shuffle scan and adds
-// each run's total once.  dwc is a fixed-order block reduction per chunk,
-// and dw a per-relation sum over its chunk range (found by binary search on
-// the sorted chunk_type), so dw does not depend on the chunks' order of
-// execution.  The forward is deterministic; dz adds atomically in no fixed
-// order, so the backward's dz is not bit-for-bit deterministic.
+// Design.  The forward is distmult_fwd.cuh's (one thread a slot over a
+// shared-memory z table up to n = 3,417, one lane quad a slot reading z
+// through L1 past it), which the v1 kernel B6 launches too.  The backward
+// gives each slot to a quad of lanes, one float4 of its 16 features a
+// lane, so a slot's 16 scatters to a row are four 16-byte reductions to
+// consecutive addresses and its two z rows four 16-byte reads (the first
+// version gave a slot one thread, which added 16 floats to random rows of
+// a shared-memory table by compare-and-swap loops: 2.7 times slower, and
+// 27 times in global memory):
+//   * dz lives in a zeroed device table [n + 1, 16] (98 KB at n = 1,536:
+//     it stays in L2) and takes native float4 reductions (red.global.add
+//     .v4.f32 through atomicAdd(float4*), sm_90), never shared-memory
+//     float atomics, which are compare-and-swap loops on this card; no
+//     per-block partials, so no pass sums them;
+//   * a quad walks 16 consecutive slots of a chunk in order and keeps a
+//     run sum for each side: while its slots' src (dst) stays the same row
+//     it adds their contributions in registers and reduces the run's total
+//     once.  The positives are dst-sorted inside a chunk (runs of ~5 at
+//     1,536 x 800), and the pad tail (src 0, dst n) is one run a side;
+//   * z is read as float4 rows from device memory through L1 (any n: 64
+//     bytes a node); a copy in shared memory measured no faster;
+//   * dwc[c] is a fixed-order reduction (each quad's slots in order, the
+//     quads by a shuffle tree, the warps in order), and dw a per-relation
+//     sum over its chunk range in chunk order, so dw does not depend on
+//     the blocks' order of execution.  dz takes its reductions in no fixed
+//     order: it is not bit-for-bit deterministic.
+// With round_bf16 each contribution is rounded to bf16 before it enters a
+// run sum.  The chunk length must be a multiple of 16 (the wrapper
+// checks).
 //
 // Bound on an H100 at Decagon shape (~9.0 M slots, d = 16): the forward
 // must read src and dst and write the logit, 12 bytes a slot (~108 MB),
@@ -49,18 +59,16 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
 
 #include "distmult_fwd.cuh"
 
 namespace {
 
-using distmult_fwd::load_table;
-using distmult_fwd::table_bytes;
-
 constexpr int D = 16;
-constexpr int BWD_THREADS = 1024;
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_WARPS = BWD_THREADS / 32;
+constexpr int SEG = 16;  // slots a quad walks in order
 constexpr int AUX_THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -68,112 +76,117 @@ __device__ __forceinline__ float maybe_bf16(float v, int round_bf16) {
   return round_bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
-// shared: writes this block's dz partial to dz_out[blockIdx.x] ([n][D]);
-// global: adds into dz_out itself ([n + 1][D], zeroed by the caller).
-template <bool SHARED>
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
+// (g * x) * w per component, each rounded to bf16 with round_bf16
+__device__ __forceinline__ float4 contrib(float gv, float4 x, float4 w,
+                                          int round_bf16) {
+  return make_float4(
+      maybe_bf16(__fmul_rn(__fmul_rn(gv, x.x), w.x), round_bf16),
+      maybe_bf16(__fmul_rn(__fmul_rn(gv, x.y), w.y), round_bf16),
+      maybe_bf16(__fmul_rn(__fmul_rn(gv, x.z), w.z), round_bf16),
+      maybe_bf16(__fmul_rn(__fmul_rn(gv, x.w), w.w), round_bf16));
+}
+
+// v.x, v.y, v.z or v.w (i a constant once the caller's loop is unrolled)
+__device__ __forceinline__ int pick(int4 v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float pick(float4 v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// The quad's four lanes (q = lane & 3) add a run's total to row r.
+__device__ __forceinline__ void reduce_row(float* dz, int r, int q, float4 v) {
+  atomicAdd(reinterpret_cast<float4*>(dz + (size_t)r * D) + q, v);
+}
+
+// dz: [n + 1][D], zeroed by the caller; dwc: [n_chunks][D].
 __global__ void __launch_bounds__(BWD_THREADS)
 dm_bwd(const float* __restrict__ zp, const float* __restrict__ w,
        const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
        const int32_t* __restrict__ ct, const float* __restrict__ g, int n_chunks,
-       int C, int n, int round_bf16, float* __restrict__ dz_out,
+       int C, int n, int round_bf16, float* __restrict__ dz,
        float* __restrict__ dwc) {
-  extern __shared__ float smem[];  // shared: z [n + 1][D + 1], then dz the same
-  __shared__ float red[BWD_THREADS / 32][D];
-  constexpr int S = SHARED ? D + 1 : D;
-  const float* tab = zp;
-  float* acc = dz_out;
-  if (SHARED) {
-    load_table(zp, n, smem);
-    acc = smem + (n + 1) * (D + 1);
-    for (int i = threadIdx.x; i < (n + 1) * (D + 1); i += blockDim.x) acc[i] = 0.f;
-    __syncthreads();
-    tab = smem;
-  }
+  __shared__ float red[BWD_WARPS][D];
+  const float4* tab = reinterpret_cast<const float4*>(zp);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+  const int q = lane & 3, quad = lane >> 2;
+  const int nseg = C / SEG;
 
   for (int c = blockIdx.x; c < n_chunks; c += gridDim.x) {
-    const float* wt = w + (size_t)ct[c] * D;
-    float wr[D], dwl[D];
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      wr[k] = wt[k];
-      dwl[k] = 0.f;
-    }
-    const size_t base = (size_t)c * C;
-    for (int j0 = 0; j0 < C; j0 += blockDim.x) {  // uniform: whole warps
-      const int j = j0 + threadIdx.x;
-      const bool act = j < C;
-      const int s = act ? src[base + j] : 0;
-      const int dd = act ? dst[base + j] : n;  // row n: the zero row
-      const float gv = act ? g[base + j] : 0.f;
-      // The positive buffer is dst-sorted inside a chunk, so a warp's lanes
-      // often share one dst: there they sum their dst contributions with a
-      // segmented warp scan and one lane adds the run's total, instead of
-      // 32 atomics on one address.  Unsorted warps (the negatives) add
-      // their own.
-      const int key = act ? dd : INT_MAX;
-      const int prev = __shfl_up_sync(FULL, key, 1);
-      const bool sorted = __all_sync(FULL, lane == 0 || prev <= key);
-      int head = lane, tail = lane;
-      if (sorted) {
-        const unsigned seg = __match_any_sync(FULL, key);
-        head = __ffs(seg) - 1;
-        tail = 31 - __clz(seg);
+    const float4 wv = reinterpret_cast<const float4*>(w + (size_t)ct[c] * D)[q];
+    float4 dwl = make_float4(0.f, 0.f, 0.f, 0.f);
+    // warp-uniform: a warp takes 8 consecutive segments, a quad one
+    for (int s0 = warp * 8; s0 < nseg; s0 += BWD_WARPS * 8) {
+      const int seg = s0 + quad;
+      const bool act = seg < nseg;
+      // lane q of the quad holds slots 4q .. 4q + 3 of the segment
+      const size_t off = (size_t)c * C + (size_t)seg * SEG + 4 * q;
+      int4 s4 = make_int4(0, 0, 0, 0), d4 = make_int4(n, n, n, n);
+      float4 g4 = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (act) {
+        s4 = *reinterpret_cast<const int4*>(src + off);
+        d4 = *reinterpret_cast<const int4*>(dst + off);
+        g4 = *reinterpret_cast<const float4*>(g + off);
       }
-      const float* a = tab + (size_t)s * S;
-      const float* b = tab + (size_t)dd * S;
+      int rs = -1, rd = -1;  // the rows of the open runs
+      float4 as = make_float4(0.f, 0.f, 0.f, 0.f), ad = as;
 #pragma unroll
-      for (int k = 0; k < D; ++k) {
-        const float ak = a[k], bk = b[k];
-        if (act)
-          atomicAdd(&acc[(size_t)s * S + k],
-                    maybe_bf16(__fmul_rn(__fmul_rn(gv, bk), wr[k]), round_bf16));
-        float cd = maybe_bf16(__fmul_rn(__fmul_rn(gv, ak), wr[k]), round_bf16);
-        if (sorted) {
-#pragma unroll
-          for (int off = 1; off < 32; off <<= 1) {
-            const float o = __shfl_up_sync(FULL, cd, off);
-            if (lane - off >= head) cd = __fadd_rn(cd, o);
-          }
+      for (int it = 0; it < SEG; ++it) {
+        const int from = (lane & ~3) | (it >> 2);
+        const int s = __shfl_sync(FULL, pick(s4, it & 3), from);
+        const int dd = __shfl_sync(FULL, pick(d4, it & 3), from);
+        const float gv = __shfl_sync(FULL, pick(g4, it & 3), from);
+        const float4 a = __ldg(tab + (size_t)s * (D / 4) + q);
+        const float4 b = __ldg(tab + (size_t)dd * (D / 4) + q);
+        const float4 cs = contrib(gv, b, wv, round_bf16);
+        const float4 cd = contrib(gv, a, wv, round_bf16);
+        dwl.x = __fadd_rn(dwl.x, __fmul_rn(__fmul_rn(a.x, b.x), gv));
+        dwl.y = __fadd_rn(dwl.y, __fmul_rn(__fmul_rn(a.y, b.y), gv));
+        dwl.z = __fadd_rn(dwl.z, __fmul_rn(__fmul_rn(a.z, b.z), gv));
+        dwl.w = __fadd_rn(dwl.w, __fmul_rn(__fmul_rn(a.w, b.w), gv));
+        if (s == rs) {
+          as = add4(as, cs);
+        } else {
+          if (act && rs >= 0) reduce_row(dz, rs, q, as);
+          rs = s;
+          as = cs;
         }
-        if (act && lane == tail) atomicAdd(&acc[(size_t)dd * S + k], cd);
-        dwl[k] = __fadd_rn(dwl[k], __fmul_rn(__fmul_rn(ak, bk), gv));
+        if (dd == rd) {
+          ad = add4(ad, cd);
+        } else {
+          if (act && rd >= 0) reduce_row(dz, rd, q, ad);
+          rd = dd;
+          ad = cd;
+        }
+      }
+      if (act) {
+        reduce_row(dz, rs, q, as);
+        reduce_row(dz, rd, q, ad);
       }
     }
-    // fixed-order reduction of dwl over the block
+    // fixed-order reduction of dwl: the 8 quads of a warp by a shuffle
+    // tree, then the warps in order
+    float v[4] = {dwl.x, dwl.y, dwl.z, dwl.w};
 #pragma unroll
-    for (int k = 0; k < D; ++k) {
-      float v = dwl[k];
+    for (int k = 0; k < 4; ++k) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v = __fadd_rn(v, __shfl_down_sync(FULL, v, off));
-      if (lane == 0) red[warp][k] = v;
+      for (int o = 16; o >= 4; o >>= 1)
+        v[k] = __fadd_rn(v[k], __shfl_down_sync(FULL, v[k], o));
+      if (lane < 4) red[warp][4 * q + k] = v[k];
     }
     __syncthreads();
     if (threadIdx.x < D) {
-      float v = 0.f;
-      for (int q = 0; q < nwarps; ++q) v = __fadd_rn(v, red[q][threadIdx.x]);
-      dwc[(size_t)c * D + threadIdx.x] = v;
+      float t = 0.f;
+      for (int u = 0; u < BWD_WARPS; ++u) t = __fadd_rn(t, red[u][threadIdx.x]);
+      dwc[(size_t)c * D + threadIdx.x] = t;
     }
     __syncthreads();
   }
-
-  if (SHARED) {
-    float* out = dz_out + (size_t)blockIdx.x * n * D;
-    for (int i = threadIdx.x; i < n * D; i += blockDim.x)
-      out[i] = acc[(i / D) * (D + 1) + i % D];
-  }
-}
-
-// out[i] = sum over b of part[b][i], in b order.
-__global__ void sum_parts(const float* __restrict__ part, int blocks, int count,
-                          float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  float s = 0.f;
-  for (int b = 0; b < blocks; ++b) s += part[(size_t)b * count + i];
-  out[i] = s;
 }
 
 // dw[t, k] = sum of dwc[c, k] over the chunks c of relation t, in chunk
@@ -197,11 +210,10 @@ __global__ void dw_by_relation(const float* __restrict__ dwc,
 }  // namespace
 
 // Plain C entry points (bound with ctypes by ops/sddmm2.py).  zp is z
-// [n, 16] with a zero row appended; `shared` picks the table mode, and
-// the wrapper checks that a shared table fits.  Each returns the first
-// CUDA error.
+// [n, 16] with a zero row appended.  Each returns the first CUDA error.
 
-// out: [n_chunks, C] float32.
+// out: [n_chunks, C] float32; `shared` picks the forward's table mode, and
+// the wrapper checks that a shared table fits.
 extern "C" int tip_dm_fwd(const float* zp, const float* w, const int32_t* src,
                           const int32_t* dst, const int32_t* ct, int n_chunks,
                           int C, int n, int shared, int blocks, float* out,
@@ -210,33 +222,23 @@ extern "C" int tip_dm_fwd(const float* zp, const float* w, const int32_t* src,
                               blocks, out, (cudaStream_t)stream);
 }
 
-// g: [n_chunks, C]; scratch dz_part [blocks, n, 16] (shared mode only) and
-// dwc [n_chunks, 16]; outputs dz [n + 1, 16] (row n is scratch), dw
-// [n_et, 16].
+// g: [n_chunks, C]; scratch dwc [n_chunks, 16]; outputs dz [n + 1, 16]
+// (row n is scratch), dw [n_et, 16].  C a multiple of 16; `sms` the card's
+// SM count (the grid is as many blocks as fit them at once).
 extern "C" int tip_dm_bwd(const float* zp, const float* w, const int32_t* src,
                           const int32_t* dst, const int32_t* ct, const float* g,
                           int n_chunks, int C, int n, int n_et, int round_bf16,
-                          int shared, int blocks, float* dz_part, float* dwc,
-                          float* dz, float* dw, void* stream) {
+                          int sms, float* dwc, float* dz, float* dw,
+                          void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (shared) {
-    const int smem = 2 * table_bytes(n);
-    err = cudaFuncSetAttribute(dm_bwd<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    dm_bwd<true><<<blocks, BWD_THREADS, smem, s>>>(
-        zp, w, src, dst, ct, g, n_chunks, C, n, round_bf16, dz_part, dwc);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    const int count = n * D;
-    sum_parts<<<(count + AUX_THREADS - 1) / AUX_THREADS, AUX_THREADS, 0, s>>>(
-        dz_part, blocks, count, dz);
-  } else {
-    err = cudaMemsetAsync(dz, 0, (size_t)(n + 1) * D * sizeof(float), s);
-    if (err != cudaSuccess) return err;
-    dm_bwd<false><<<blocks, BWD_THREADS, 0, s>>>(
-        zp, w, src, dst, ct, g, n_chunks, C, n, round_bf16, dz, dwc);
-  }
+  cudaError_t err = cudaMemsetAsync(dz, 0, (size_t)(n + 1) * D * sizeof(float), s);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dm_bwd,
+                                                      BWD_THREADS, 0);
+  if (err != cudaSuccess) return err;
+  dm_bwd<<<(per_sm > 1 ? per_sm : 1) * sms, BWD_THREADS, 0, s>>>(
+      zp, w, src, dst, ct, g, n_chunks, C, n, round_bf16, dz, dwc);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   dw_by_relation<<<(n_et * D + AUX_THREADS - 1) / AUX_THREADS, AUX_THREADS, 0,
                    s>>>(dwc, ct, n_chunks, n_et, dw);

@@ -17,29 +17,39 @@
 //     (s + 1) % 2 through the neighbour's CUDA IPC pointer, when s < k - 1:
 //     the counterpart of make_async_remote_copy(...).start();
 //   * the other blocks run the block's SpMM over the same shard while the
-//     copy is in flight: block c stages slots [c*C, c*C + C) in shared
-//     memory, lists the slots where a run of equal destinations starts
-//     (compact.cuh), and one thread per (run, feature) sums the run in slot
-//     order, reading on into the next slots while the run lasts, and adds
-//     the sum to out once.  A destination below the previous slot's is the
-//     pad tail and starts no run (its slots have w = 0; where the real edges
-//     end on row 0 the tail extends that run by zeros).  Each row has one
-//     run a block, so out is read and written by one thread: no atomics,
-//     the result is deterministic.  out is zero-filled before step 0;
-//   * the pairwise neighbour barrier of the TPU kernel: every thread fences
-//     its writes system-wide, the last block to finish (a counter in this
-//     rank's buffer) bumps its step count in both neighbours' buffers (the
-//     left one's "from its right" word, the right one's "from its left"
-//     word) and waits, with acquire loads, until both of its own words reach
-//     `target`, its own step count.  So no rank enters step s + 1 before
-//     both neighbours finished step s: the right neighbour's copy into this
-//     rank's slot (s + 1) % 2 has landed, and the left neighbour no longer
-//     reads the slot this rank writes next.  One word a neighbour, not one
-//     sum: a neighbour that is a step ahead must not stand in for one that
-//     is a step behind.  Ranks time-sliced on one card wait for each other's
-//     contexts; the wait is bounded by timeout_ns (the card's global timer)
-//     and traps past it, so a lost neighbour ends in a launch error, not a
-//     hang.
+//     copy is in flight, one warp a window of 32 slots: the warp finds the
+//     slots of its window where a run of equal destinations starts (a
+//     ballot), and for each such run reads the run's src and w 32 slots at
+//     a time, one slot a lane, broadcasts them by shuffle, and has lane k
+//     gather h[src][k] for every slot of the 32 at once (independent loads
+//     in flight, not a chain), then sum them in slot order and add the run's
+//     sum to out[row][k] once.  A run that goes on past the window is
+//     followed by the warp that found its start.  A destination below the
+//     previous slot's is the pad tail and starts no run (its slots have w =
+//     0; where the real edges end on row 0 the tail extends that run by
+//     zeros).  Each row has one run a block, so out is read and written by
+//     one lane: no atomics, and the result is deterministic (each row's
+//     sum in slot order).  out is zero-filled before step 0;
+//   * the pairwise neighbour barrier of the TPU kernel: each block's
+//     threads meet at __syncthreads(), and then one thread fences system-
+//     wide (the fence is cumulative: it orders the block's writes that the
+//     barrier made visible to it) and counts the block done (a counter in
+//     this rank's buffer); the last block fences again, bumps its step
+//     count in both neighbours' buffers (the left one's "from its right"
+//     word, the right one's "from its left" word) and waits, with acquire
+//     loads, until both of its own words reach `target`, its own step
+//     count.  So no rank enters step s + 1 before both neighbours finished
+//     step s: the right neighbour's copy into this rank's slot (s + 1) % 2
+//     has landed, and the left neighbour no longer reads the slot this rank
+//     writes next.  One word a neighbour, not one sum: a neighbour that is a
+//     step ahead must not stand in for one that is a step behind.  Ranks
+//     time-sliced on one card wait for each other's contexts; the wait is
+//     bounded by timeout_ns (the card's global timer) and traps past it, so
+//     a lost neighbour ends in a launch error, not a hang.
+//
+// The first version staged 512 slots a block, had one thread a (run,
+// feature) walk its run with dependent loads, and fenced in every thread:
+// about twice as slow a step (PERF.md).
 //
 // The backward of the ring SpMM is this same op on the cotangent, because
 // the cached normalization A_hat is symmetric (ops/ring.py).
@@ -51,21 +61,20 @@
 // feature are ~0.1 us at 67 TFLOP/s, so bytes bound it, and at that size a
 // launch costs more than the work.  chip_smoke.py reckons the bound from
 // its run.  A block whose real edges all end on row 0 (or that has none)
-// sums its zero tail in one thread per feature: right, and slow; each block
-// of the Decagon-shaped ring holds 79,784-85,200 real edges.
+// sums its zero tail in one warp: right, and slow; each block of the
+// Decagon-shaped ring holds 79,784-85,200 real edges.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <cstring>
 
-#include "compact.cuh"
-
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int C = 512;  // slots a SpMM block stages (a multiple of THREADS)
+constexpr int WARPS = THREADS / 32;
 constexpr int COPY_BLOCKS = 32;
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ unsigned long long global_ns() {
   unsigned long long t;
@@ -82,6 +91,45 @@ __device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
   return v;
 }
 
+// out[dl] += sum of w[e] h[src[e]] over the run of destination dl that
+// starts at slot e0, in slot order; called by a whole warp.
+__device__ __forceinline__ void sum_run(const float* __restrict__ h,
+                                        const int32_t* __restrict__ src,
+                                        const int32_t* __restrict__ dst,
+                                        const float* __restrict__ w, int e_pad,
+                                        int d, int e0, int dl, int lane,
+                                        float* __restrict__ out) {
+  for (int k0 = 0; k0 < d; k0 += 32) {
+    const int k = k0 + lane;
+    // the row's value so far (one writer: read it while the run loads)
+    const float o = k < d ? out[(size_t)dl * d + k] : 0.f;
+    float s = 0.f;
+    for (int e = e0;; e += 32) {
+      // src and w load beside dst, not after it
+      const int g = e + lane;
+      const bool ok = g < e_pad;
+      const bool in = ok && dst[g] == dl;
+      const int sg = ok ? src[g] : 0;
+      const float wg = ok ? w[g] : 0.f;
+      // the run's slots in this group: those before the first that is not
+      const unsigned stay = __ballot_sync(FULL, in);
+      const int len = __ffs(~stay) ? __ffs(~stay) - 1 : 32;
+      float v[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int si = __shfl_sync(FULL, sg, i);
+        const float wi = __shfl_sync(FULL, wg, i);
+        v[i] = (i < len && k < d) ? __fmul_rn(h[(size_t)si * d + k], wi) : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (i < len) s = __fadd_rn(s, v[i]);
+      if (len < 32) break;
+    }
+    if (k < d) out[(size_t)dl * d + k] = __fadd_rn(o, s);
+  }
+}
+
 __global__ void __launch_bounds__(THREADS)
 ring_step(const float* __restrict__ h, float* __restrict__ peer,
           const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
@@ -89,12 +137,6 @@ ring_step(const float* __restrict__ h, float* __restrict__ peer,
           size_t n_copy, float* __restrict__ out, unsigned* done,
           unsigned* my_flag, unsigned* left_flag, unsigned* right_flag,
           unsigned target, unsigned long long timeout_ns) {
-  __shared__ int starts[C];
-  __shared__ int s_src[C];
-  __shared__ int s_dst[C];
-  __shared__ float s_w[C];
-  __shared__ int warp_tot[THREADS / 32];
-
   if ((int)blockIdx.x < copy_blocks) {
     // shard -> the left neighbour's spare slot, 16 bytes a thread where
     // both ends are 16-byte aligned (slots and shards are)
@@ -109,41 +151,30 @@ ring_step(const float* __restrict__ h, float* __restrict__ peer,
          i < n_copy; i += stride)
       peer[i] = h[i];
   } else {
-    const int base = (blockIdx.x - copy_blocks) * C;
-    const int len = min(C, e_pad - base);
-    int nr = 0;
-    for (int e0 = 0; e0 < C; e0 += blockDim.x) {
-      const int e = e0 + threadIdx.x;
-      bool f = false;
-      if (e < len) {
-        const int g = base + e;
-        const int dl = dst[g];
-        s_src[e] = src[g];
-        s_dst[e] = dl;
-        s_w[e] = w[g];
-        f = g == 0 || dst[g - 1] < dl;
-      }
-      nr += compact_step(f, e, starts, nr, warp_tot);
+    const int lane = threadIdx.x & 31;
+    const int base =
+        (((int)blockIdx.x - copy_blocks) * WARPS + (int)(threadIdx.x >> 5)) * 32;
+    const int g = base + lane;
+    bool f = false;
+    int dl = 0;
+    if (g < e_pad) {
+      dl = dst[g];
+      f = g == 0 || dst[g - 1] < dl;
     }
-    for (int i = threadIdx.x; i < nr * d; i += blockDim.x) {
-      const int r = i / d, k = i % d;
-      int e = starts[r];
-      const int dl = s_dst[e];
-      float s = 0.f;
-      for (; e < len && s_dst[e] == dl; ++e)
-        s = __fadd_rn(s, __fmul_rn(h[(size_t)s_src[e] * d + k], s_w[e]));
-      if (e == len)  // the run goes on into the next blocks' slots
-        for (int g = base + len; g < e_pad && dst[g] == dl; ++g)
-          s = __fadd_rn(s, __fmul_rn(h[(size_t)src[g] * d + k], w[g]));
-      float* o = out + (size_t)dl * d + k;
-      *o = __fadd_rn(*o, s);
+    // the runs that start in this window, in slot order
+    for (unsigned m = __ballot_sync(FULL, f); m; m &= m - 1) {
+      const int i = __ffs(m) - 1;
+      sum_run(h, src, dst, w, e_pad, d, base + i, __shfl_sync(FULL, dl, i),
+              lane, out);
     }
   }
 
   if (left_flag == nullptr) return;  // a ring of one: no neighbour
-  __threadfence_system();
   __syncthreads();
   if (threadIdx.x != 0) return;
+  // cumulative: orders every write of the block that the barrier ordered
+  // before this thread's
+  __threadfence_system();
   if (atomicAdd(done, 1u) != gridDim.x - 1) return;
   // the last block: every block's writes (out, the peer copy) are visible
   __threadfence_system();
@@ -204,7 +235,7 @@ extern "C" int tip_ring_step(const float* h, float* peer, const int32_t* src,
                              unsigned* right_flag, unsigned int target,
                              long long timeout_ns, void* stream) {
   const int copy_blocks = peer == nullptr ? 0 : COPY_BLOCKS;
-  const int spmm_blocks = (e_pad + C - 1) / C;
+  const int spmm_blocks = (e_pad + THREADS - 1) / THREADS;  // a warp 32 slots
   ring_step<<<copy_blocks + spmm_blocks, THREADS, 0, (cudaStream_t)stream>>>(
       h, peer, src, dst, w, e_pad, d, copy_blocks, (size_t)n_local * d, out,
       done, my_flag, left_flag, right_flag, target,

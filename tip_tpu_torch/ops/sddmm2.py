@@ -12,12 +12,14 @@ Pad slots carry dst = n, which reads a zero row: their logits are exactly
 then per relation over its chunks in chunk order, as the TPU kernel's
 wrapper does.  The TPU kernel saves the gathered endpoints as residuals
 (two [n_chunks, d, chunk] arrays per call); the port saves only z, w and
-the indices and gathers again in the backward.  The kernel keeps z (and
-the backward's dz) in shared memory where the tables fit
-(:func:`shared_table_fits`), else reads z and adds dz in global memory, so
-any node count runs.  With ``compute_dtype=bfloat16`` z is rounded to bf16
-and so is each scattered gradient contribution, with float32 accumulation
-(the TPU kernel's casts).
+the indices and gathers again in the backward.  The forward keeps z in
+shared memory where the table fits (:func:`shared_table_fits`), else
+reads it through L1, so any node count runs; the backward reads z
+through L1 and adds dz into a device-memory table, four lanes a slot
+adding its 16 contributions as float4 reductions.  With
+``compute_dtype=bfloat16`` z is rounded to bf16 and so is each scattered
+gradient contribution, with float32 accumulation (the TPU kernel's
+casts).
 
 **B9, the NN decoder** (``nn_logits_padded2``):
 
@@ -50,7 +52,7 @@ from tip_tpu_torch.ops.matmul import bf16_round, compute_round, is_bf16
 KERNEL = "distmult_sddmm"
 NN_KERNEL = "nn_sddmm"
 D = 16  # the kernels' width: n_hid2 of every configuration, DR-NN's l1
-TABLES = ("shared", "global")  # where the kernel keeps z (and dz)
+TABLES = ("shared", "global")  # where the forward keeps z
 
 
 def pad_row(z):
@@ -88,20 +90,22 @@ def distmult_bwd_plain(z, w, src2d, dst2d, chunk_type, g, bf16: bool = False):
     return dz[:n], dw
 
 
-def shared_table_fits(n: int, grads: bool) -> bool:
-    """Whether the forward's z table (``grads``: the backward's z and dz
-    tables plus its static 32 x 16-float dw reduction) fit one block's
-    shared memory: n <= 3,417 forward, n <= 1,693 backward."""
-    tables = 2 if grads else 1
-    static = 32 * D * 4 if grads else 0
-    return tables * (n + 1) * (D + 1) * 4 + static <= kernels.SMEM_BYTES
+SEG = 16  # slots a lane quad of the backward walks; C must be a multiple
+BWD_WARPS = 8  # warps of a backward block (the order of its dw reduction)
+
+
+def shared_table_fits(n: int) -> bool:
+    """Whether the forward's z table (n + 1 rows of 17 floats) fits one
+    block's shared memory: n <= 3,417."""
+    return (n + 1) * (D + 1) * 4 <= kernels.SMEM_BYTES
 
 
 def _check_cuda_args(z, w, src2d, dst2d, chunk_type, grads: bool,
                      table=None):
-    """(n, shared): the node count and whether the kernel keeps its tables
-    in shared memory (``table``: None picks "shared" where they fit, else
-    "global"; "shared" raises where they do not fit)."""
+    """(n, shared): the node count and whether the kernel keeps z in shared
+    memory.  The forward's ``table``: None picks "shared" where it fits,
+    else "global"; "shared" raises where it does not fit.  The backward
+    (``grads``) reads z through L1 at any n: "global" or None."""
     dev = z.device
     kernels.require(z, "z", torch.float32, 2, dev)
     kernels.require(w, "w", torch.float32, 2, dev)
@@ -118,9 +122,17 @@ def _check_cuda_args(z, w, src2d, dst2d, chunk_type, grads: bool,
         raise ValueError(f"feature width {d}: the kernel is built for {D}")
     if table not in (None, *TABLES):
         raise ValueError(f"table {table!r} not in {TABLES}")
-    fits = shared_table_fits(n, grads)
+    if grads:
+        if src2d.shape[1] % SEG:
+            raise ValueError(f"chunk length {src2d.shape[1]} is not a "
+                             f"multiple of {SEG} (the backward's lane quads "
+                             f"walk {SEG} slots)")
+        if table == "shared":
+            raise ValueError("the backward keeps no table in shared memory")
+        return n, False
+    fits = shared_table_fits(n)
     if table == "shared" and not fits:
-        raise ValueError(f"n = {n} does not fit the shared-memory tables")
+        raise ValueError(f"n = {n} does not fit the shared-memory table")
     return n, fits if table is None else table == "shared"
 
 
@@ -133,6 +145,8 @@ def distmult_logits_cuda(z, w, src2d, dst2d, chunk_type, table=None):
     n, shared = _check_cuda_args(z, w, src2d, dst2d, chunk_type, False, table)
     n_chunks, chunk = src2d.shape
     out = torch.empty((n_chunks, chunk), dtype=torch.float32, device=dev)
+    if w.data_ptr() % 16:  # the forward reads w's rows 16 bytes a lane
+        w = w.clone()
     blocks = (2 if shared else 4) * kernels.sm_count(dev)
     kernels.launch(KERNEL, "tip_dm_fwd", "pppppiiiiip", pad_row(z), w, src2d,
                    dst2d, chunk_type, n_chunks, chunk, n, int(shared), blocks,
@@ -140,33 +154,29 @@ def distmult_logits_cuda(z, w, src2d, dst2d, chunk_type, table=None):
     return out
 
 
-def distmult_bwd_cuda(z, w, src2d, dst2d, chunk_type, g, bf16: bool = False,
-                      table=None):
-    """Launch the backward of csrc/distmult_sddmm.cu (``table``: see
-    :func:`_check_cuda_args`)."""
+def distmult_bwd_cuda(z, w, src2d, dst2d, chunk_type, g, bf16: bool = False):
+    """Launch the backward of csrc/distmult_sddmm.cu."""
     dev = z.device
     if not z.is_cuda:
         raise ValueError("distmult_bwd_cuda needs CUDA tensors")
-    n, shared = _check_cuda_args(z, w, src2d, dst2d, chunk_type, True, table)
+    n, _ = _check_cuda_args(z, w, src2d, dst2d, chunk_type, True)
     kernels.require(g, "g", torch.float32, 2, dev)
     if g.shape != src2d.shape:
         raise ValueError(f"g {tuple(g.shape)} != src2d {tuple(src2d.shape)}")
     n_chunks, chunk = src2d.shape
+    # the kernel reads 16 bytes a lane from each (as the chunks' slots)
+    src2d, dst2d, g, w = (x if x.data_ptr() % 16 == 0 else x.clone()
+                          for x in (src2d, dst2d, g, w))
     n_et = w.shape[0]
-    # shared: one block per SM (its tables fill it); global: two (1,024
-    # threads each)
-    blocks = (1 if shared else 2) * kernels.sm_count(dev)
     # scratch freed on return while the kernel may still run: the caching
     # allocator reuses it only for later work on this same stream
     f32 = dict(dtype=torch.float32, device=dev)
-    dz_part = torch.empty((blocks if shared else 0, n, D), **f32)
     dwc = torch.empty((n_chunks, D), **f32)
     dz = torch.empty((n + 1, D), **f32)
     dw = torch.empty((n_et, D), **f32)
-    kernels.launch(KERNEL, "tip_dm_bwd", "ppppppiiiiiiipppp", pad_row(z), w,
+    kernels.launch(KERNEL, "tip_dm_bwd", "ppppppiiiiiippp", pad_row(z), w,
                    src2d, dst2d, chunk_type, g, n_chunks, chunk, n, n_et,
-                   int(bf16), int(shared), blocks, dz_part, dwc, dz, dw,
-                   device=dev)
+                   int(bf16), kernels.sm_count(dev), dwc, dz, dw, device=dev)
     return dz[:n], dw
 
 

@@ -409,6 +409,8 @@ def distmult_v1_fwd_cuda(z, w, src2d, dst2d, chunk_type, table=None):
     n, shared = _check_v1_args({"z": z}, {"w": w}, bufs, False, table)
     n_chunks, chunk = src2d.shape
     out = torch.empty((n_chunks, chunk), dtype=torch.float32, device=z.device)
+    if w.data_ptr() % 16:  # the forward reads w's rows 16 bytes a lane
+        w = w.clone()
     kernels.launch(DM1, "tip_dm1_fwd", "pppppiiiiip", pad_row(z), w, *bufs,
                    n_chunks, chunk, n, int(shared),
                    2 * kernels.sm_count(z.device), out, device=z.device)
