@@ -42,7 +42,10 @@ Phases, each fatal on failure:
   8. hold B4-B10 against their plain versions again on the graph beyond
      the dense budget (BEYOND_DENSE: the chunked paths' own shapes, timed)
      and on a graph too wide for any shared-memory table (WIDE: the
-     kernels' global-memory and two-draw modes);
+     kernels' global-memory and two-draw modes); then B9 on a D-D graph
+     skewed as the real one is (skewed_dd_raw: one relation holds a
+     quarter of the chunks) and B5 on a P-P graph with a hub row
+     (with_hub: ~4,500 edges, a run across 9 chunks), both timed;
   9. the chunked paths on BEYOND_DENSE: TIP-cat and TIP-cat with the NN
      decoder as in 5 (B10, B8 or B9, B4, B5; profiled) and DR-NN as in 6
      (B10, B9, B4; profiled);
@@ -527,6 +530,87 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def kernel_breakdown(fn, reps: int = 10) -> dict:
+    """Device ms of one call of ``fn``, by CUDA kernel and memset name
+    (torch.profiler over ``reps`` calls after one warm-up)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            out[e.key[:60]] = us / 1e3 / reps
+    return out
+
+
+def pp_csr(data, n_prot: int, dev):
+    """A_hat as one CSR matrix (gcn_normalize sorts it by dst): the
+    yardstick of kernel B5."""
+    import torch
+
+    dst = torch.from_numpy(data.pp_norm_index[1].astype("int64")).to(dev)
+    crow = torch.zeros(n_prot + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(torch.bincount(dst, minlength=n_prot), 0)
+    return torch.sparse_csr_tensor(
+        crow, torch.from_numpy(data.pp_norm_index[0].astype("int64")).to(dev),
+        torch.from_numpy(data.pp_norm_weight).to(dev), (n_prot, n_prot))
+
+
+def skewed_dd_raw(seed: int = 7):
+    """A Decagon-wide D-D graph (645 drugs, 1,097 relations) skewed as the
+    real one is: relations of 200-600 pairs, and relation 0 holding every
+    one of the 207,690 drug pairs, about a quarter of the chunk slots.  A
+    small P-P side."""
+    import dataclasses
+
+    import numpy as np
+
+    from tip_tpu_torch.data import synthetic_trigraph
+
+    raw = synthetic_trigraph(n_drug=645, n_prot=300, n_et=1097,
+                             pairs_per_et=400, n_pp_pairs=600, n_dp=400,
+                             seed=seed)
+    lo, hi = np.triu_indices(raw.n_drug, 1)
+    heavy = np.stack([lo, hi]).astype(np.int32)
+    return dataclasses.replace(raw, dd_pair_list=[heavy,
+                                                  *raw.dd_pair_list[1:]])
+
+
+def pp_only_raw(seed: int = 0):
+    """The Decagon-shape P-P graph (19,081 proteins) with a small D-D side."""
+    from tip_tpu_torch.data import synthetic_trigraph
+
+    return synthetic_trigraph(n_drug=64, n_prot=19081, n_et=3,
+                              pairs_per_et=40, n_pp_pairs=715612, n_dp=400,
+                              seed=seed)
+
+
+def with_hub(raw, degree: int = 5000, seed: int = 9):
+    """The raw graph with protein 0 joined to ``degree`` more proteins (both
+    directions): a hub row of ~5,000 P-P edges, whose run in the windowed
+    buffers crosses 9 chunks of 512 slots."""
+    import dataclasses
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    others = rng.choice(np.arange(1, raw.n_prot), size=degree, replace=False)
+    hub = np.stack([np.zeros(degree, np.int64), others])
+    edges = np.concatenate([raw.pp_edge_index.astype(np.int64), hub,
+                            hub[::-1]], 1)
+    edges = np.unique(edges, axis=1).astype(np.int32)
+    return dataclasses.replace(raw, pp_edge_index=edges)
+
+
 def check_typed_neighbor_sum(graph, gs, data, dev, timed: bool = True) -> dict:
     """Kernel B4 forward and backward against the plain version at both
     R-GCN widths (d = 64, layer 1; d = 32, layer 2); the forward in the
@@ -643,8 +727,9 @@ def check_gcn_spmm(graph, gs, data, dev, timed: bool = True) -> dict:
     """Kernel B5 against the plain version at both GCN widths (d = 32 and
     16) on the windowed P-P buffers, in float32 and with the bf16 message
     rounding, plus the adjoint identity <c, A x> = <A c, x> that its
-    backward relies on.  Runs summed in slot order vs index_add_: float32
-    order only, 1e-5 of the largest magnitude."""
+    backward relies on, and the same bits from two runs.  Runs summed in
+    slot order vs index_add_: float32 order only, 1e-5 of the largest
+    magnitude."""
     import torch
 
     from tip_tpu_torch.config import ModelConfig
@@ -665,7 +750,10 @@ def check_gcn_spmm(graph, gs, data, dev, timed: bool = True) -> dict:
             check(e <= 1e-5 * m, f"B5 d={d} {dt} err {e} of max {m}")
             rep[f"d{d}_{dt}_max_abs_err"] = e
             worst = max(worst, e)
-        lhs = float((cot.double() * ts.gcn_spmm_cuda(x, *bufs).double()).sum())
+        ax = ts.gcn_spmm_cuda(x, *bufs)
+        check(torch.equal(ax, ts.gcn_spmm_cuda(x, *bufs)),
+              f"B5 d={d} differs between two runs")
+        lhs = float((cot.double() * ax.double()).sum())
         rhs = float((ts.gcn_spmm_cuda(cot, *bufs).double() * x.double()).sum())
         check(abs(lhs - rhs) <= 1e-5 * abs(lhs), f"B5 d={d} adjoint {lhs} vs {rhs}")
         rep[f"d{d}_adjoint"] = {"lhs": lhs, "rhs": rhs}
@@ -675,18 +763,15 @@ def check_gcn_spmm(graph, gs, data, dev, timed: bool = True) -> dict:
 
     d = cfg.pp_hid1
     x = torch.randn(gs.n_prot, d, generator=gen).to(dev)
+    x16 = torch.randn(gs.n_prot, cfg.pp_hid2, generator=gen).to(dev)
     rep["d"] = d
     rep["ms"] = cuda_ms(lambda: ts.gcn_spmm_cuda(x, *bufs), reps=50,
                         primed=True)
+    rep[f"d{cfg.pp_hid2}_ms"] = cuda_ms(lambda: ts.gcn_spmm_cuda(x16, *bufs),
+                                        reps=50, primed=True)
     rep["plain_ms"] = cuda_ms(lambda: ts.gcn_spmm_plain(x, *bufs), reps=5,
                               warmup=1)
-    # yardstick: A_hat as one CSR matrix (gcn_normalize sorts it by dst)
-    dst = torch.from_numpy(data.pp_norm_index[1].astype("int64")).to(dev)
-    crow = torch.zeros(gs.n_prot + 1, dtype=torch.int64, device=dev)
-    crow[1:] = torch.cumsum(torch.bincount(dst, minlength=gs.n_prot), 0)
-    adj = torch.sparse_csr_tensor(
-        crow, torch.from_numpy(data.pp_norm_index[0].astype("int64")).to(dev),
-        torch.from_numpy(data.pp_norm_weight).to(dev), (gs.n_prot, gs.n_prot))
+    adj = pp_csr(data, gs.n_prot, dev)
     rep["library_ms"] = library_call(lambda: torch.sparse.mm(adj, x),
                                      ts.gcn_spmm_plain(x, *bufs), 1e-5, "B5")
     e_valid = int(data.pp_norm_index.shape[1])
@@ -1007,12 +1092,15 @@ def check_dense_bce_nn(graph, gs, data, dev, timed: bool = True) -> dict:
 
 def check_nn_sddmm(graph, gs, data, dev, timed: bool = True) -> dict:
     """Kernel B9 forward (logits) and backward (dh1, dh2, dw1, dw2) against
-    the plain version at l1 = 16, the backward's per-relation vectors where
-    the wrapper puts them for this graph (shared memory up to 29,055 nodes)
-    and forced to global memory, in float32 and with bf16 rounding.  Logits are
-    compared on valid slots (a pad slot scores its pad src); with h1 = 0 the
-    pad slots' logits (their dst terms) must be exactly 0.  Float32 order
-    only: 1e-5 of the largest logit, 1e-4 of the largest gradient."""
+    the plain version at l1 = 16, an item's score rows and gradient sums
+    where the wrapper puts them for this graph (shared memory up to 29,055
+    nodes) and forced to global memory, in float32 and with bf16 rounding.
+    Logits are compared on valid slots (a pad slot scores its pad src);
+    with h1 = 0 the pad slots' logits (their dst terms) must be exactly 0.
+    Float32 order only: 1e-5 of the largest logit, 1e-4 of the largest
+    gradient.  Both modes give the same logits bit for bit (the global
+    mode's score table is the first version's forward), and two float32
+    backwards give the same bits in either mode."""
     import torch
 
     from tip_tpu_torch.ops import sddmm2
@@ -1037,19 +1125,27 @@ def check_nn_sddmm(graph, gs, data, dev, timed: bool = True) -> dict:
         args = (*hr, w1, w2, *bufs)
         lp = sddmm2.nn_logits_plain(*args)
         gp = sddmm2.nn_bwd_plain(*args, g, bf16)
+        logits = {}
         for table in (None, "global"):
             tag = ("bf16_" if bf16 else "") + (table or "auto")
-            lk = sddmm2.nn_logits_cuda(*args)
+            lk = logits[table] = sddmm2.nn_logits_cuda(*args, table=table)
             gk = sddmm2.nn_bwd_cuda(*args, g, bf16, table=table)
             el, ml = max_err(lk[valid], lp[valid])
             check(el <= 1e-5 * ml, f"B9 {tag} logits err {el} of max {ml}")
             errs = _frac_errs(gk, gp)
             check(max(errs) <= 1e-4, f"B9 {tag} grads (dh1, dh2, dw1, dw2) "
                   f"err {errs} of their max")
-            l0 = sddmm2.nn_logits_cuda(torch.zeros_like(hr[0]), *args[1:])
+            l0 = sddmm2.nn_logits_cuda(torch.zeros_like(hr[0]), *args[1:],
+                                       table=table)
             check(bool((l0[pad] == 0).all()), f"B9 {tag} pad dst terms not 0")
+            if not bf16:
+                again = sddmm2.nn_bwd_cuda(*args, g, table=table)
+                check(all(torch.equal(a, b) for a, b in zip(gk, again)),
+                      f"B9 {tag} backward differs between two runs")
             rep[tag] = {"logit_max_abs_err": el, "grad_err_frac": errs}
             worst = max(worst, el, *(max_err(a, b)[0] for a, b in zip(gk, gp)))
+        check(torch.equal(logits[None], logits["global"]),
+              f"B9 bf16={bf16}: the two modes' logits differ")
     rep["max_abs_err"] = worst
     if not timed:
         return rep
@@ -1057,12 +1153,14 @@ def check_nn_sddmm(graph, gs, data, dev, timed: bool = True) -> dict:
     args = (h1, h2, w1, w2, *bufs)
     rep["ms"] = cuda_ms(lambda: sddmm2.nn_logits_cuda(*args), reps=20,
                         primed=True)
+    rep["global_ms"] = cuda_ms(lambda: sddmm2.nn_logits_cuda(
+        *args, table="global"), reps=20, primed=True)
     rep["bwd_ms"] = cuda_ms(lambda: sddmm2.nn_bwd_cuda(*args, g), reps=20,
                             primed=True)
     rep["bwd_global_ms"] = cuda_ms(lambda: sddmm2.nn_bwd_cuda(
         *args, g, table="global"), reps=20, primed=True)
     rep["bwd_bf16_ms"] = cuda_ms(lambda: sddmm2.nn_bwd_cuda(
-        *args, g, True), reps=5, primed=True)
+        *args, g, True), reps=20, primed=True)
     rep["plain_ms"] = cuda_ms(lambda: sddmm2.nn_logits_plain(*args), reps=3,
                               warmup=1)
     rep["bwd_plain_ms"] = cuda_ms(lambda: sddmm2.nn_bwd_plain(*args, g),
@@ -2022,6 +2120,18 @@ def main() -> int:
         del graph
         torch.cuda.empty_cache()
     del wide
+    # B9 on a D-D graph skewed as the real one is, B5 on a P-P graph with a
+    # hub row (checked and timed; no path trains on them)
+    for tag, raw, name in (("skewed", skewed_dd_raw(), "nn_sddmm"),
+                           ("hub", with_hub(pp_only_raw()), "gcn_spmm")):
+        t0 = time.time()
+        g = build_trigraph(raw, 0.9, 1111)
+        print("graph:", json.dumps(graph_summary(g, time.time() - t0)))
+        graph, gs = make_graph_arrays(g, dev, dense_dtype=None, pp_dense=False)
+        rep = KERNEL_CHECKS[name][1](graph, gs, g, dev)
+        print(f"kernel {name} [{tag}]:", json.dumps(rep))
+        del graph, g
+        torch.cuda.empty_cache()
     launches["tip chunked"] = run_path("tip chunked", big, dev, TRAIN_STEPS,
                                        None)
     launches["tip-nn chunked"] = run_path("tip-nn chunked", big, dev,

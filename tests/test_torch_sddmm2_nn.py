@@ -10,6 +10,8 @@ agree to 1e-4 (float32 sums in another order: per chunk then per relation
 in the JAX kernel, per (relation, endpoint) in the port).
 """
 
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -25,9 +27,16 @@ from tip_tpu_torch.ops import sddmm2 as port
 from tip_tpu_torch.ops.matmul import compute_round
 
 
-def _setup(n_drug, seed=5):
+def _setup(n_drug, seed=5, skewed=False):
+    """Packed buffers (chunk 32), float32 parameters and the valid mask.
+    ``skewed``: relation 0 holds every drug pair (1,482 train slots at 40
+    drugs, 47 chunks: several work items), the others 15-45 pairs."""
     raw = synthetic_trigraph(n_drug=n_drug, n_prot=10, n_et=4,
-                             pairs_per_et=60, seed=seed)
+                             pairs_per_et=30 if skewed else 60, seed=seed)
+    if skewed:
+        lo, hi = np.triu_indices(n_drug, 1)
+        raw = dataclasses.replace(raw, dd_pair_list=[
+            np.stack([lo, hi]).astype(np.int32), *raw.dd_pair_list[1:]])
     edges, _ = split_typed_edges(raw.dd_pair_list, p=0.95, seed=0)
     padded = pad_typed_edges(sort_typed_edges(edges), n_drug, chunk=32)
     nc = padded.chunk_type.shape[0]
@@ -140,9 +149,9 @@ def test_cuda_argument_checks(bad):
 
 
 def test_shared_vector_boundary():
-    """The largest graph whose per-relation score / gradient-sum vectors
+    """The largest graph whose work items' score rows / gradient sums
     (2 (n + 1) floats) the kernel keeps in shared memory; one node more
-    takes the global-memory vectors, which have no limit."""
+    takes the global-memory mode, which has no limit."""
     n_max = 29055
     assert port.nn_shared_fits(n_max) and not port.nn_shared_fits(n_max + 1)
     bufs, params, _ = _setup(40)
@@ -152,3 +161,132 @@ def test_shared_vector_boundary():
         assert port._check_nn_args(h, h, *w, *_t(bufs)) == (n, shared)
         assert port._check_nn_args(h, h, *w, *_t(bufs),
                                    table="global") == (n, False)
+
+
+def test_work_items_cover_every_slot_once_within_their_relation():
+    """nn_items (the kernel's plan) cuts each relation's chunks into runs of
+    at most ITEM_CHUNKS, near-equal and in chunk order: every chunk, so
+    every slot, lies in exactly one item, of the relation that owns it; the
+    count stays within nn_max_items, which the wrapper allocates for."""
+    item_chunks = port.ITEM_CHUNKS
+    bufs, params, _ = _setup(40, skewed=True)
+    ct, n_et = bufs[2], params[2].shape[0]
+    rng = np.random.default_rng(9)
+    cases = [ct] + [np.sort(rng.integers(0, n_et, size=rng.integers(1, 200)))
+                    for _ in range(20)]
+    for c in cases:
+        items, rel_items = port.nn_items(c, n_et)
+        covered = np.zeros(len(c), np.int64)
+        for t in range(n_et):
+            own = items[rel_items[t]:rel_items[t + 1]]
+            assert (own[:, 0] == t).all()
+            sizes = own[:, 2] - own[:, 1]
+            assert (sizes > 0).all() and (sizes <= item_chunks).all()
+            assert len(sizes) == 0 or np.ptp(sizes) <= 1
+            assert (own[1:, 1] == own[:-1, 2]).all()  # in chunk order
+            for _, c0, c1 in own:
+                assert (c[c0:c1] == t).all()
+                covered[c0:c1] += 1
+        assert (covered == 1).all() and rel_items[-1] == len(items)
+        assert len(items) <= port.nn_max_items(len(c), n_et)
+    items, _ = port.nn_items(ct, n_et)
+    assert (items[:, 0] == 0).sum() >= 3  # the heavy relation is cut up
+
+
+def _warp_add(acc, keys, vals):
+    """nn_sddmm.cu's warp_add for the active lanes (a prefix of the warp):
+    a segmented scan in lane order where the keys rise across the lanes,
+    its last lane adding the run's sum; else one rank of equal keys at a
+    time, in lane order."""
+    f = np.float32
+    v = vals.astype(f)
+    if (np.diff(keys) >= 0).all():
+        head = np.array([np.flatnonzero(keys == k)[0] for k in keys])
+        off = 1
+        while off < 32:
+            prev = v.copy()
+            for lane in range(len(v)):
+                if lane - off >= head[lane]:
+                    v[lane] = f(prev[lane] + prev[lane - off])
+            off *= 2
+        for lane, k in enumerate(keys):
+            if lane == len(keys) - 1 or keys[lane + 1] != k:
+                acc[k] = f(acc[k] + v[lane])
+    else:
+        for lane, k in enumerate(keys):  # rank order is lane order per key
+            acc[k] = f(acc[k] + v[lane])
+
+
+def emulate_cuda_bwd(h1, h2, w1, w2, src2d, dst2d, ct, g):
+    """nn_sddmm.cu's float32 backward in its fixed order (products rounded
+    before each add: numpy has no fused multiply-add).  Per item, warp w of
+    the block sums g by endpoint over the 128-slot groups w, w + W, ... (in
+    four steps j, lane l adding slot 4 l + j) into its own vectors, added in
+    warp order; then rows (dw: a relation's items
+    in order, j strided over 16 lanes, the lanes in order) and cols (dh:
+    slabs of CONTRACT_SLAB items, items strided over 16 lanes, lanes then
+    slabs in order)."""
+    f = np.float32
+    n, d = h1.shape
+    n_et = w1.shape[0]
+    C = src2d.shape[1]
+    src, dst, gf = src2d.reshape(-1), dst2d.reshape(-1), g.reshape(-1)
+    items, rel_items = port.nn_items(ct, n_et)
+    warps = min(8, kernels.SMEM_BYTES // (8 * (n + 1)))
+    gs = np.zeros((len(items), 2, n + 1), f)
+    for i, (_, c0, c1) in enumerate(items):
+        vec = np.zeros((warps, 2, n + 1), f)
+        for w in range(warps):
+            for base in range(c0 * C + 128 * w, c1 * C, 128 * warps):
+                for j in range(4):
+                    lanes = np.arange(base + j, min(base + 128, c1 * C), 4)
+                    _warp_add(vec[w, 0], src[lanes], gf[lanes])
+                    _warp_add(vec[w, 1], dst[lanes], gf[lanes])
+        gs[i] = vec[0]
+        for w in range(1, warps):
+            gs[i] = (gs[i] + vec[w]).astype(f)
+    slabs = port.contract_slabs(port.nn_max_items(src2d.shape[0], n_et))
+    out = []
+    for side, (x, wt) in enumerate(((h1, w1), (h2, w2))):
+        a = gs[:, side, :n]
+        dw = np.zeros((n_et, d), f)
+        for t in range(n_et):
+            lanes = np.zeros((16, d), f)
+            for lane in range(16):
+                for i in range(rel_items[t], rel_items[t + 1]):
+                    for j in range(lane, n, 16):
+                        lanes[lane] = (lanes[lane] + a[i, j] * x[j]).astype(f)
+            for lane in range(16):
+                dw[t] = (dw[t] + lanes[lane]).astype(f)
+        dh = np.zeros((n, d), f)
+        for sl in range(slabs):
+            lo, hi = sl * port.CONTRACT_SLAB, min(len(items),
+                                                  (sl + 1) * port.CONTRACT_SLAB)
+            part = np.zeros((n, d), f)
+            for lane in range(16):
+                acc = np.zeros((n, d), f)
+                for i in range(lo + lane, hi, 16):
+                    acc = (acc + a[i][:, None] * wt[items[i, 0]][None, :]).astype(f)
+                part = (part + acc).astype(f)
+            dh = (dh + part).astype(f)
+        out.append((dh, dw))
+    (dh1, dw1), (dh2, dw2) = out
+    return dh1, dh2, dw1, dw2
+
+
+def test_cuda_backward_item_order_emulation_matches_plain_and_jax():
+    """The item-partial backward summed in the kernel's fixed order
+    (emulate_cuda_bwd) gives nn_bwd_plain and the JAX kernel's gradients
+    (interpret mode) on a skewed graph, to test_logits_and_grads_match_jax's
+    1e-4."""
+    bufs, params, valid = _setup(40, skewed=True)
+    g = np.random.default_rng(2).normal(size=valid.shape).astype(np.float32)
+    got = emulate_cuda_bwd(*params, *bufs, g)
+    plain = port.nn_bwd_plain(*_t(params), *_t(bufs), torch.from_numpy(g))
+    jb = list(map(jnp.asarray, bufs))
+    with pltpu.force_tpu_interpret_mode():
+        jgrads = jax.grad(lambda *p: jnp.sum(j_nn(*p, *jb, 40) * g),
+                          argnums=(0, 1, 2, 3))(*map(jnp.asarray, params))
+    for a, b, j in zip(got, plain, jgrads):
+        np.testing.assert_allclose(a, b.numpy(), atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(a, np.asarray(j), atol=1e-4, rtol=1e-4)

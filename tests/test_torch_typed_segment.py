@@ -280,6 +280,99 @@ def test_rank_blocks_split_the_sum_and_zero_the_relations_a_rank_lacks(
     np.testing.assert_allclose(total.numpy(), whole.numpy(), atol=1e-5)
 
 
+@pytest.fixture(scope="module")
+def hub_windowed():
+    """A P-P graph of 700 nodes whose node 3 is joined to 600 others: the
+    hub's run (601 slots with its self loop) crosses 19 chunks of 32."""
+    rng = np.random.default_rng(11)
+    n = 700
+    e = rng.integers(0, n, size=(2, 2000), dtype=np.int32)
+    hub = np.stack([np.full(600, 3, np.int32),
+                    rng.choice(np.delete(np.arange(n), 3), 600, replace=False)
+                    .astype(np.int32)])
+    e = np.concatenate([e, hub], axis=1)
+    e = e[:, e[0] != e[1]]
+    e = np.unique(np.stack([np.minimum(e[0], e[1]), np.maximum(e[0], e[1])]),
+                  axis=1)
+    e = np.concatenate([e, e[::-1]], axis=1)
+    idx, w = gcn_normalize(e, n)
+    win = pad_windowed_edges(idx, w, n, window=64, chunk=32)
+    nc = win.chunk_window.shape[0]
+    bufs = (win.src.reshape(nc, 32), win.dst_local.reshape(nc, 32),
+            win.weight.reshape(nc, 32), win.chunk_window)
+    return n, bufs, (win.n_windows, win.window, n)
+
+
+def emulate_gcn_spmm(x, src2d, dstl2d, w2d, cw, window, n, bf16=False,
+                     group=port.SPMM_GROUP):
+    """csrc/gcn_spmm.cu in float32, in its order.  The slots are one flat
+    array cut into groups of 32, a warp a group; a run (the slots of one
+    row of one window) is cut into pieces at the groups' edges, each piece
+    summed in slot order.  A run inside one group is its piece; the pieces
+    of a run that crosses groups are added in group order.  Returns (out,
+    rows written, the pieces of each run that crosses groups)."""
+    f = np.float32
+    src, dstl, w = src2d.reshape(-1), dstl2d.reshape(-1), w2d.reshape(-1)
+    E, d = len(src), x.shape[1]
+    win = np.repeat(cw, src2d.shape[1])
+    out = np.zeros((n, d), f)
+    writes = np.zeros(n, np.int64)
+    crossing = []
+    e = 0
+    while e < E:
+        if dstl[e] >= window:
+            e += 1
+            continue
+        end = e
+        while end < E and dstl[end] == dstl[e] and win[end] == win[e]:
+            end += 1
+        pieces = []
+        for g0 in range(e // group * group, end, group):
+            s = np.zeros(d, f)
+            for j in range(max(e, g0), min(end, g0 + group)):
+                m = (x[src[j]] * f(w[j])).astype(f)
+                if bf16:
+                    m = torch.from_numpy(m).to(torch.bfloat16).float().numpy()
+                s = (s + m).astype(f)
+            pieces.append(s)
+        total = pieces[0]
+        for p in pieces[1:]:
+            total = (total + p).astype(f)
+        row = win[e] * window + dstl[e]
+        if row < n:
+            out[row] = total
+            writes[row] += 1
+        if len(pieces) > 1:
+            crossing.append(len(pieces))
+        e = end
+    return out, writes, crossing
+
+
+@pytest.mark.parametrize("d", [32, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gcn_spmm_group_emulation_with_hub_matches(hub_windowed, d, dtype):
+    """The kernel's groups of 32 slots, a run's pieces added in group
+    order (emulate_gcn_spmm), give the plain version and the JAX kernel
+    (interpret mode) to 1e-5 on a graph whose hub run crosses 19 chunks,
+    each row written once."""
+    n, bufs, static = hub_windowed
+    x = np.random.default_rng(12).normal(size=(n, d)).astype(np.float32)
+    got, writes, crossing = emulate_gcn_spmm(
+        x, *bufs, static[1], n, bf16=dtype == "bfloat16")
+    assert max(crossing) >= 19  # the hub's run, across 19 groups or more
+    win = np.repeat(bufs[3], bufs[0].shape[1])
+    hub_slots = np.flatnonzero((win * static[1] + bufs[1].reshape(-1)) == 3)
+    assert len(hub_slots) == 601
+    assert hub_slots[-1] // 32 - hub_slots[0] // 32 >= 8  # chunks it crosses
+    assert (writes <= 1).all()
+    want = port.gcn_spmm_plain(torch.from_numpy(x), *_t(bufs), *static, dtype)
+    np.testing.assert_allclose(got, want.numpy(), atol=1e-5)
+    with pltpu.force_tpu_interpret_mode():
+        jwant = np.asarray(j_spmm(jnp.asarray(x), *map(jnp.asarray, bufs),
+                                  *static, jnp.dtype(dtype)))
+    np.testing.assert_allclose(got, jwant, atol=1e-5)
+
+
 _CTYPE_CHAR = {"int": "i", "unsigned int": "u", "float": "f", "long long": "q"}
 
 

@@ -313,7 +313,9 @@ cudaError_t launch_kind(int grads, int blocks, const float* w1,
 // (uint8), 1 (bf16) or 2 (float32), 16-byte aligned (its rows are staged
 // from the 16-byte chunks that cover them); q [n_et][3] int32.  Scratch:
 // loss_part [n_et * n_tiles], and with grads col_part [n_et][n_tiles][n],
-// rows and cols [n_et][n], where n_tiles = ceil(n / 128).  Outputs: loss
+// rows and cols [n_et][n], where n_tiles = ceil(n / 128), and the
+// contractions' slab partials slab_part [2][slabs][n][16] (slabs =
+// ceil(n_et / contract::SLAB)).  Outputs: loss
 // [1]; with grads dw1, dw2 [n_et][16], dh1, dh2 [n][16] (not touched
 // without).  Returns the first CUDA error (cudaErrorInvalidValue for an
 // unknown page_kind or unaligned pages).
@@ -323,6 +325,7 @@ extern "C" int tip_dense_bce_nn(const float* w1, const float* w2,
                                 const int32_t* q, unsigned int seed, int n_et,
                                 int n, int grads, float* loss_part,
                                 float* col_part, float* rows, float* cols,
+                                int slabs, float* slab_part,
                                 float* loss, float* dw1, float* dw2,
                                 float* dh1, float* dh2, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -350,7 +353,6 @@ extern "C" int tip_dense_bce_nn(const float* w1, const float* w2,
       col_part, n_et, n_tiles, n, cols);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   // r_t feeds dw2 and dh2, c_t feeds dw1 and dh1
-  err = contract::both(rows, n, h2, w2, n_et, n, dw2, dh2, s);
-  if (err != cudaSuccess) return err;
-  return contract::both(cols, n, h1, w1, n_et, n, dw1, dh1, s);
+  return contract::run({rows, n, h2, w2, dw2, dh2}, {cols, n, h1, w1, dw1, dh1},
+                       {nullptr, nullptr}, n_et, n, slabs, slab_part, s);
 }

@@ -23,22 +23,14 @@
 // Design.  The forward is distmult_fwd.cuh's (one thread a slot over a
 // shared-memory z table up to n = 3,417, one lane quad a slot reading z
 // through L1 past it), which the v1 kernel B6 launches too.  The backward
-// gives each slot to a quad of lanes, one float4 of its 16 features a
-// lane, so a slot's 16 scatters to a row are four 16-byte reductions to
-// consecutive addresses and its two z rows four 16-byte reads (the first
-// version gave a slot one thread, which added 16 floats to random rows of
-// a shared-memory table by compare-and-swap loops: 2.7 times slower, and
-// 27 times in global memory):
+// is quad_walk.cuh's lane-quad walk (the first version gave a slot one
+// thread, which added 16 floats to random rows of a shared-memory table by
+// compare-and-swap loops: 2.7 times slower, and 27 times in global
+// memory), its two z rows four 16-byte reads a slot:
 //   * dz lives in a zeroed device table [n + 1, 16] (98 KB at n = 1,536:
-//     it stays in L2) and takes native float4 reductions (red.global.add
-//     .v4.f32 through atomicAdd(float4*), sm_90), never shared-memory
-//     float atomics, which are compare-and-swap loops on this card; no
-//     per-block partials, so no pass sums them;
-//   * a quad walks 16 consecutive slots of a chunk in order and keeps a
-//     run sum for each side: while its slots' src (dst) stays the same row
-//     it adds their contributions in registers and reduces the run's total
-//     once.  The positives are dst-sorted inside a chunk (runs of ~5 at
-//     1,536 x 800), and the pad tail (src 0, dst n) is one run a side;
+//     it stays in L2) and takes the quad's float4 reductions, run by run
+//     (the positives are dst-sorted inside a chunk, runs of ~5 at 1,536 x
+//     800); no per-block partials, so no pass sums them;
 //   * z is read as float4 rows from device memory through L1 (any n: 64
 //     bytes a node); a copy in shared memory measured no faster;
 //   * dwc[c] is a fixed-order reduction (each quad's slots in order, the
@@ -62,23 +54,19 @@
 #include <stdint.h>
 
 #include "distmult_fwd.cuh"
+#include "quad_walk.cuh"
 
 namespace {
 
 constexpr int D = 16;
 constexpr int BWD_THREADS = 256;
 constexpr int BWD_WARPS = BWD_THREADS / 32;
-constexpr int SEG = 16;  // slots a quad walks in order
+constexpr int SEG = quad_walk::SEG;  // slots a quad walks in order
 constexpr int AUX_THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float maybe_bf16(float v, int round_bf16) {
   return round_bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
-
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
-                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
 }
 
 // (g * x) * w per component, each rounded to bf16 with round_bf16
@@ -89,19 +77,6 @@ __device__ __forceinline__ float4 contrib(float gv, float4 x, float4 w,
       maybe_bf16(__fmul_rn(__fmul_rn(gv, x.y), w.y), round_bf16),
       maybe_bf16(__fmul_rn(__fmul_rn(gv, x.z), w.z), round_bf16),
       maybe_bf16(__fmul_rn(__fmul_rn(gv, x.w), w.w), round_bf16));
-}
-
-// v.x, v.y, v.z or v.w (i a constant once the caller's loop is unrolled)
-__device__ __forceinline__ int pick(int4 v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-__device__ __forceinline__ float pick(float4 v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// The quad's four lanes (q = lane & 3) add a run's total to row r.
-__device__ __forceinline__ void reduce_row(float* dz, int r, int q, float4 v) {
-  atomicAdd(reinterpret_cast<float4*>(dz + (size_t)r * D) + q, v);
 }
 
 // dz: [n + 1][D], zeroed by the caller; dwc: [n_chunks][D].
@@ -123,51 +98,18 @@ dm_bwd(const float* __restrict__ zp, const float* __restrict__ w,
     // warp-uniform: a warp takes 8 consecutive segments, a quad one
     for (int s0 = warp * 8; s0 < nseg; s0 += BWD_WARPS * 8) {
       const int seg = s0 + quad;
-      const bool act = seg < nseg;
-      // lane q of the quad holds slots 4q .. 4q + 3 of the segment
-      const size_t off = (size_t)c * C + (size_t)seg * SEG + 4 * q;
-      int4 s4 = make_int4(0, 0, 0, 0), d4 = make_int4(n, n, n, n);
-      float4 g4 = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (act) {
-        s4 = *reinterpret_cast<const int4*>(src + off);
-        d4 = *reinterpret_cast<const int4*>(dst + off);
-        g4 = *reinterpret_cast<const float4*>(g + off);
-      }
-      int rs = -1, rd = -1;  // the rows of the open runs
-      float4 as = make_float4(0.f, 0.f, 0.f, 0.f), ad = as;
-#pragma unroll
-      for (int it = 0; it < SEG; ++it) {
-        const int from = (lane & ~3) | (it >> 2);
-        const int s = __shfl_sync(FULL, pick(s4, it & 3), from);
-        const int dd = __shfl_sync(FULL, pick(d4, it & 3), from);
-        const float gv = __shfl_sync(FULL, pick(g4, it & 3), from);
-        const float4 a = __ldg(tab + (size_t)s * (D / 4) + q);
-        const float4 b = __ldg(tab + (size_t)dd * (D / 4) + q);
-        const float4 cs = contrib(gv, b, wv, round_bf16);
-        const float4 cd = contrib(gv, a, wv, round_bf16);
-        dwl.x = __fadd_rn(dwl.x, __fmul_rn(__fmul_rn(a.x, b.x), gv));
-        dwl.y = __fadd_rn(dwl.y, __fmul_rn(__fmul_rn(a.y, b.y), gv));
-        dwl.z = __fadd_rn(dwl.z, __fmul_rn(__fmul_rn(a.z, b.z), gv));
-        dwl.w = __fadd_rn(dwl.w, __fmul_rn(__fmul_rn(a.w, b.w), gv));
-        if (s == rs) {
-          as = add4(as, cs);
-        } else {
-          if (act && rs >= 0) reduce_row(dz, rs, q, as);
-          rs = s;
-          as = cs;
-        }
-        if (dd == rd) {
-          ad = add4(ad, cd);
-        } else {
-          if (act && rd >= 0) reduce_row(dz, rd, q, ad);
-          rd = dd;
-          ad = cd;
-        }
-      }
-      if (act) {
-        reduce_row(dz, rs, q, as);
-        reduce_row(dz, rd, q, ad);
-      }
+      quad_walk::segment(
+          src, dst, g, (size_t)c * C + (size_t)seg * SEG + 4 * q, seg < nseg,
+          n, dz, dz, [&](int s, int dd, float gv, float4& cs, float4& cd) {
+            const float4 a = __ldg(tab + (size_t)s * (D / 4) + q);
+            const float4 b = __ldg(tab + (size_t)dd * (D / 4) + q);
+            cs = contrib(gv, b, wv, round_bf16);
+            cd = contrib(gv, a, wv, round_bf16);
+            dwl.x = __fadd_rn(dwl.x, __fmul_rn(__fmul_rn(a.x, b.x), gv));
+            dwl.y = __fadd_rn(dwl.y, __fmul_rn(__fmul_rn(a.y, b.y), gv));
+            dwl.z = __fadd_rn(dwl.z, __fmul_rn(__fmul_rn(a.z, b.z), gv));
+            dwl.w = __fadd_rn(dwl.w, __fmul_rn(__fmul_rn(a.w, b.w), gv));
+          });
     }
     // fixed-order reduction of dwl: the 8 quads of a warp by a shuffle
     // tree, then the warps in order

@@ -41,6 +41,7 @@ import torch
 
 from tip_tpu_torch import kernels
 from tip_tpu_torch.ops.dense_bce_sym import softplus, u24_field
+from tip_tpu_torch.ops.sddmm2 import contract_slabs
 
 KERNEL = "dense_bce_nn"
 D = 16  # the kernel's hidden width: nn_decoder_l1_dim of DR-NN
@@ -135,17 +136,19 @@ def dense_bce_nn_cuda(w1, w2, h1, h2, pages, q, seed: int,
     f32 = dict(dtype=torch.float32, device=pages.device)
     loss_part = torch.empty(n_et * n_tiles, **f32)
     loss = torch.empty((), **f32)
+    slabs = contract_slabs(n_et)
     if grads:
         col_part = torch.empty((n_et, n_tiles, n), **f32)
         rows, cols = torch.empty((n_et, n), **f32), torch.empty((n_et, n), **f32)
+        slab_part = torch.empty((2, slabs, n, D), **f32)
         dw1, dw2 = torch.empty((n_et, D), **f32), torch.empty((n_et, D), **f32)
         dh1, dh2 = torch.empty((n, D), **f32), torch.empty((n, D), **f32)
     else:
-        col_part = rows = cols = dw1 = dw2 = dh1 = dh2 = None
-    kernels.launch(KERNEL, "tip_dense_bce_nn", "pppppipuiiippppppppp", w1, w2,
-                   h1, h2, pages, PAGE_KINDS[pages.dtype], q, seed & _M32,
-                   n_et, n, int(grads),
-                   loss_part, col_part, rows, cols, loss, dw1, dw2, dh1, dh2,
+        col_part = rows = cols = slab_part = dw1 = dw2 = dh1 = dh2 = None
+    kernels.launch(KERNEL, "tip_dense_bce_nn", "pppppipuiiippppipppppp", w1,
+                   w2, h1, h2, pages, PAGE_KINDS[pages.dtype], q, seed & _M32,
+                   n_et, n, int(grads), loss_part, col_part, rows, cols,
+                   slabs, slab_part, loss, dw1, dw2, dh1, dh2,
                    device=pages.device)
     if not grads:
         return loss

@@ -30,13 +30,15 @@ the pad src reads, and the caller masks it (the JAX package's contract).
 The backward adds ``g * w1[t]`` to dh1[src], ``g * w2[t]`` to dh2[dst] and
 ``g * h[endpoint]`` to dw1[t], dw2[t].  Relation rows are constant over a
 relation's chunks, so the kernel factors both directions through
-per-(relation, node) scalars: a table of the scores ``h . w[t]`` forward,
-the sums of g per (relation, endpoint) backward (the plain versions do the
-same).  The backward's 2 (n + 1) floats a relation live in shared memory
-up to 29,055 nodes (:func:`nn_shared_fits`), else in device memory.  With
-``compute_dtype=bfloat16`` h1 and h2 are rounded to bf16 and so is each
-scattered dh contribution ``g * w[t]``, with float32 accumulation.  No
-gathered endpoints are saved for the backward.
+per-(relation, node) scalars: the scores ``h . w[t]`` forward, the sums of
+g per (relation, endpoint) backward (the plain versions do the same).  The
+kernel cuts the chunks into items, runs of at most :data:`ITEM_CHUNKS`
+chunks of one relation (:func:`nn_items`), and keeps an item's 2 (n + 1)
+scores or sums in shared memory up to 29,055 nodes (:func:`nn_shared_fits`),
+else in device memory; the backward sums in a fixed order and is
+deterministic.  With ``compute_dtype=bfloat16`` h1 and h2 are rounded to
+bf16 and so is each scattered dh contribution ``g * w[t]``, with float32
+accumulation.  No gathered endpoints are saved for the backward.
 
 CPU tensors take the plain versions; CUDA tensors launch
 ``csrc/distmult_sddmm.cu`` / ``csrc/nn_sddmm.cu`` or raise.
@@ -136,6 +138,12 @@ def _check_cuda_args(z, w, src2d, dst2d, chunk_type, grads: bool,
     return n, fits if table is None else table == "shared"
 
 
+def _aligned(*tensors):
+    """The tensors, each cloned where its data is not 16-byte aligned (the
+    kernel reads 16 bytes a lane)."""
+    return [x if x.data_ptr() % 16 == 0 else x.clone() for x in tensors]
+
+
 def distmult_logits_cuda(z, w, src2d, dst2d, chunk_type, table=None):
     """Launch the forward of csrc/distmult_sddmm.cu (``table``: see
     :func:`_check_cuda_args`)."""
@@ -164,9 +172,7 @@ def distmult_bwd_cuda(z, w, src2d, dst2d, chunk_type, g, bf16: bool = False):
     if g.shape != src2d.shape:
         raise ValueError(f"g {tuple(g.shape)} != src2d {tuple(src2d.shape)}")
     n_chunks, chunk = src2d.shape
-    # the kernel reads 16 bytes a lane from each (as the chunks' slots)
-    src2d, dst2d, g, w = (x if x.data_ptr() % 16 == 0 else x.clone()
-                          for x in (src2d, dst2d, g, w))
+    src2d, dst2d, g, w = _aligned(src2d, dst2d, g, w)
     n_et = w.shape[0]
     # scratch freed on return while the kernel may still run: the caching
     # allocator reuses it only for later work on this same stream
@@ -252,15 +258,55 @@ def nn_bwd_plain(h1, h2, w1, w2, src2d, dst2d, chunk_type, g,
     return dh[0], dh[1], dw1, dw2
 
 
+ITEM_CHUNKS = 16  # most chunks of one B9 work item (csrc/nn_sddmm.cu)
+CONTRACT_SLAB = 128  # items per slab of contract.cuh's cols
+
+
+def contract_slabs(items: int) -> int:
+    """Slabs of contract.cuh's cols over ``items`` items (B3: relations)."""
+    return max(1, -(-items // CONTRACT_SLAB))
+
+
+def nn_max_items(n_chunks: int, n_et: int) -> int:
+    """An upper bound on B9's item count (sum of ceil(m_t / ITEM_CHUNKS)
+    over the relations' chunk counts m_t), known without reading
+    chunk_type."""
+    return min(n_chunks, n_chunks // ITEM_CHUNKS + n_et)
+
+
+def nn_items(chunk_type, n_et: int):
+    """B9's work items, as csrc/nn_sddmm.cu's nn_plan lists them: (items
+    int64 [count, 3] of (relation, first chunk, end chunk), rel_items
+    [n_et + 1], relation t's items being rel_items[t] .. rel_items[t + 1]
+    - 1).  A relation of m chunks gets ceil(m / ITEM_CHUNKS) near-equal
+    runs of its chunks, in chunk order."""
+    import numpy as np
+
+    ct = np.asarray(chunk_type, dtype=np.int64)
+    start = np.searchsorted(ct, np.arange(n_et + 1), side="left")
+    items, rel_items = [], [0]
+    for t in range(n_et):
+        s, m = int(start[t]), int(start[t + 1] - start[t])
+        p = -(-m // ITEM_CHUNKS)
+        items += [(t, s + j * m // p, s + (j + 1) * m // p) for j in range(p)]
+        rel_items.append(len(items))
+    return (np.asarray(items, dtype=np.int64).reshape(-1, 3),
+            np.asarray(rel_items, dtype=np.int64))
+
+
 def nn_shared_fits(n: int) -> bool:
-    """Whether a relation's 2 (n + 1) gradient-sum floats (the backward's)
-    fit one block's shared memory: n <= 29,055."""
+    """Whether an item's 2 (n + 1) scores (the forward's) or gradient sums
+    (the backward's) fit one block's shared memory: n <= 29,055."""
     return 2 * (n + 1) * 4 <= kernels.SMEM_BYTES
 
 
+PLAN_RELATIONS = 12287  # most relations of B9's plan (n_et + 1 ints, 48 KB)
+
+
 def _check_nn_args(h1, h2, w1, w2, src2d, dst2d, chunk_type, table=None):
-    """(n, shared), as :func:`_check_cuda_args` for B9's backward vectors
-    (the forward keeps no table in shared memory)."""
+    """(n, shared): the node count and whether the kernel keeps an item's
+    vectors in shared memory.  ``table``: None picks "shared" where they
+    fit, else "global"; "shared" raises where they do not fit."""
     dev = h1.device
     for name, x in (("h1", h1), ("h2", h2), ("w1", w1), ("w2", w2)):
         kernels.require(x, name, torch.float32, 2, dev)
@@ -277,6 +323,13 @@ def _check_nn_args(h1, h2, w1, w2, src2d, dst2d, chunk_type, table=None):
                          f"dst2d {tuple(dst2d.shape)}")
     if d != D:
         raise ValueError(f"hidden width {d}: the kernel is built for {D}")
+    if src2d.shape[1] % SEG:
+        raise ValueError(f"chunk length {src2d.shape[1]} is not a multiple "
+                         f"of {SEG} (the kernel reads 16 bytes a lane and its "
+                         f"bf16 backward's lane quads walk {SEG} slots)")
+    if w1.shape[0] > PLAN_RELATIONS:
+        raise ValueError(f"{w1.shape[0]} relations: the plan takes at most "
+                         f"{PLAN_RELATIONS}")
     if table not in (None, *TABLES):
         raise ValueError(f"table {table!r} not in {TABLES}")
     fits = nn_shared_fits(n)
@@ -285,29 +338,43 @@ def _check_nn_args(h1, h2, w1, w2, src2d, dst2d, chunk_type, table=None):
     return n, fits if table is None else table == "shared"
 
 
-def nn_logits_cuda(h1, h2, w1, w2, src2d, dst2d, chunk_type):
-    """Launch the forward of csrc/nn_sddmm.cu (the score table, then the
-    per-slot gather)."""
+def _nn_plan_scratch(n_chunks: int, n_et: int, dev):
+    """(max_items, items [max_items][4] int32, rel_items [n_et + 1])."""
+    m = nn_max_items(n_chunks, n_et)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return m, torch.empty((max(m, 1), 4), **i32), torch.empty(n_et + 1, **i32)
+
+
+def nn_logits_cuda(h1, h2, w1, w2, src2d, dst2d, chunk_type, table=None):
+    """Launch the forward of csrc/nn_sddmm.cu (``table``: None picks
+    "shared", the items' score rows in shared memory, where they fit, else
+    "global", the score table in device memory)."""
     dev = h1.device
     if not h1.is_cuda:
         raise ValueError("nn_logits_cuda needs CUDA tensors")
-    n, _ = _check_nn_args(h1, h2, w1, w2, src2d, dst2d, chunk_type)
+    n, shared = _check_nn_args(h1, h2, w1, w2, src2d, dst2d, chunk_type, table)
     n_chunks, chunk = src2d.shape
     n_et = w1.shape[0]
+    h1, h2, w1, w2, src2d, dst2d = _aligned(h1, h2, w1, w2, src2d, dst2d)
     f32 = dict(dtype=torch.float32, device=dev)
-    scores = torch.empty((n_et, 2, n + 1), **f32)
+    if shared:  # the items' score rows
+        m, items, rel_items = _nn_plan_scratch(n_chunks, n_et, dev)
+        scores = None
+    else:  # the score table
+        m, items, rel_items = 0, None, None
+        scores = torch.empty((n_et, 2, n + 1), **f32)
     out = torch.empty((n_chunks, chunk), **f32)
-    kernels.launch(NN_KERNEL, "tip_nn_fwd", "pppppppiiiiipp", pad_row(h1),
-                   pad_row(h2), w1, w2, src2d, dst2d, chunk_type, n_chunks,
-                   chunk, n, n_et, 4 * kernels.sm_count(dev), scores, out,
-                   device=dev)
+    kernels.launch(NN_KERNEL, "tip_nn_fwd", "pppppppiiiiiiipppp", h1, h2, w1,
+                   w2, src2d, dst2d, chunk_type, n_chunks, chunk, n, n_et,
+                   int(shared), m, 4 * kernels.sm_count(dev), items,
+                   rel_items, scores, out, device=dev)
     return out
 
 
 def nn_bwd_cuda(h1, h2, w1, w2, src2d, dst2d, chunk_type, g,
                 bf16: bool = False, table=None):
     """Launch the backward of csrc/nn_sddmm.cu: (dh1, dh2, dw1, dw2)
-    (``table``: None picks "shared" where the vectors fit, else
+    (``table``: None picks "shared" where an item's vectors fit, else
     "global")."""
     dev = h1.device
     if not h1.is_cuda:
@@ -318,17 +385,21 @@ def nn_bwd_cuda(h1, h2, w1, w2, src2d, dst2d, chunk_type, g,
         raise ValueError(f"g {tuple(g.shape)} != src2d {tuple(src2d.shape)}")
     n_chunks, chunk = src2d.shape
     n_et = w1.shape[0]
+    h1, h2, w1, w2, src2d, dst2d, g = _aligned(h1, h2, w1, w2, src2d, dst2d, g)
+    m, items, rel_items = _nn_plan_scratch(n_chunks, n_et, dev)
+    slabs = contract_slabs(m)
     # scratch freed on return while the kernel may still run: the caching
     # allocator reuses it only for later work on this same stream
     f32 = dict(dtype=torch.float32, device=dev)
-    gs = torch.empty((n_et, 2, n + 1), **f32)
+    gs = torch.empty((max(m, 1), 2, n + 1), **f32)
+    slab_part = torch.empty((2, slabs, n, D), **f32)
     dw1, dw2 = torch.empty((n_et, D), **f32), torch.empty((n_et, D), **f32)
     dh1, dh2 = torch.empty((n + 1, D), **f32), torch.empty((n + 1, D), **f32)
-    kernels.launch(NN_KERNEL, "tip_nn_bwd", "ppppppppiiiiiiippppp",
-                   pad_row(h1), pad_row(h2), w1, w2, src2d, dst2d, chunk_type,
-                   g, n_chunks, chunk, n, n_et, int(bf16), int(shared),
-                   4 * kernels.sm_count(dev), gs, dw1, dw2, dh1, dh2,
-                   device=dev)
+    kernels.launch(NN_KERNEL, "tip_nn_bwd", "ppppppppiiiiiiiiipppppppp", h1,
+                   h2, w1, w2, src2d, dst2d, chunk_type, g, n_chunks, chunk, n,
+                   n_et, int(bf16), int(shared), m, slabs,
+                   4 * kernels.sm_count(dev), items, rel_items, gs, slab_part,
+                   dw1, dw2, dh1, dh2, device=dev)
     return dh1[:n], dh2[:n], dw1, dw2
 
 

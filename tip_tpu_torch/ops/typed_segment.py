@@ -11,8 +11,9 @@ whose headers say what bounds them and how they are laid out) gather and
 scatter directly.  B4's and B5's buffers are destination-sorted inside each
 relation bin or window, so their forward passes sum each run of equal
 destinations in slot order (B4 a warp a run, its lanes over the features;
-B5 a thread a run and feature) and write it once: no atomics,
-deterministic results.  B4's backward and B6 and B7 scatter their
+B5 a warp a group of :data:`SPMM_GROUP` slots, its lanes over the
+features, the pieces of a run that crosses groups added in group order)
+and write it once: no atomics, deterministic results.  B4's backward and B6 and B7 scatter their
 gradients with atomics.
 
 B6 and B7 are the JAX package's first SDDMMs, which its decoder A/B
@@ -48,6 +49,8 @@ SPMM = "gcn_spmm"
 DM1 = "distmult_sddmm_v1"
 NN1 = "nn_sddmm_v1"
 _WARPS = 16  # B6's and B7's backward blocks (512 threads): the dw reductions
+SPMM_GROUP = 32  # B5's warp takes this many slots (gcn_spmm.cu)
+SPMM_MAX_SLOTS = 2**31 - 2**12  # B5 indexes slots with int32
 
 
 # ---------------------------------------------------------------------------
@@ -285,11 +288,19 @@ def gcn_spmm_cuda(x, src2d, dstl2d, w2d, chunk_window, n_windows: int,
             or chunk_window.shape[0] != n_chunks or x.shape[0] != n_nodes
             or n_windows * window < n_nodes):
         raise ValueError("windowed buffers do not match x")
+    if n_chunks * chunk > SPMM_MAX_SLOTS:
+        raise ValueError(f"{n_chunks * chunk} slots: the kernel indexes at "
+                         f"most {SPMM_MAX_SLOTS}")
     d = x.shape[1]
-    out = torch.empty((n_nodes, d), dtype=torch.float32, device=dev)
-    kernels.launch(SPMM, "tip_gcn_spmm", "pppppiiiiiip", x, src2d, dstl2d, w2d,
-                   chunk_window, n_chunks, chunk, window, n_nodes, d,
-                   int(is_bf16(compute_dtype)), out, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    # the pieces of the runs that cross groups: scratch freed on return
+    # while the kernel may still run (reused only by later work on this
+    # stream)
+    part = torch.empty(2 * -(-n_chunks * chunk // SPMM_GROUP) * (d + 1), **f32)
+    out = torch.empty((n_nodes, d), **f32)
+    kernels.launch(SPMM, "tip_gcn_spmm", "pppppiiiiiipp", x, src2d, dstl2d,
+                   w2d, chunk_window, n_chunks, chunk, window, n_nodes, d,
+                   int(is_bf16(compute_dtype)), part, out, device=dev)
     return out
 
 

@@ -1,6 +1,7 @@
-"""Kernels B8 (the DistMult SDDMM, csrc/distmult_sddmm.cu) and B11 (the ring
-SpMM step, csrc/ring_spmm.cu), and the TIP-cat chunked step that launches
-B8.
+"""Kernels B8 (the DistMult SDDMM, csrc/distmult_sddmm.cu), B9 (the
+NN-decoder SDDMM, csrc/nn_sddmm.cu), B5 (the windowed P-P SpMM,
+csrc/gcn_spmm.cu) and B11 (the ring SpMM step, csrc/ring_spmm.cu), and
+the TIP-cat and TIP-NN chunked steps that launch them.
 
     python3 tip_tpu_torch/scripts/sddmm_bench.py [--root DIR]
 
@@ -16,8 +17,18 @@ and timed four ways at d = 32 and 16: the SpMM blocks alone (a ring of
 one), with the shard's copy, with the neighbour barrier (the fences, the
 block counter and the last block's wait, which passes at once on the
 loopback ring) and the whole step.  Kernel times are chip_smoke.py's
-primed CUDA events (the device's time over 20 calls, B11 50).  Then the
-TIP-cat chunked step (1,536 x 800): the median of 5 synchronised steps
+primed CUDA events (the device's time over 20 calls, B5 and B11 50).
+B9: checked against the plain versions (logits, and the gradients in
+float32 and with the bf16 rounding) at 1,536 x 800, at Decagon shape and
+on chip_smoke.py's skewed D-D graph (one relation holds about a quarter
+of the slots); timed forward, float32 backward and bf16 backward, each
+also launch by launch (torch.profiler's device time per CUDA kernel and
+memset of one call); a digest of the float32 logits (bit-equality across
+versions) and whether two float32 backwards are bit-identical.  B5: the
+same at d = 32 and 16 on the Decagon-shape P-P buffers and on
+chip_smoke.py's hub graph (one protein with 5,000 neighbours), with
+torch.sparse.mm on the CSR matrix beside it.  Then the TIP-cat and
+TIP-NN chunked steps (1,536 x 800): the median of 5 synchronised steps
 after 2 warm-up, and chip_smoke.py's profile (device busy ms a step, idle
 share).  Prints one JSON line.  ``--root DIR`` times the
 ``tip_tpu_torch`` package under DIR (another commit unpacked there) in
@@ -76,16 +87,102 @@ def ring_step_times(smoke, data, dev, ranks: int = 4, step: int = 1) -> dict:
     return out
 
 
-def chunked_step(smoke, data, dev) -> dict:
-    """TIP-cat on the chunked layout: step times and the profile."""
+def digest(t) -> str:
+    """sha256 of a tensor's bytes (bit-equality across versions)."""
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def nn_sddmm_times(smoke, graph, gs, dev) -> dict:
+    """B9 on one packed graph: checked, timed whole and launch by launch."""
+    import torch
+
+    from tip_tpu_torch.ops import sddmm2
+    from tip_tpu_torch.ops.matmul import bf16_round
+
+    bufs = (graph["dd_src2d"], graph["dd_dst2d"], graph["dd_chunk_type"])
+    d, n, n_et = sddmm2.D, gs.n_drug, gs.n_et
+    gen = torch.Generator().manual_seed(24)
+    h1, h2 = (torch.relu(torch.randn(n, d, generator=gen)).to(dev)
+              for _ in range(2))
+    w1, w2 = ((0.3 * torch.randn(n_et, d, generator=gen)).to(dev)
+              for _ in range(2))
+    g = torch.randn(bufs[0].shape, generator=gen).to(dev)
+    valid = graph["dd_valid"].reshape(bufs[0].shape) > 0
+    out = {"slots": bufs[0].numel(), "chunks": bufs[0].shape[0]}
+    for bf16 in (False, True):
+        args = (*(bf16_round(h) if bf16 else h for h in (h1, h2)), w1, w2,
+                *bufs)
+        lk = sddmm2.nn_logits_cuda(*args)
+        el, ml = smoke.max_err(lk[valid], sddmm2.nn_logits_plain(*args)[valid])
+        smoke.check(el <= 1e-5 * ml, f"B9 logits err {el} of max {ml}")
+        gk = sddmm2.nn_bwd_cuda(*args, g, bf16)
+        errs = smoke._frac_errs(gk, sddmm2.nn_bwd_plain(*args, g, bf16))
+        smoke.check(max(errs) <= 1e-4, f"B9 bf16={bf16} grads err {errs}")
+        out["bf16" if bf16 else "float32"] = {"logit_max_abs_err": el,
+                                              "grad_err_frac": errs}
+    args = (h1, h2, w1, w2, *bufs)
+    out["logits_digest"] = digest(sddmm2.nn_logits_cuda(*args))
+    first = sddmm2.nn_bwd_cuda(*args, g)
+    out["bwd_deterministic"] = all(
+        torch.equal(a, b) for a, b in zip(first, sddmm2.nn_bwd_cuda(*args, g)))
+    out["bwd_digest"] = digest(torch.cat([t.reshape(-1) for t in first]))
+    calls = {"fwd": lambda: sddmm2.nn_logits_cuda(*args),
+             "bwd": lambda: sddmm2.nn_bwd_cuda(*args, g),
+             "bwd_bf16": lambda: sddmm2.nn_bwd_cuda(*args, g, True)}
+    for key, fn in calls.items():
+        out[f"{key}_ms"] = smoke.cuda_ms(fn, reps=20, primed=True)
+        out[f"{key}_kernels"] = smoke.kernel_breakdown(fn)
+    return out
+
+
+def gcn_spmm_times(smoke, graph, gs, data, dev) -> dict:
+    """B5 on one windowed P-P graph at d = 32 and 16: checked, timed whole
+    and launch by launch, beside torch.sparse.mm on the CSR matrix."""
+    import torch
+
+    from tip_tpu_torch.ops import typed_segment as ts
+
+    bufs = (graph["ppw_src"], graph["ppw_dstl"], graph["ppw_w"],
+            graph["ppw_chunk_window"], gs.pp_n_windows, gs.pp_window, gs.n_prot)
+    adj = smoke.pp_csr(data, gs.n_prot, dev)
+    gen = torch.Generator().manual_seed(22)
+    out = {"slots": bufs[0].numel(), "max_row_edges": int(torch.bincount(
+        torch.from_numpy(data.pp_norm_index[1].astype("int64"))).max())}
+    for d in (32, 16):
+        x = torch.randn(gs.n_prot, d, generator=gen).to(dev)
+        rep = {}
+        for dt in ("float32", "bfloat16"):
+            k = ts.gcn_spmm_cuda(x, *bufs, compute_dtype=dt)
+            e, m = smoke.max_err(k, ts.gcn_spmm_plain(x, *bufs, compute_dtype=dt))
+            smoke.check(e <= 1e-5 * m, f"B5 d={d} {dt} err {e} of max {m}")
+            rep[f"{dt}_max_abs_err"] = e
+        first = ts.gcn_spmm_cuda(x, *bufs)
+        rep["deterministic"] = torch.equal(first, ts.gcn_spmm_cuda(x, *bufs))
+        fn = lambda: ts.gcn_spmm_cuda(x, *bufs)  # noqa: E731
+        rep["ms"] = smoke.cuda_ms(fn, reps=50, primed=True)
+        rep["kernels"] = smoke.kernel_breakdown(fn)
+        rep["library_ms"] = smoke.library_call(
+            lambda: torch.sparse.mm(adj, x), first, 1e-5, "B5")
+        out[f"d{d}"] = rep
+    return out
+
+
+def chunked_step(smoke, data, dev, decoder: str = "distmult") -> dict:
+    """TIP-cat with ``decoder`` on the chunked layout: step times and the
+    profile."""
+    import dataclasses
+
     import dense_bce_bench  # beside this file, first on sys.path
     import torch
 
     from tip_tpu_torch.config import ModelConfig
     from tip_tpu_torch.train.model import TIP, make_graph_arrays
 
-    graph, gs = make_graph_arrays(data, dev, dense_dtype=None)
-    model = TIP.for_data(ModelConfig.tip_cat(), data, gs, dev)
+    cfg = dataclasses.replace(ModelConfig.tip_cat(), decoder=decoder)
+    graph, gs = make_graph_arrays(data, dev, dense_dtype=None, decoder=decoder)
+    model = TIP.for_data(cfg, data, gs, dev)
     times = dense_bce_bench.step_ms(model, graph)
     out = {"step_ms": times, "step_ms_median": sorted(times)[len(times) // 2],
            **smoke.profile_steps(model, graph)}
@@ -99,7 +196,8 @@ def main(argv=None) -> dict:
     import bench_root  # beside this file, first on sys.path
 
     parser = argparse.ArgumentParser(
-        description="Kernels B8 and B11, and the TIP-cat chunked step")
+        description="Kernels B8, B9, B5 and B11, and the TIP-cat and TIP-NN "
+                    "chunked steps")
     bench_root.add_option(parser)
     args = parser.parse_args(argv)
     root = bench_root.import_package(args.root)
@@ -117,20 +215,29 @@ def main(argv=None) -> dict:
     smoke = bench_root.chip_smoke()
     dev = torch.device("cuda", 0)
     set_matmul_precision()
-    kernels.build(["distmult_sddmm", "ring_spmm", "typed_neighbor_sum",
-                   "gcn_spmm", "typed_neg_sampler"])
+    kernels.build(["distmult_sddmm", "nn_sddmm", "ring_spmm",
+                   "typed_neighbor_sum", "gcn_spmm", "typed_neg_sampler"])
     out = {"root": str(root), "card": smoke.card_line()}
     decagon = build_trigraph(synthetic_trigraph(**DECAGON_SHAPE), 0.9, 1111)
     big = build_trigraph(synthetic_trigraph(**smoke.BEYOND_DENSE), 0.9, 1111)
-    for tag, data in (("main", big), ("decagon", decagon)):
+    skewed = build_trigraph(smoke.skewed_dd_raw(), 0.9, 1111)
+    hub = build_trigraph(smoke.with_hub(smoke.pp_only_raw()), 0.9, 1111)
+    for tag, data in (("main", big), ("decagon", decagon), ("skewed", skewed),
+                      ("hub", hub)):
         graph, gs = make_graph_arrays(data, dev, dense_dtype=None,
                                       pp_dense=False)
-        rep = smoke.check_distmult_sddmm(graph, gs, data, dev)
-        out[f"b8_{tag}"] = {k: rep[k] for k in B8_KEYS}
+        if tag in ("main", "decagon"):
+            rep = smoke.check_distmult_sddmm(graph, gs, data, dev)
+            out[f"b8_{tag}"] = {k: rep[k] for k in B8_KEYS}
+        if tag != "hub":
+            out[f"b9_{tag}"] = nn_sddmm_times(smoke, graph, gs, dev)
+        if tag in ("decagon", "hub"):
+            out[f"b5_{tag}"] = gcn_spmm_times(smoke, graph, gs, data, dev)
         del graph
         torch.cuda.empty_cache()
     out["b11"] = ring_step_times(smoke, decagon, dev)
     out["tip_chunked"] = chunked_step(smoke, big, dev)
+    out["tip_nn_chunked"] = chunked_step(smoke, big, dev, decoder="nn")
     print(json.dumps(out))
     return out
 
