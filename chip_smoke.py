@@ -68,6 +68,7 @@ Without a CUDA device it exits non-zero before printing any result.
 from __future__ import annotations
 
 import faulthandler
+import hashlib
 import json
 import os
 import subprocess
@@ -532,7 +533,8 @@ def nbytes(*tensors) -> int:
 
 def kernel_breakdown(fn, reps: int = 10) -> dict:
     """Device ms of one call of ``fn``, by CUDA kernel and memset name
-    (torch.profiler over ``reps`` calls after one warm-up)."""
+    (torch.profiler over ``reps`` calls after one warm-up); names that
+    agree in their first 60 characters are added together."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -548,7 +550,8 @@ def kernel_breakdown(fn, reps: int = 10) -> dict:
         if e.device_type == DeviceType.CUDA:
             us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0))
-            out[e.key[:60]] = us / 1e3 / reps
+            key = e.key[:60]
+            out[key] = out.get(key, 0.0) + us / 1e3 / reps
     return out
 
 
@@ -852,35 +855,59 @@ def check_distmult_sddmm(graph, gs, data, dev, timed: bool = True) -> dict:
 
 
 def check_typed_neg_sampler(graph, gs, data, dev, timed: bool = True) -> dict:
-    """Kernel B10 against its plain version under the same seed and under
-    the same explicit draws (exact equality of every raw, sign-flagged
-    pair), in the single-draw mode up to 4,096 nodes and the two-draw mode
-    past it, then the lane-borrow
-    pass: how many sampled negatives are still positives after it (the JAX
-    package accepts ~density^5)."""
+    """Kernel B10 against its plain route under the same seed and under the
+    same explicit draws, in the single-draw mode up to 4,096 nodes and the
+    two-draw mode past it, each exactly (torch.equal): the raw sign-flagged
+    pairs (``output="raw"``) against the plain sampler's; the resolved
+    pairs (``"pair"``) against the plain sampler's after resolve_borrow;
+    the split (``"split"``, what a training step takes, one launch)
+    against those pairs' % and //.  Then how many sampled negatives are
+    still positives after the borrow pass (the JAX package accepts
+    ~density^5).  Timed: the split call (the step's), the raw call, and
+    the plain route (plain sampler, resolve_borrow, % and //); the bound
+    counts the chunk types, the bitmap bytes this run's draws touch, and
+    8 output bytes a slot (src and dst)."""
     import torch
 
     from tip_tpu_torch.data.packing import bitmap_stride_bits
     from tip_tpu_torch.ops import sampler
+    from tip_tpu_torch.sampling import typed_negative_sampling_chunked
 
     ct, bitmap = graph["dd_chunk_type"], graph["dd_bitmap"]
     n, chunk = gs.n_drug, gs.dd_chunk
     seed = 12345
-    rk = sampler.typed_negative_sampling_cuda(seed, ct, bitmap, n, chunk)
-    rp = sampler.typed_negative_sampling_plain(seed, ct, bitmap, n, chunk)
-    check(torch.equal(rk, rp), "B10 kernel and plain version draw different "
-          f"pairs ({int((rk != rp).sum())} slots)")
     u24 = torch.randint(0, 1 << 24, (ct.shape[0], 1,
                                      sampler.draws_per_slot(n) * chunk),
                         generator=torch.Generator().manual_seed(13),
                         dtype=torch.int32).to(dev)
-    ru = sampler.typed_negative_sampling_cuda(seed, ct, bitmap, n, chunk, u24)
-    rpu = sampler.typed_negative_sampling_plain(seed, ct, bitmap, n, chunk, u24)
-    check(torch.equal(ru, rpu), "B10 kernel and plain version turn the same "
-          f"draws into different pairs ({int((ru != rpu).sum())} slots)")
+
+    def plain_route(draws):
+        raw = sampler.typed_negative_sampling_plain(seed, ct, bitmap, n, chunk,
+                                                    draws)
+        pair = sampler.resolve_borrow(raw)
+        return raw, pair, pair % n, pair // n
+
+    for name, draws in (("hashed", None), ("explicit", u24)):
+        raw, pair, src, dst = plain_route(draws)
+        got = {out: sampler.typed_negative_sampling_cuda(
+            seed, ct, bitmap, n, chunk, draws, output=out)
+            for out in sampler.OUTPUTS}
+        for what, a, b in (("raw pairs", got["raw"], raw),
+                           ("resolved pairs", got["pair"], pair),
+                           ("src", got["split"][0], src),
+                           ("dst", got["split"][1], dst)):
+            check(torch.equal(a, b), f"B10 {name} draws: kernel and plain "
+                  f"route give different {what} ({int((a != b).sum())} "
+                  "slots)")
+        if draws is None:
+            rk, resolved = got["raw"], pair
+            entry = typed_negative_sampling_chunked(seed, ct, bitmap, n,
+                                                    gs.n_et, chunk)
+            check(torch.equal(entry[0], src) and torch.equal(entry[1], dst),
+                  "B10: typed_negative_sampling_chunked differs from the "
+                  "plain route")
     pair = torch.where(rk < 0, -rk - 1, rk)
     check(int(pair.min()) >= 0 and int(pair.max()) < n * n, "B10 pair range")
-    resolved = sampler.resolve_borrow(rk)
     stride = bitmap_stride_bits(n) // 8
     bytes_ = bitmap.view(torch.uint8)
     key = ct.long()[:, None] * stride + (resolved.long() >> 3)
@@ -894,14 +921,13 @@ def check_typed_neg_sampler(graph, gs, data, dev, timed: bool = True) -> dict:
     if not timed:
         return rep
     rep["ms"] = cuda_ms(lambda: sampler.typed_negative_sampling_cuda(
+        seed, ct, bitmap, n, chunk, output="split"), reps=50, primed=True)
+    rep["raw_ms"] = cuda_ms(lambda: sampler.typed_negative_sampling_cuda(
         seed, ct, bitmap, n, chunk), reps=50, primed=True)
-    rep["resolve_ms"] = cuda_ms(lambda: sampler.resolve_borrow(rk), reps=20,
-                                primed=True)
-    rep["plain_ms"] = cuda_ms(lambda: sampler.typed_negative_sampling_plain(
-        seed, ct, bitmap, n, chunk), reps=3, warmup=1)
+    rep["plain_ms"] = cuda_ms(lambda: plain_route(None), reps=3, warmup=1)
     rep["library_ms"] = None  # no single PyTorch call computes it
     touched = torch.unique(ct.long()[:, None] * stride + (pair.long() >> 3))
-    rep.update(bound(nbytes(ct, rk) + touched.numel(),
+    rep.update(bound(nbytes(ct) + touched.numel() + 8 * rk.numel(),
                      rk.numel() * sampler.draws_per_slot(n)))
     rep["bitmap_bytes_touched"] = touched.numel()
     return rep
@@ -1260,14 +1286,17 @@ def check_distmult_sddmm_v1(graph, gs, data, dev, timed: bool = True) -> dict:
 
 def check_nn_sddmm_v1(graph, gs, data, dev, timed: bool = True) -> dict:
     """Kernel B7 forward (logits) and backward (dh1, dh2, dw1, dw2) against
-    the plain version at l1 = 16, with its tables where the wrapper puts
-    them for this graph (shared memory up to 1,708 nodes forward and 1,693
-    backward) and forced to global memory, in float32 and with bf16
-    rounding.  Logits are compared on every slot (a pad slot scores its pad
-    src alike in both); with h1 = 0 the pad slots' logits (their dst terms)
-    must be exactly 0.  Float32 order only: 1e-5 of the largest logit, 1e-4
-    of the largest gradient.  Then B7 against B9 in float32 on valid slots
-    (the same sums in another order: 1e-5 and 1e-4 of their max)."""
+    the plain version at l1 = 16, in the mode the wrapper picks for this
+    graph (the forward's score rows in shared memory up to 29,055 nodes;
+    the backward adds into device memory at any n) and with the forward
+    forced to its global score table, in float32 and with bf16 rounding.
+    Logits are compared on every slot (a pad slot scores its pad src alike
+    in both); with h1 = 0 the pad slots' logits (their dst terms) must be
+    exactly 0.  Float32 order only: 1e-5 of the largest logit, 1e-4 of the
+    largest gradient.  Then B7 against B9 in float32: the same logits on
+    every slot, bit for bit (B7 launches B9's forward, csrc/nn_fwd.cuh; the
+    digests of both are reported), and the same grads under a masked
+    cotangent within 1e-4 of their max (B9 rounds at other points)."""
     import torch
 
     from tip_tpu_torch.ops import sddmm2
@@ -1309,12 +1338,14 @@ def check_nn_sddmm_v1(graph, gs, data, dev, timed: bool = True) -> dict:
     # v1 against v2 (B9) in float32
     args = (h1, h2, w1, w2, *bufs)
     gm = g * valid
-    el, ml = max_err(ts.nn_v1_fwd_cuda(*args)[valid],
-                     sddmm2.nn_logits_cuda(*args)[valid])
-    check(el <= 1e-5 * ml, f"B7 vs B9 logits err {el} of max {ml}")
+    l1, l2 = ts.nn_v1_fwd_cuda(*args), sddmm2.nn_logits_cuda(*args)
+    digests = [hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()[:16]
+               for x in (l1, l2)]
+    check(torch.equal(l1, l2), f"B7 and B9 logits differ (digests {digests})")
     errs = _frac_errs(ts.nn_v1_bwd_cuda(*args, gm), sddmm2.nn_bwd_cuda(*args, gm))
     check(max(errs) <= 1e-4, f"B7 vs B9 grads {errs} of their max")
-    rep["vs_v2"] = {"logit_max_abs_err": el, "grad_err_frac": errs}
+    rep["vs_v2"] = {"logits_equal": True, "logits_digest": digests[0],
+                    "v2_logits_digest": digests[1], "grad_err_frac": errs}
     rep["max_abs_err"] = worst
     if not timed:
         return rep

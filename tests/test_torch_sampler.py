@@ -10,7 +10,11 @@ against it on the card, pair for pair under one seed.  Here:
     two-draw (n > 4096) regime, before and after the lane-borrow pass;
   * its own hashed draws keep the sampler's invariants and are uniform
     over a relation's non-positives (chi-square, as in
-    tests/test_sampler_stats.py).
+    tests/test_sampler_stats.py);
+  * the CUDA kernel's order (draws, flags, four borrow rounds through a
+    shared-memory row, un-flag, split), emulated in numpy, gives the plain
+    route's (src, dst) exactly, and JAX's kernel + resolve_borrow's under
+    the same bits.
 """
 
 import numpy as np
@@ -176,3 +180,135 @@ def test_chunked_entry_point_and_cuda_wrapper():
         port.typed_negative_sampling_cuda(5, ct, bitmap, n, 64)
     with pytest.raises(ValueError, match="words"):
         port.typed_negative_sampling_padded(5, ct, bitmap[:-1], n, 2, 64)
+    with pytest.raises(ValueError, match="resolved"):
+        port.typed_negative_sampling_padded(5, ct, bitmap, n, 2, 64,
+                                            resolve=False, split=True)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's order: draws, flags, four borrow rounds through a copy
+# of the chunk in shared memory, un-flag, split (csrc/typed_neg_sampler.cu)
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x):
+    """The kernel's lowbias32 mixer on uint64 arrays of 32-bit values."""
+    x = np.asarray(x, np.uint64) & _M32
+    x ^= x >> 16
+    x = (x * 0x7FEB352D) & _M32
+    x ^= x >> 15
+    x = (x * 0x846CA68B) & _M32
+    return x ^ (x >> 16)
+
+
+def emulate_fused(seed, chunk_type, bitmap, n, chunk, u24=None):
+    """(src, dst) [n_chunks, chunk] as the kernel makes them, one chunk a
+    block: each lane draws (hashed from the chunk's key, or word j and
+    chunk + j of its row of ``u24``), keeps (signed pair, src | dst << 16)
+    with src, dst from the draws in the two-draw mode and from one
+    division in the one-draw mode; round r writes the row, reads lane j - s
+    (s = 2^r mod chunk; + chunk below 0) and takes it where its own value
+    is flagged and the other clean; then a flagged lane is un-flagged and
+    the split read from the carried word."""
+    draws = port.draws_per_slot(n)
+    scale = port.draw_scale(n)
+    stride = bitmap_stride_bits(n) // 8
+    bytes_ = np.asarray(bitmap, np.uint32).view(np.uint8)
+    lanes = np.arange(chunk)
+    src_out = np.zeros((len(chunk_type), chunk), np.int32)
+    dst_out = np.zeros_like(src_out)
+    for c, t in enumerate(np.asarray(chunk_type)):
+        if u24 is None:
+            key = _mix32(np.uint64((seed + int(_mix32(c + 0x9E3779B9))) & _M32))
+            words = (_mix32(key ^ _mix32(np.arange(draws * chunk))) >> 8)
+        else:
+            words = np.asarray(u24[c]).reshape(-1).astype(np.uint64)
+        u = words.astype(np.float32)
+        if draws == 2:
+            src = np.minimum((u[:chunk] * scale).astype(np.int64), n - 1)
+            dst = np.minimum((u[chunk:] * scale).astype(np.int64), n - 1)
+            pair = dst * n + src
+        else:
+            pair = np.minimum((u * scale).astype(np.int64), n * n - 1)
+            dst = pair // n
+            src = pair - dst * n
+        byte = bytes_[int(t) * stride + (pair >> 3)].astype(np.int64)
+        p = np.where((byte >> (pair & 7)) & 1, -pair - 1, pair)
+        sd = src | (dst << 16)
+        for r in range(4):
+            s = (1 << r) % chunk
+            other = np.where(lanes >= s, lanes - s, lanes - s + chunk)
+            row_p, row_sd = p.copy(), sd.copy()  # the shared-memory row
+            take = (p < 0) & (row_p[other] >= 0)
+            p = np.where(take, row_p[other], p)
+            sd = np.where(take, row_sd[other], sd)
+        src_out[c] = sd & 0xFFFF
+        dst_out[c] = sd >> 16
+    return src_out, dst_out
+
+
+def _wrap_setup(n, chunk, n_chunks, n_et, u24):
+    """A bitmap that flags the first 3 lanes of every chunk and about a
+    third of the others: lanes 0-2 borrow across lane 0 from the chunk's
+    last lanes."""
+    chunk_type = np.repeat(np.arange(n_et, dtype=np.int32),
+                           -(-n_chunks // n_et))[:n_chunks]
+    pairs = _pairs_of(u24, n)
+    hit = np.random.default_rng(1).random(pairs.shape) < 1 / 3
+    hit[:, :3] = True
+    hit[:, -3:] = False
+    stride = bitmap_stride_bits(n)
+    bits = chunk_type[:, None].astype(np.int64) * stride + pairs
+    flagged = np.isin(bits, np.unique(bits[hit]))
+    return chunk_type, build_key_bitmap(np.unique(bits[hit]), n_et * stride), flagged
+
+
+@pytest.mark.parametrize("n,chunk", [(40, 64), (5000, 128), (40, 6)])
+@pytest.mark.parametrize("draws", ["hashed", "explicit"])
+def test_fused_kernel_order_emulation_matches_plain_route(n, chunk, draws):
+    """The kernel's pass order (emulate_fused) equals the plain route,
+    resolve_borrow over the plain sampler then % and //, exactly: one- and
+    two-draw modes, hashed and explicit draws, a chunk shorter than the
+    largest shift, and flagged lanes that borrow across lane 0."""
+    n_chunks, n_et = 9, 3
+    per_slot = port.draws_per_slot(n)
+    u24 = _jax_bits(jax.random.key(3), n_chunks, per_slot * chunk)
+    ct, bitmap, flagged = _wrap_setup(n, chunk, n_chunks, n_et, u24)
+    given = None if draws == "hashed" else u24
+    src, dst = emulate_fused(11, ct, bitmap, n, chunk, given)
+    tu24 = None if given is None else torch.from_numpy(given)
+    pair = port.resolve_borrow(port.typed_negative_sampling_plain(
+        11, torch.from_numpy(ct), bitmap_tensor(bitmap), n, chunk, tu24))
+    np.testing.assert_array_equal(src, (pair % n).numpy())
+    np.testing.assert_array_equal(dst, (pair // n).numpy())
+    got = port.typed_negative_sampling_padded(
+        11, torch.from_numpy(ct), bitmap_tensor(bitmap), n, n_et, chunk,
+        u24=tu24, split=True)
+    assert all(torch.equal(a, torch.from_numpy(b))
+               for a, b in zip(got, (src, dst)))
+    if draws == "explicit":
+        # lane 0 took lane chunk - 1's clean pair across the wrap
+        pairs = _pairs_of(u24, n)
+        wrap = flagged[:, 0] & ~flagged[:, -1]
+        assert wrap.sum() >= n_chunks // 2
+        np.testing.assert_array_equal((dst * n + src)[wrap, 0],
+                                      pairs[wrap, -1])
+
+
+@pytest.mark.parametrize("n,chunk", [(40, 64), (5000, 128)])
+def test_fused_kernel_order_emulation_matches_jax_under_the_same_bits(n, chunk):
+    """Handed the bits JAX's kernel streams in on the CPU, the emulated
+    kernel gives (src, dst) of tip_tpu's resolve_borrow over the JAX
+    kernel's interpret-mode output."""
+    n_chunks, n_et = 9, 3
+    key = jax.random.key(5)
+    u24 = _jax_bits(key, n_chunks, port.draws_per_slot(n) * chunk)
+    ct, bitmap, _ = _wrap_setup(n, chunk, n_chunks, n_et, u24)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(j_sample(key, jnp.asarray(ct), jnp.asarray(bitmap),
+                                   n, n_et, chunk))
+    src, dst = emulate_fused(0, ct, bitmap, n, chunk, u24)
+    np.testing.assert_array_equal(src, want % n)
+    np.testing.assert_array_equal(dst, want // n)

@@ -10,7 +10,8 @@ kernels accumulate dz and dh over all chunks and dw per relation block).
 Both get the same cotangent, so the bf16 rounding of each scattered
 contribution sees the same float32 inputs.  dw is compared on the
 relations that own a chunk: the TPU kernel never writes the others, the
-port writes 0 there.
+port writes 0 there.  B7's backward is also emulated in numpy in the CUDA
+kernel's order (lane-quad run sums) and held against both.
 """
 
 import numpy as np
@@ -189,14 +190,20 @@ def test_cuda_argument_checks(kernel, bad):
         nodes = {k: torch.from_numpy(x[k]) for k in ("h1", "h2")}
         rels = {k: torch.from_numpy(x[k]) for k in ("w1", "w2")}
     tb, g = _t(bufs), torch.from_numpy(cot)
-    port._check_v1_args(nodes, rels, tb, True, "shared", g)  # valid: passes
+    # B6 keeps a table in shared memory both ways, B7 only in its forward
+    grads = kernel == "distmult"
+    port._check_v1_args(nodes, rels, tb, grads, "shared", g)  # valid: passes
+    if kernel == "nn":
+        with pytest.raises(ValueError, match="no table"):
+            port._check_v1_args(nodes, rels, tb, True, "shared", g)
     table = "shared"
     if bad == "width":  # the kernels are built for width 16 only
         nodes = {k: v[:, :12].contiguous() for k, v in nodes.items()}
     elif bad == "relations":  # relation rows of another width
         rels = {k: v[:, :8].contiguous() for k, v in rels.items()}
-    elif bad == "nodes":  # the shared-memory tables no longer fit
-        nodes = {k: torch.zeros(3500, 16) for k in nodes}
+    elif bad == "nodes":  # the shared-memory tables (score rows) no longer fit
+        n_big = 3500 if kernel == "distmult" else 30_000
+        nodes = {k: torch.zeros(n_big, 16) for k in nodes}
     elif bad == "dtype":
         tb[0] = tb[0].long()
     elif bad == "g_shape":
@@ -204,23 +211,153 @@ def test_cuda_argument_checks(kernel, bad):
     else:
         table = "device"
     with pytest.raises(ValueError):
-        port._check_v1_args(nodes, rels, tb, True, table, g)
+        port._check_v1_args(nodes, rels, tb, grads, table, g)
 
 
 @pytest.mark.parametrize("tables,grads,n_max", [
-    (1, False, 3417), (1, True, 3402), (2, False, 1708), (2, True, 1693)])
+    (1, False, 3417), (1, True, 3402), (2, False, 29055), (2, True, 0)])
 def test_shared_table_boundary(tables, grads, n_max):
-    """The largest graph whose tables B6 (one) or B7 (two) keep in shared
-    memory; one node more takes the global-memory mode, which has no
-    limit."""
-    assert port.v1_shared_fits(n_max, tables, grads)
+    """The largest graph whose tables B6 (one node table) or B7 (two: its
+    forward's score rows, B9's) keep in shared memory; one node more takes
+    the global-memory mode, which has no limit.  B7's backward adds into
+    device memory at every n (n_max 0: never in shared memory)."""
+    if n_max:
+        assert port.v1_shared_fits(n_max, tables, grads)
     assert not port.v1_shared_fits(n_max + 1, tables, grads)
     bufs, x, _, _, _ = _setup(40)
     names = ("z",) if tables == 1 else ("h1", "h2")
     rels = {k: torch.from_numpy(x[k]) for k in (("w",) if tables == 1
                                                 else ("w1", "w2"))}
-    for n, shared in ((n_max, True), (n_max + 1, False), (40_000, False)):
+    for n, shared in ((n_max, n_max > 0), (n_max + 1, False),
+                      (40_000, False)):
         nodes = {k: torch.zeros(n, 16) for k in names}
         assert port._check_v1_args(nodes, rels, _t(bufs), grads) == (n, shared)
         assert port._check_v1_args(nodes, rels, _t(bufs), grads,
                                    "global") == (n, False)
+
+
+# ---------------------------------------------------------------------------
+# B7's backward in the CUDA kernel's order (csrc/nn_sddmm_v1.cu)
+# ---------------------------------------------------------------------------
+
+SEG, BWD_WARPS = 16, 8  # a quad's segment; warps of a backward block
+
+
+def _bf16(x):
+    """Round float32 to bf16 (nearest even), kept as float32."""
+    return torch.from_numpy(np.asarray(x, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def emulate_v1_bwd(h1, h2, w1, w2, src2d, dst2d, ct, g, bf16: bool):
+    """(dh1, dh2, dw1, dw2, reductions a side) in float32 in the kernel's
+    order: lane quads of 8-quad warps of an 8-warp block walk 16-slot
+    segments (segment k * 64 + warp * 8 + quad of a chunk); each slot's
+    contributions w1[t] g and w2[t] g are rounded (bf16) before they enter
+    a run sum a side, and a run of equal rows is added to dh once, where
+    it ends; the quad's dw partials are chains of h[row] g over its slots,
+    summed by a shuffle tree over a warp's quads, then the warps in order;
+    dw the chunks of a relation in order.  dh takes the runs in this
+    emulation's order (the kernel's is not fixed)."""
+    f = np.float32
+    n, d = h1.shape
+    hp = [np.vstack([h, np.zeros((1, d), f)]).astype(f) for h in (h1, h2)]
+    nc, C = src2d.shape
+    nseg, per = C // SEG, 8 * BWD_WARPS
+    dh = np.zeros((2, n + 1, d), f)
+    dwc = np.zeros((nc, 2, d), f)
+    runs_added = [0, 0]
+    for c in range(nc):
+        w = [w1[ct[c]].astype(f), w2[ct[c]].astype(f)]
+        lanes = np.zeros((per, 2, d), f)
+        for s0 in range(0, nseg, per):
+            for j in range(min(per, nseg - s0)):
+                sl = slice((s0 + j) * SEG, (s0 + j + 1) * SEG)
+                runs = [[-1, None], [-1, None]]
+                for rows in zip(src2d[c, sl], dst2d[c, sl], g[c, sl]):
+                    gv = f(rows[2])
+                    for side in (0, 1):
+                        row = rows[side]
+                        v = w[side] * gv
+                        if bf16:
+                            v = _bf16(v)
+                        lanes[j, side] = lanes[j, side] + hp[side][row] * gv
+                        run = runs[side]
+                        if row == run[0]:
+                            run[1] = run[1] + v
+                        else:
+                            if run[0] >= 0:
+                                dh[side, run[0]] += run[1]
+                                runs_added[side] += 1
+                            run[:] = [row, v]
+                for side, (row, v) in enumerate(runs):
+                    dh[side, row] += v
+                    runs_added[side] += 1
+        warps = lanes.reshape(BWD_WARPS, 8, 2, d).copy()
+        for o in (4, 2, 1):  # __shfl_down_sync by 16, 8, 4 lanes
+            warps[:, :o] = warps[:, :o] + warps[:, o:2 * o]
+        t = np.zeros((2, d), f)
+        for u in range(BWD_WARPS):
+            t = t + warps[u, 0]
+        dwc[c] = t
+    dw = np.zeros((2,) + w1.shape, f)
+    for c in range(nc):
+        dw[:, ct[c]] = dw[:, ct[c]] + dwc[c]
+    return dh[0, :n], dh[1, :n], dw[0], dw[1], runs_added
+
+
+def _skewed_setup(chunk, seed=8):
+    """60 drugs, relation 0 holding every drug pair (a skewed relation of
+    many chunks), relations 1-2 a few; each relation's last chunk ends in
+    a pad tail."""
+    raw = synthetic_trigraph(n_drug=60, n_prot=10, n_et=3, pairs_per_et=40,
+                             seed=seed)
+    lo, hi = np.triu_indices(60, 1)
+    pairs = [np.stack([lo, hi]).astype(np.int32), *raw.dd_pair_list[1:]]
+    edges, _ = split_typed_edges(pairs, p=0.95, seed=0)
+    padded = pad_typed_edges(sort_typed_edges(edges), 60, chunk=chunk)
+    nc = padded.chunk_type.shape[0]
+    bufs = (padded.src.reshape(nc, chunk), padded.dst.reshape(nc, chunk),
+            padded.chunk_type)
+    rng = np.random.default_rng(seed)
+    h1, h2 = (np.maximum(rng.normal(size=(60, 16)), 0).astype(np.float32)
+              for _ in range(2))
+    w1, w2 = (rng.normal(size=(3, 16)).astype(np.float32) for _ in range(2))
+    cot = rng.normal(size=bufs[0].shape).astype(np.float32)
+    valid = padded.valid.reshape(nc, chunk)
+    return bufs, (h1, h2, w1, w2), cot, valid
+
+
+@pytest.mark.parametrize("chunk", [32, 1056])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_backward_order_emulation_matches_plain_and_jax(chunk, dtype):
+    """The new backward's order (emulate_v1_bwd; a chunk of 1,056 slots
+    makes a quad walk two segments) gives the plain version's and the JAX
+    interpret kernel's dh1, dh2, dw1, dw2 to the file's tolerance, on a
+    skewed relation with pad tails, with and without the bf16 rounding of
+    each contribution; one reduction a run of equal rows in a segment, so
+    the dst-sorted positives and the pad tails take far fewer than one a
+    slot."""
+    bufs, hw, cot, valid = _skewed_setup(chunk)
+    src2d, dst2d, ct = bufs
+    assert (ct == 0).sum() > len(ct) / 2 and (~valid).any()
+    bf16 = dtype == "bfloat16"
+    hr = [_bf16(h) if bf16 else h for h in hw[:2]]  # compute_round
+    got = emulate_v1_bwd(*hr, *hw[2:], *bufs, cot, bf16)
+    plain = port.nn_v1_bwd_plain(*_t((*hr, *hw[2:], *bufs, cot)), bf16=bf16)
+    for a, b in zip(got[:4], plain):
+        _close(a, b, 1e-4, 1e-4)
+
+    def jloss(*args):
+        return jnp.sum(j_nn1(*args, *map(jnp.asarray, bufs),
+                             jnp.dtype(dtype)) * cot)
+
+    with pltpu.force_tpu_interpret_mode():
+        jg = jax.grad(jloss, argnums=(0, 1, 2, 3))(*hw)
+    for a, b in zip(got[:4], jg):
+        _close(a, b, 1e-4, 1e-4)
+    for side, ids in enumerate((src2d, dst2d)):
+        segs = ids.reshape(-1, SEG)
+        assert got[4][side] == segs.shape[0] + int(
+            (segs[:, 1:] != segs[:, :-1]).sum())
+    assert got[4][1] < src2d.size / 2

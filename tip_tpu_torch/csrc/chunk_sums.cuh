@@ -1,7 +1,7 @@
 // Fixed-order sums shared by the v1 SDDMM kernels (distmult_sddmm_v1.cu,
-// nn_sddmm_v1.cu): a block's per-thread partials summed per chunk, the
-// per-chunk sums summed per relation over its chunks, and per-block partial
-// tables summed over the blocks.  Every sum runs in an order fixed by the
+// nn_sddmm_v1.cu): a block's per-thread (or per-lane-quad) partials summed
+// per chunk, the per-chunk sums summed per relation over its chunks, and
+// per-block partial tables summed over the blocks.  Every sum runs in an order fixed by the
 // data, not by the schedule, so these parts of a result are deterministic.
 
 #pragma once
@@ -33,6 +33,38 @@ __device__ void block_sum(const float (&v)[W], float* red,
   for (int k = threadIdx.x; k < W; k += blockDim.x) {
     float s = 0.f;
     for (int q = 0; q < nwarps; ++q) s = __fadd_rn(s, red[q * W + k]);
+    out[k] = s;
+  }
+  __syncthreads();
+}
+
+// The same for partials held by lane quads (quad_walk.cuh's layout): lane
+// q of each quad holds features 4q .. 4q + 3 of R rows of 16, v[r] = row
+// r's.  out[16 r + 4 q + i] = the sum over the block's quads, by a shuffle
+// tree over a warp's 8 quads (offsets of 16, 8 and 4 lanes), then the
+// warps in order.  red holds [blockDim.x / 32][16 R] floats.  Every thread
+// of the block calls it.
+template <int R>
+__device__ void quad_block_sum(const float4 (&v)[R], float* red,
+                               float* __restrict__ out) {
+  constexpr int W = 16 * R;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, q = lane & 3;
+  const int nwarps = blockDim.x >> 5;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float x[4] = {v[r].x, v[r].y, v[r].z, v[r].w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int off = 16; off >= 4; off >>= 1)
+        x[i] = __fadd_rn(x[i], __shfl_down_sync(FULL, x[i], off));
+      if (lane < 4) red[warp * W + 16 * r + 4 * q + i] = x[i];
+    }
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < W; k += blockDim.x) {
+    float s = 0.f;
+    for (int u = 0; u < nwarps; ++u) s = __fadd_rn(s, red[u * W + k]);
     out[k] = s;
   }
   __syncthreads();

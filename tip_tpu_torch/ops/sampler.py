@@ -13,7 +13,12 @@ draws one candidate pair = dst * n + src for its chunk's relation:
 A candidate that is a positive of the relation (bit ``pair & 7`` of byte
 ``pair >> 3`` of the relation's slice of the little-endian bitmap) comes
 out sign-flagged as ``-pair - 1``; :func:`resolve_borrow` then lets each
-flagged lane copy a clean lane of the same chunk at offsets 1, 2, 4, 8.
+flagged lane copy a clean lane of the same chunk at offsets 1, 2, 4, 8,
+and the training step splits each pair into (pair % n, pair // n).  On
+CUDA tensors one launch of the kernel draws, flags, runs the borrow pass
+in shared memory and writes the pairs or their split, bit for bit what
+the plain sampler, :func:`resolve_borrow` and the split give; the raw
+flagged pairs stay available (``resolve=False``).
 
 Random bits.  The TPU kernel draws from its on-chip PRNG.  Here word w of
 chunk c's draw row is ``u24 = mix32(key_c ^ mix32(w)) >> 8`` with
@@ -95,14 +100,26 @@ def typed_negative_sampling_plain(seed: int, chunk_type, bitmap, n_nodes: int,
     return torch.where(hit, -pair - 1, pair)
 
 
+OUTPUTS = ("raw", "pair", "split")  # what the CUDA kernel writes
+MAX_CHUNK = 4096  # the kernel's block holds a chunk (in 32 KB of shared memory)
+
+
 def typed_negative_sampling_cuda(seed: int, chunk_type, bitmap, n_nodes: int,
-                                 chunk: int, u24: Optional[torch.Tensor] = None):
-    """Launch csrc/typed_neg_sampler.cu: :func:`typed_negative_sampling_plain`
-    on the card, from the seed's hashed draws or from ``u24``."""
+                                 chunk: int, u24: Optional[torch.Tensor] = None,
+                                 output: str = "raw"):
+    """Launch csrc/typed_neg_sampler.cu on the card, from the seed's hashed
+    draws or from ``u24``.  ``output``: "raw", the sign-flagged pairs of
+    :func:`typed_negative_sampling_plain`; "pair", the pairs after
+    :func:`resolve_borrow`; "split", those pairs' (src, dst) = (pair % n,
+    pair // n), the kernel's borrow pass and split in the same launch."""
     _check_nodes(n_nodes)
     dev = chunk_type.device
     if not chunk_type.is_cuda:
         raise ValueError("typed_negative_sampling_cuda needs CUDA tensors")
+    if output not in OUTPUTS:
+        raise ValueError(f"output {output!r} not in {OUTPUTS}")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk {chunk}: the kernel takes 1 .. {MAX_CHUNK}")
     kernels.require(chunk_type, "chunk_type", torch.int32, 1, dev)
     kernels.require(bitmap, "bitmap", torch.int32, 1, dev)
     n_chunks = chunk_type.shape[0]
@@ -114,11 +131,15 @@ def typed_negative_sampling_cuda(seed: int, chunk_type, bitmap, n_nodes: int,
         u24 = u24.to(device=dev, dtype=torch.int32).contiguous()
     stride_bytes = bitmap_stride_bits(n_nodes) // 8
     out = torch.empty((n_chunks, chunk), dtype=torch.int32, device=dev)
-    kernels.launch(KERNEL, "tip_typed_neg_sampler", "pppuiiiifqp", chunk_type,
-                   bitmap, u24, seed & 0xFFFFFFFF, n_chunks, chunk, n_nodes,
-                   draws, float(draw_scale(n_nodes)), stride_bytes, out,
-                   device=dev)
-    return out
+    if output == "split":
+        pair, src, dst = None, out, torch.empty_like(out)
+    else:
+        pair, src, dst = out, None, None
+    kernels.launch(KERNEL, "tip_typed_neg_sampler", "pppuiiiifqippp",
+                   chunk_type, bitmap, u24, seed & 0xFFFFFFFF, n_chunks, chunk,
+                   n_nodes, draws, float(draw_scale(n_nodes)), stride_bytes,
+                   int(output != "raw"), pair, src, dst, device=dev)
+    return (src, dst) if output == "split" else pair
 
 
 def resolve_borrow(out: torch.Tensor) -> torch.Tensor:
@@ -138,23 +159,30 @@ def resolve_borrow(out: torch.Tensor) -> torch.Tensor:
 def typed_negative_sampling_padded(seed: int, chunk_type, bitmap,
                                    n_nodes: int, n_et: int, chunk: int,
                                    u24: Optional[torch.Tensor] = None,
-                                   resolve: bool = True):
+                                   resolve: bool = True, split: bool = False):
     """Negatives for a chunk-aligned typed edge buffer.
 
     seed: uint32 step seed; chunk_type [n_chunks] int32 (non-decreasing);
     bitmap: relation-strided uint32 words as int32 [n_et * stride / 32].
-    ``u24`` replaces the hashed draws.  Returns pair
-    [n_chunks, chunk] int32 with pair = dst * n_nodes + src (raw and
-    sign-flagged with ``resolve=False``)."""
+    ``u24`` replaces the hashed draws.  Returns pair [n_chunks, chunk]
+    int32 with pair = dst * n_nodes + src (raw and sign-flagged with
+    ``resolve=False``), or with ``split`` the resolved pairs' (src, dst).
+    CUDA tensors take one launch of the kernel for all of it; CPU tensors
+    the plain sampler, :func:`resolve_borrow`, then ``%`` and ``//``."""
     if bitmap.numel() * 32 != n_et * bitmap_stride_bits(n_nodes):
         raise ValueError(f"bitmap has {bitmap.numel()} words, expected "
                          f"{n_et * bitmap_stride_bits(n_nodes) // 32}")
+    if split and not resolve:
+        raise ValueError("split takes the resolved pairs")
     if chunk_type.is_cuda:
-        out = typed_negative_sampling_cuda(seed, chunk_type, bitmap, n_nodes,
-                                           chunk, u24)
-    elif chunk_type.device.type == "cpu":
-        out = typed_negative_sampling_plain(seed, chunk_type, bitmap, n_nodes,
-                                            chunk, u24)
-    else:
+        output = "split" if split else "pair" if resolve else "raw"
+        return typed_negative_sampling_cuda(seed, chunk_type, bitmap, n_nodes,
+                                            chunk, u24, output)
+    if chunk_type.device.type != "cpu":
         raise ValueError(f"no sampler for device {chunk_type.device}")
-    return resolve_borrow(out) if resolve else out
+    out = typed_negative_sampling_plain(seed, chunk_type, bitmap, n_nodes,
+                                        chunk, u24)
+    if not resolve:
+        return out
+    pair = resolve_borrow(out)
+    return (pair % n_nodes, pair // n_nodes) if split else pair

@@ -138,7 +138,7 @@ def _check_cuda_args(z, w, src2d, dst2d, chunk_type, grads: bool,
     return n, fits if table is None else table == "shared"
 
 
-def _aligned(*tensors):
+def aligned(*tensors):
     """The tensors, each cloned where its data is not 16-byte aligned (the
     kernel reads 16 bytes a lane)."""
     return [x if x.data_ptr() % 16 == 0 else x.clone() for x in tensors]
@@ -172,7 +172,7 @@ def distmult_bwd_cuda(z, w, src2d, dst2d, chunk_type, g, bf16: bool = False):
     if g.shape != src2d.shape:
         raise ValueError(f"g {tuple(g.shape)} != src2d {tuple(src2d.shape)}")
     n_chunks, chunk = src2d.shape
-    src2d, dst2d, g, w = _aligned(src2d, dst2d, g, w)
+    src2d, dst2d, g, w = aligned(src2d, dst2d, g, w)
     n_et = w.shape[0]
     # scratch freed on return while the kernel may still run: the caching
     # allocator reuses it only for later work on this same stream
@@ -345,17 +345,15 @@ def _nn_plan_scratch(n_chunks: int, n_et: int, dev):
     return m, torch.empty((max(m, 1), 4), **i32), torch.empty(n_et + 1, **i32)
 
 
-def nn_logits_cuda(h1, h2, w1, w2, src2d, dst2d, chunk_type, table=None):
-    """Launch the forward of csrc/nn_sddmm.cu (``table``: None picks
-    "shared", the items' score rows in shared memory, where they fit, else
-    "global", the score table in device memory)."""
+def nn_fwd_args(h1, h2, w1, w2, src2d, dst2d, chunk_type, shared: bool):
+    """(out, the C arguments) of the NN-decoder forward of csrc/nn_fwd.cuh,
+    which B9's ``tip_nn_fwd`` and B7's ``tip_nn1_fwd`` launch alike: the
+    items' score rows in shared memory (``shared``), else the score table
+    in device memory.  The arguments are checked by the caller."""
     dev = h1.device
-    if not h1.is_cuda:
-        raise ValueError("nn_logits_cuda needs CUDA tensors")
-    n, shared = _check_nn_args(h1, h2, w1, w2, src2d, dst2d, chunk_type, table)
     n_chunks, chunk = src2d.shape
-    n_et = w1.shape[0]
-    h1, h2, w1, w2, src2d, dst2d = _aligned(h1, h2, w1, w2, src2d, dst2d)
+    n, n_et = h1.shape[0], w1.shape[0]
+    h1, h2, w1, w2, src2d, dst2d = aligned(h1, h2, w1, w2, src2d, dst2d)
     f32 = dict(dtype=torch.float32, device=dev)
     if shared:  # the items' score rows
         m, items, rel_items = _nn_plan_scratch(n_chunks, n_et, dev)
@@ -364,10 +362,21 @@ def nn_logits_cuda(h1, h2, w1, w2, src2d, dst2d, chunk_type, table=None):
         m, items, rel_items = 0, None, None
         scores = torch.empty((n_et, 2, n + 1), **f32)
     out = torch.empty((n_chunks, chunk), **f32)
-    kernels.launch(NN_KERNEL, "tip_nn_fwd", "pppppppiiiiiiipppp", h1, h2, w1,
-                   w2, src2d, dst2d, chunk_type, n_chunks, chunk, n, n_et,
-                   int(shared), m, 4 * kernels.sm_count(dev), items,
-                   rel_items, scores, out, device=dev)
+    return out, (h1, h2, w1, w2, src2d, dst2d, chunk_type, n_chunks, chunk, n,
+                 n_et, int(shared), m, 4 * kernels.sm_count(dev), items,
+                 rel_items, scores, out)
+
+
+def nn_logits_cuda(h1, h2, w1, w2, src2d, dst2d, chunk_type, table=None):
+    """Launch the forward of csrc/nn_sddmm.cu (``table``: None picks
+    "shared", the items' score rows in shared memory, where they fit, else
+    "global", the score table in device memory)."""
+    if not h1.is_cuda:
+        raise ValueError("nn_logits_cuda needs CUDA tensors")
+    _, shared = _check_nn_args(h1, h2, w1, w2, src2d, dst2d, chunk_type, table)
+    out, args = nn_fwd_args(h1, h2, w1, w2, src2d, dst2d, chunk_type, shared)
+    kernels.launch(NN_KERNEL, "tip_nn_fwd", "pppppppiiiiiiipppp", *args,
+                   device=h1.device)
     return out
 
 
@@ -385,7 +394,7 @@ def nn_bwd_cuda(h1, h2, w1, w2, src2d, dst2d, chunk_type, g,
         raise ValueError(f"g {tuple(g.shape)} != src2d {tuple(src2d.shape)}")
     n_chunks, chunk = src2d.shape
     n_et = w1.shape[0]
-    h1, h2, w1, w2, src2d, dst2d, g = _aligned(h1, h2, w1, w2, src2d, dst2d, g)
+    h1, h2, w1, w2, src2d, dst2d, g = aligned(h1, h2, w1, w2, src2d, dst2d, g)
     m, items, rel_items = _nn_plan_scratch(n_chunks, n_et, dev)
     slabs = contract_slabs(m)
     # scratch freed on return while the kernel may still run: the caching

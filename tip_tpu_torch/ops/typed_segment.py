@@ -13,16 +13,19 @@ relation bin or window, so their forward passes sum each run of equal
 destinations in slot order (B4 a warp a run, its lanes over the features;
 B5 a warp a group of :data:`SPMM_GROUP` slots, its lanes over the
 features, the pieces of a run that crosses groups added in group order)
-and write it once: no atomics, deterministic results.  B4's backward and B6 and B7 scatter their
-gradients with atomics.
+and write it once: no atomics, deterministic results.  B4's backward and
+B6 scatter their gradients with atomics; B7's backward scatters with B8's
+lane quads (float4 reductions of run sums into device memory).
 
 B6 and B7 are the JAX package's first SDDMMs, which its decoder A/B
 benchmark (scripts/decoder_ab.py; the port's is
 tip_tpu_torch/scripts/decoder_ab.py) times against the second ones, B8 and
-B9 (ops/sddmm2.py).  They compute the same logits; they round to bf16 at
-other points (each scattered gradient contribution as the TPU kernel
-casts it), take no ``n_nodes`` argument, and keep their gathers' tables
-in shared memory up to a node count past which they read device memory.
+B9 (ops/sddmm2.py).  They compute the same logits (B6 launches B8's
+forward, B7 B9's, so the logits are equal bit for bit); they round to
+bf16 at other points (each scattered gradient contribution as the TPU
+kernel casts it) and take no ``n_nodes`` argument.  B6 keeps its tables
+in shared memory up to a node count past which it reads device memory,
+B7's forward its score rows (B9's boundary, 29,055 nodes).
 
 Each kernel has a plain PyTorch version here (``*_plain``) with the same
 arithmetic; CPU tensors take it, CUDA tensors launch the kernel or raise.
@@ -38,9 +41,14 @@ from tip_tpu_torch import kernels
 from tip_tpu_torch.ops.matmul import bf16_round, compute_round, is_bf16
 from tip_tpu_torch.ops.sddmm2 import (
     D,
+    PLAN_RELATIONS,
+    SEG,
     TABLES,
+    aligned,
     distmult_logits_plain,
+    nn_fwd_args,
     nn_logits_plain,
+    nn_shared_fits,
     pad_row,
 )
 
@@ -48,7 +56,7 @@ TNS = "typed_neighbor_sum"
 SPMM = "gcn_spmm"
 DM1 = "distmult_sddmm_v1"
 NN1 = "nn_sddmm_v1"
-_WARPS = 16  # B6's and B7's backward blocks (512 threads): the dw reductions
+_WARPS = 16  # B6's backward blocks (512 threads): its dw reduction
 SPMM_GROUP = 32  # B5's warp takes this many slots (gcn_spmm.cu)
 SPMM_MAX_SLOTS = 2**31 - 2**12  # B5 indexes slots with int32
 
@@ -374,9 +382,14 @@ def distmult_v1_bwd_plain(z, w, src2d, dst2d, chunk_type, g,
 
 
 def v1_shared_fits(n: int, tables: int, grads: bool) -> bool:
-    """Whether ``tables`` [n + 1, 17] float tables (with a backward's
-    static dw reduction) fit one block's shared memory.  B6 (one table): n
-    <= 3,417 forward, 3,402 backward; B7 (two): 1,708 and 1,693."""
+    """Whether the kernel with ``tables`` node tables keeps them in one
+    block's shared memory.  B6 (one [n + 1, 17] float table, with the
+    backward's static dw reduction): n <= 3,417 forward, 3,402 backward.
+    B7 (two): its forward is B9's, whose two score rows of n + 1 floats
+    fit up to 29,055 nodes; its backward keeps no table in shared memory
+    (it adds into device memory at any n)."""
+    if tables == 2:
+        return not grads and nn_shared_fits(n)
     static = _WARPS * tables * D * 4 if grads else 0
     return tables * (n + 1) * (D + 1) * 4 + static <= kernels.SMEM_BYTES
 
@@ -386,8 +399,10 @@ def _check_v1_args(nodes: dict, rels: dict, bufs, grads: bool, table=None,
     """(n, shared) for B6 (``nodes`` {"z"}) or B7 ({"h1", "h2"}): float32
     [n, 16] node tables, [n_et, 16] relation rows ``rels``, ``bufs``
     (src2d, dst2d, chunk_type) and the backward's ``g``.  ``table`` None
-    picks "shared" where the tables fit, else "global"; "shared" raises
-    where they do not fit."""
+    picks "shared" where the tables fit (:func:`v1_shared_fits`), else
+    "global"; "shared" raises where they do not fit.  B7 also wants a
+    chunk length that is a multiple of 16, and its forward at most
+    sddmm2.PLAN_RELATIONS relations (B9's plan)."""
     dev = bufs[0].device
     for name, x in {**nodes, **rels}.items():
         kernels.require(x, name, torch.float32, 2, dev)
@@ -405,6 +420,17 @@ def _check_v1_args(nodes: dict, rels: dict, bufs, grads: bool, table=None,
                              f"{tuple(bufs[0].shape)}")
     if table not in (None, *TABLES):
         raise ValueError(f"table {table!r} not in {TABLES}")
+    if len(nodes) == 2:
+        if bufs[0].shape[1] % SEG:
+            raise ValueError(f"chunk length {bufs[0].shape[1]} is not a "
+                             f"multiple of {SEG} (the kernel reads 16 bytes "
+                             f"a lane and its backward's lane quads walk "
+                             f"{SEG} slots)")
+        if not grads and n_et > PLAN_RELATIONS:
+            raise ValueError(f"{n_et} relations: the forward's plan takes "
+                             f"at most {PLAN_RELATIONS}")
+        if grads and table == "shared":
+            raise ValueError("the backward keeps no table in shared memory")
     fits = v1_shared_fits(n, len(nodes), grads)
     if table == "shared" and not fits:
         raise ValueError(f"n = {n} does not fit the shared-memory tables")
@@ -522,44 +548,41 @@ def nn_v1_bwd_plain(h1, h2, w1, w2, src2d, dst2d, chunk_type, g,
 
 
 def nn_v1_fwd_cuda(h1, h2, w1, w2, src2d, dst2d, chunk_type, table=None):
-    """Launch the forward of csrc/nn_sddmm_v1.cu (``table``: see
-    :func:`_check_v1_args`)."""
+    """Launch the forward of csrc/nn_sddmm_v1.cu, B9's forward under B7's
+    entry point (``table``: see :func:`_check_v1_args`)."""
     if not h1.is_cuda:
         raise ValueError("nn_v1_fwd_cuda needs CUDA tensors")
     bufs = (src2d, dst2d, chunk_type)
     n, shared = _check_v1_args({"h1": h1, "h2": h2}, {"w1": w1, "w2": w2},
                                bufs, False, table)
-    n_chunks, chunk = src2d.shape
-    out = torch.empty((n_chunks, chunk), dtype=torch.float32, device=h1.device)
-    kernels.launch(NN1, "tip_nn1_fwd", "pppppppiiiiip", pad_row(h1),
-                   pad_row(h2), w1, w2, *bufs, n_chunks, chunk, n,
-                   int(shared), 2 * kernels.sm_count(h1.device), out,
+    out, args = nn_fwd_args(h1, h2, w1, w2, *bufs, shared)
+    kernels.launch(NN1, "tip_nn1_fwd", "pppppppiiiiiiipppp", *args,
                    device=h1.device)
     return out
 
 
 def nn_v1_bwd_cuda(h1, h2, w1, w2, src2d, dst2d, chunk_type, g,
                    bf16: bool = False, table=None):
-    """Launch the backward of csrc/nn_sddmm_v1.cu: (dh1, dh2, dw1, dw2)."""
+    """Launch the backward of csrc/nn_sddmm_v1.cu: (dh1, dh2, dw1, dw2).
+    It adds into device memory at any n (``table`` None or "global")."""
     if not h1.is_cuda:
         raise ValueError("nn_v1_bwd_cuda needs CUDA tensors")
     bufs = (src2d, dst2d, chunk_type)
-    n, shared = _check_v1_args({"h1": h1, "h2": h2}, {"w1": w1, "w2": w2},
-                               bufs, True, table, g)
+    n, _ = _check_v1_args({"h1": h1, "h2": h2}, {"w1": w1, "w2": w2}, bufs,
+                          True, table, g)
     n_chunks, chunk = src2d.shape
     n_et = w1.shape[0]
-    blocks = (2 if shared else 4) * kernels.sm_count(h1.device)
+    w1, w2, src2d, dst2d, g = aligned(w1, w2, src2d, dst2d, g)
     # scratch freed on return while the kernel may still run: the caching
     # allocator reuses it only for later work on this same stream
     f32 = dict(dtype=torch.float32, device=h1.device)
-    part = torch.empty((blocks if shared else 0, 2, n + 1, D), **f32)
     dwc = torch.empty((n_chunks, 2, D), **f32)
     dh = torch.empty((2, n + 1, D), **f32)
     dw = torch.empty((n_et, 2, D), **f32)
-    kernels.launch(NN1, "tip_nn1_bwd", "ppppppppiiiiiiipppp", pad_row(h1),
-                   pad_row(h2), w1, w2, *bufs, g, n_chunks, chunk, n, n_et,
-                   int(bf16), int(shared), blocks, part, dwc, dh, dw,
-                   device=h1.device)
+    kernels.launch(NN1, "tip_nn1_bwd", "ppppppppiiiiiippp", pad_row(h1),
+                   pad_row(h2), w1, w2, src2d, dst2d, chunk_type, g, n_chunks,
+                   chunk, n, n_et, int(bf16), kernels.sm_count(h1.device),
+                   dwc, dh, dw, device=h1.device)
     return dh[0, :n], dh[1, :n], dw[:, 0], dw[:, 1]
 
 

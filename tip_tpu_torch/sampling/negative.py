@@ -66,7 +66,7 @@ def typed_negative_sampling_chunked(seed: int, chunk_type, bitmap,
                                     u24=None):
     """Negatives for a chunk-aligned buffer: (src2d, dst2d) int32
     [n_chunks, chunk], one per slot, from the step ``seed`` (``u24``
-    replaces its draws: ops/sampler.py)."""
-    pair = typed_negative_sampling_padded(seed, chunk_type, bitmap, n_nodes,
-                                          n_et, chunk, u24=u24)
-    return pair % n_nodes, pair // n_nodes
+    replaces its draws: ops/sampler.py); on CUDA one launch of kernel B10
+    draws, resolves and splits them."""
+    return typed_negative_sampling_padded(seed, chunk_type, bitmap, n_nodes,
+                                          n_et, chunk, u24=u24, split=True)

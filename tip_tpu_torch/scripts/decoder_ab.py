@@ -17,7 +17,8 @@ own shapes:
   * the NN decoder, which the JAX script lacks: ``v1`` (kernel B7), ``v2``
     (kernel B9) and ``gather`` over the hiddens of a seeded NN decoder;
   * each route's relative error of the masked softplus sum against v1;
-  * the negative sampler (kernel B10 and its borrow pass), and the
+  * the negative sampler (kernel B10, its borrow pass and split in the
+    same launch), and the
     DistMult positives' BCE over the full pages.
 
 Times are CUDA events over ``reps`` calls after ``warmup`` (each the larger

@@ -1,7 +1,9 @@
 """Kernels B8 (the DistMult SDDMM, csrc/distmult_sddmm.cu), B9 (the
 NN-decoder SDDMM, csrc/nn_sddmm.cu), B5 (the windowed P-P SpMM,
-csrc/gcn_spmm.cu) and B11 (the ring SpMM step, csrc/ring_spmm.cu), and
-the TIP-cat and TIP-NN chunked steps that launch them.
+csrc/gcn_spmm.cu), B11 (the ring SpMM step, csrc/ring_spmm.cu), B10 (the
+typed negative sampler, csrc/typed_neg_sampler.cu) and B7 (the v1
+NN-decoder SDDMM, csrc/nn_sddmm_v1.cu), and the TIP-cat and TIP-NN
+chunked steps that launch them.
 
     python3 tip_tpu_torch/scripts/sddmm_bench.py [--root DIR]
 
@@ -27,7 +29,18 @@ memset of one call); a digest of the float32 logits (bit-equality across
 versions) and whether two float32 backwards are bit-identical.  B5: the
 same at d = 32 and 16 on the Decagon-shape P-P buffers and on
 chip_smoke.py's hub graph (one protein with 5,000 neighbours), with
-torch.sparse.mm on the CSR matrix beside it.  Then the TIP-cat and
+torch.sparse.mm on the CSR matrix beside it.  B10 (``b10_<tag>``, 1,536 x
+800 and Decagon shape): the call a training step makes
+(sampling/negative.py:typed_negative_sampling_chunked, the negatives'
+src and dst), checked bit for bit against the plain route (plain
+sampler, resolve_borrow, % and //) on the card, timed whole (unprimed
+events: the first version's route of a dozen launches does not let a
+spin hold the stream while it enqueues) and launch by launch, with a
+digest of (src, dst).  B7 (``b7_<tag>``, the same graphs): checked
+against the plain versions (float32 and bf16), forward, float32 and bf16
+backward timed whole and launch by launch, the forward's and backward's
+global modes whole, and the digests of its logits and of B9's.  Then the
+TIP-cat and
 TIP-NN chunked steps (1,536 x 800): the median of 5 synchronised steps
 after 2 warm-up, and chip_smoke.py's profile (device busy ms a step, idle
 share).  Prints one JSON line.  ``--root DIR`` times the
@@ -137,6 +150,84 @@ def nn_sddmm_times(smoke, graph, gs, dev) -> dict:
     return out
 
 
+def sampler_times(smoke, graph, gs, dev) -> dict:
+    """B10 as a training step calls it (sampling/negative.py:
+    typed_negative_sampling_chunked, the negatives' src and dst): checked
+    bit for bit against the plain route (plain sampler, resolve_borrow,
+    then % and //) on the card, timed whole and launch by launch, with a
+    digest of (src, dst) for bit-equality across versions."""
+    import torch
+
+    from tip_tpu_torch.ops import sampler
+    from tip_tpu_torch.sampling import typed_negative_sampling_chunked
+
+    ct, bitmap = graph["dd_chunk_type"], graph["dd_bitmap"]
+    n, n_et, chunk = gs.n_drug, gs.n_et, gs.dd_chunk
+    seed = 12345
+    src, dst = typed_negative_sampling_chunked(seed, ct, bitmap, n, n_et, chunk)
+    pair = sampler.resolve_borrow(sampler.typed_negative_sampling_plain(
+        seed, ct, bitmap, n, chunk))
+    smoke.check(torch.equal(src, pair % n) and torch.equal(dst, pair // n),
+                "B10 chunked negatives differ from the plain route")
+    fn = lambda: typed_negative_sampling_chunked(  # noqa: E731
+        seed, ct, bitmap, n, n_et, chunk)
+    launches = smoke.kernel_breakdown(fn)
+    # unprimed (the first version's route does not let a spin hold the
+    # stream while it enqueues): the larger of host and device time
+    return {"slots": src.numel(), "digest": digest(torch.stack([src, dst])),
+            "ms": smoke.cuda_ms(fn, reps=50), "kernels": launches,
+            "device_ms": sum(launches.values())}
+
+
+def nn_v1_times(smoke, graph, gs, dev) -> dict:
+    """B7 on one packed graph: checked against the plain versions (float32
+    and bf16), forward, float32 and bf16 backward timed whole and launch by
+    launch, both table modes; digests of its float32 logits and of B9's
+    (bit-equality across versions, and with B9)."""
+    import torch
+
+    from tip_tpu_torch.ops import sddmm2
+    from tip_tpu_torch.ops import typed_segment as ts
+    from tip_tpu_torch.ops.matmul import bf16_round
+
+    bufs = (graph["dd_src2d"], graph["dd_dst2d"], graph["dd_chunk_type"])
+    d, n, n_et = ts.D, gs.n_drug, gs.n_et
+    gen = torch.Generator().manual_seed(26)
+    h1, h2 = (torch.relu(torch.randn(n, d, generator=gen)).to(dev)
+              for _ in range(2))
+    w1, w2 = ((0.3 * torch.randn(n_et, d, generator=gen)).to(dev)
+              for _ in range(2))
+    g = torch.randn(bufs[0].shape, generator=gen).to(dev)
+    out = {"slots": bufs[0].numel()}
+    for bf16 in (False, True):
+        args = (*(bf16_round(h) if bf16 else h for h in (h1, h2)), w1, w2,
+                *bufs)
+        el, ml = smoke.max_err(ts.nn_v1_fwd_cuda(*args),
+                               ts.nn_v1_fwd_plain(*args))
+        smoke.check(el <= 1e-5 * ml, f"B7 logits err {el} of max {ml}")
+        errs = smoke._frac_errs(ts.nn_v1_bwd_cuda(*args, g, bf16),
+                                ts.nn_v1_bwd_plain(*args, g, bf16))
+        smoke.check(max(errs) <= 1e-4, f"B7 bf16={bf16} grads err {errs}")
+        out["bf16" if bf16 else "float32"] = {"logit_max_abs_err": el,
+                                              "grad_err_frac": errs}
+    args = (h1, h2, w1, w2, *bufs)
+    lk = ts.nn_v1_fwd_cuda(*args)
+    out["logits_digest"] = digest(lk)
+    out["b9_logits_digest"] = digest(sddmm2.nn_logits_cuda(*args))
+    out["logits_equal_b9"] = torch.equal(lk, sddmm2.nn_logits_cuda(*args))
+    calls = {"fwd": lambda: ts.nn_v1_fwd_cuda(*args),
+             "bwd": lambda: ts.nn_v1_bwd_cuda(*args, g),
+             "bwd_bf16": lambda: ts.nn_v1_bwd_cuda(*args, g, True)}
+    for key, fn in calls.items():
+        out[f"{key}_ms"] = smoke.cuda_ms(fn, reps=20, primed=True)
+        out[f"{key}_kernels"] = smoke.kernel_breakdown(fn)
+    out["fwd_global_ms"] = smoke.cuda_ms(lambda: ts.nn_v1_fwd_cuda(
+        *args, table="global"), reps=20, primed=True)
+    out["bwd_global_ms"] = smoke.cuda_ms(lambda: ts.nn_v1_bwd_cuda(
+        *args, g, table="global"), reps=20, primed=True)
+    return out
+
+
 def gcn_spmm_times(smoke, graph, gs, data, dev) -> dict:
     """B5 on one windowed P-P graph at d = 32 and 16: checked, timed whole
     and launch by launch, beside torch.sparse.mm on the CSR matrix."""
@@ -196,8 +287,8 @@ def main(argv=None) -> dict:
     import bench_root  # beside this file, first on sys.path
 
     parser = argparse.ArgumentParser(
-        description="Kernels B8, B9, B5 and B11, and the TIP-cat and TIP-NN "
-                    "chunked steps")
+        description="Kernels B8, B9, B5, B11, B10 and B7, and the TIP-cat "
+                    "and TIP-NN chunked steps")
     bench_root.add_option(parser)
     args = parser.parse_args(argv)
     root = bench_root.import_package(args.root)
@@ -216,7 +307,8 @@ def main(argv=None) -> dict:
     dev = torch.device("cuda", 0)
     set_matmul_precision()
     kernels.build(["distmult_sddmm", "nn_sddmm", "ring_spmm",
-                   "typed_neighbor_sum", "gcn_spmm", "typed_neg_sampler"])
+                   "typed_neighbor_sum", "gcn_spmm", "typed_neg_sampler",
+                   "nn_sddmm_v1"])
     out = {"root": str(root), "card": smoke.card_line()}
     decagon = build_trigraph(synthetic_trigraph(**DECAGON_SHAPE), 0.9, 1111)
     big = build_trigraph(synthetic_trigraph(**smoke.BEYOND_DENSE), 0.9, 1111)
@@ -231,6 +323,9 @@ def main(argv=None) -> dict:
             out[f"b8_{tag}"] = {k: rep[k] for k in B8_KEYS}
         if tag != "hub":
             out[f"b9_{tag}"] = nn_sddmm_times(smoke, graph, gs, dev)
+        if tag in ("main", "decagon"):
+            out[f"b10_{tag}"] = sampler_times(smoke, graph, gs, dev)
+            out[f"b7_{tag}"] = nn_v1_times(smoke, graph, gs, dev)
         if tag in ("decagon", "hub"):
             out[f"b5_{tag}"] = gcn_spmm_times(smoke, graph, gs, data, dev)
         del graph
