@@ -29,7 +29,13 @@ Phases, each fatal on failure:
      which takes the bf16 pages (B2; unprofiled), "tip strips
      sampled" with sampled negatives on the strips (B10, B8; unprofiled),
      and "tip-nn dense", TIP-cat with the NN decoder: the strips for the
-     encoder, the chunk buffers for its sampled loss (B10, B9);
+     encoder, the chunk buffers for its sampled loss (B10, B9); after "tip
+     dense", the resume phase (RESUME_EPOCHS uninterrupted against half of
+     them, a checkpoint and a resumed run, through train(...,
+     checkpoint_dir, resume)) and the profiler hook (train(...,
+     profile_dir) for PROFILE_EPOCHS epochs: its trace must name B1's
+     kernel once for each traced epoch), a ``resume:`` and a ``profile
+     hook:`` line;
   6. the model variants through the models runner (build_variant,
      train_variant) on the same graph, each at the default widths, counters
      as in 5: DR-NN on the strips and uint8 pages (B3; profiled), DR-NN
@@ -48,7 +54,9 @@ Phases, each fatal on failure:
      (with_hub: ~4,500 edges, a run across 9 chunks), both timed;
   9. the chunked paths on BEYOND_DENSE: TIP-cat and TIP-cat with the NN
      decoder as in 5 (B10, B8 or B9, B4, B5; profiled) and DR-NN as in 6
-     (B10, B9, B4; profiled);
+     (B10, B9, B4; profiled); then one TIP-cat step with and without remat
+     (the same loss and gradients, B4's forward and B5 launched again in
+     the backward, the peak memory both ways), a ``remat:`` line;
  10. sharded, on the Decagon-shaped graph with SHARDED_RANKS processes
      sharing this card (tip_tpu_torch/scripts/sharded.py's workers; the
      kernels are built before the ranks spawn): hold B11 against its plain
@@ -1204,12 +1212,13 @@ def check_nn_sddmm(graph, gs, data, dev, timed: bool = True) -> dict:
 
 def check_distmult_sddmm_v1(graph, gs, data, dev, timed: bool = True) -> dict:
     """Kernel B6 forward (logits) and backward (dz, dw) against the plain
-    version at d = 16, with its tables where the wrapper puts them for this
-    graph (shared memory up to 3,417 nodes forward and 3,402 backward,
-    global memory past that) and forced to global memory, in float32 and
-    with the bf16 rounding of z and of each scattered contribution; pad
-    logits must be exactly 0.  Float32 order only: 1e-5 of the largest
-    logit, 1e-4 of the largest dz and dw.  Then B6 against B8 in float32:
+    version at d = 16, the forward's z table where the wrapper puts it for
+    this graph (shared memory up to 3,417 nodes, global memory past that)
+    and forced to global memory (the backward has one mode, run both
+    ways), in float32 and with the bf16 rounding of z and of each
+    scattered contribution; pad logits must be exactly 0.  Float32 order
+    only: 1e-5 of the largest logit, 1e-4 of the largest dz and dw.  Then
+    B6 against B8 in float32:
     the same logits on valid slots, bit for bit (B6 launches B8's forward,
     csrc/distmult_fwd.cuh), and the same grads under a masked cotangent
     within 1e-4 (products taken in another order)."""
@@ -1535,11 +1544,14 @@ def graph_summary(data, build_sec: float) -> dict:
             "build_sec": build_sec}
 
 
-def expected_launches(path: str, steps: int, eval_rank: bool = True) -> dict:
+def expected_launches(path: str, steps: int, eval_rank: bool = True,
+                      remat: bool = False) -> dict:
     """Launches of each kernel in ``steps`` training steps plus the final
     eval, per path (a sharded path's: one rank's; ``eval_rank`` False
-    leaves the eval out, which rank 0 alone runs).  TIP dense: B1 once a
-    step.  TIP pages, on the float32 or the bf16 pages: B2 once a step.
+    leaves the eval out, which on a sharded path rank 0 alone runs).  With
+    ``remat`` (TIP chunked, TIP-NN chunked) the backward runs the encoder
+    again: B4's forward and B5 once more in each of two layers a step.
+    TIP dense: B1 once a step.  TIP pages, on the float32 or the bf16 pages: B2 once a step.
     TIP strips sampled: B10 once and B8 twice (the negatives' forward and
     backward; the positives are scored over the full pages in PyTorch).
     TIP chunked: B10 once, B8 twice forward (positives, negatives) and
@@ -1560,9 +1572,9 @@ def expected_launches(path: str, steps: int, eval_rank: bool = True) -> dict:
     of 4 ("tip sharded ring"), 8 on the 2 x 2 mesh's rings of 2; none over
     the dense P-P rows ("tip sharded dense-pp").  Rank 0's unsharded eval
     (windowed P-P) adds B4 2 and B5 2."""
+    ev, rm = 2 * eval_rank, 2 * steps * remat
     sharded = {"typed_neg_sampler": steps, "distmult_sddmm": 4 * steps,
-               "typed_neighbor_sum": 4 * steps + 2 * eval_rank,
-               "gcn_spmm": 2 * eval_rank}
+               "typed_neighbor_sum": 4 * steps + ev, "gcn_spmm": ev}
     if path in SHARDED_PATHS:
         n_ring, pp, _ = SHARDED_PATHS[path]
         return {**sharded, **({"ring_spmm": 4 * n_ring * steps}
@@ -1574,16 +1586,16 @@ def expected_launches(path: str, steps: int, eval_rank: bool = True) -> dict:
         "tip strips sampled": {"typed_neg_sampler": steps,
                                "distmult_sddmm": 2 * steps},
         "tip chunked": {"typed_neg_sampler": steps, "distmult_sddmm": 4 * steps,
-                        "typed_neighbor_sum": 4 * steps + 2,
-                        "gcn_spmm": 4 * steps + 2},
+                        "typed_neighbor_sum": 4 * steps + ev + rm,
+                        "gcn_spmm": 4 * steps + ev + rm},
         "tip-nn dense": {"typed_neg_sampler": steps, "nn_sddmm": 4 * steps},
         "tip-nn chunked": {"typed_neg_sampler": steps, "nn_sddmm": 4 * steps,
-                           "typed_neighbor_sum": 4 * steps + 2,
-                           "gcn_spmm": 4 * steps + 2},
+                           "typed_neighbor_sum": 4 * steps + ev + rm,
+                           "gcn_spmm": 4 * steps + ev + rm},
         "dr-nn dense": {"dense_bce_nn": steps},
         "dr-nn pages": {"dense_bce_nn": steps},
         "dr-nn chunked": {"typed_neg_sampler": steps, "nn_sddmm": 4 * steps,
-                          "typed_neighbor_sum": 4 * steps + 2},
+                          "typed_neighbor_sum": 4 * steps + ev},
         "dr-df dense": {"dense_bce_sym": steps},
         "dr-df pages": {"dense_bce": steps},
         "pr-hmp-nn flat": {},
@@ -1751,6 +1763,169 @@ def run_variant(variant: str, data, dev, steps: int,
     del model, graph, test
     torch.cuda.empty_cache()
     return launches
+
+
+RESUME_EPOCHS = 4  # the resume phase: half, a checkpoint, the other half
+PROFILE_EPOCHS = 5  # the profiler hook's run (it traces epochs 2-4)
+# B1's kernel as torch.profiler names it (csrc/dense_bce_sym.cu; B2's is
+# also a tile_kernel, over other pages)
+B1_TRACE_NAME = ("tile_kernel<16, true>", "signed char const*")
+
+
+def run_resume(data, dev) -> dict:
+    """The resume phase, TIP-cat on the Decagon-shaped graph's strips (B1)
+    through train(): RESUME_EPOCHS epochs uninterrupted, twice; half of
+    them with ``checkpoint_every`` set, then a run resumed from that
+    directory to the end; counters at 0 before each run, launches exact.
+    The resumed run's per-epoch losses must equal the uninterrupted run's
+    within rtol 1e-5 and its final metrics within 1e-4.  Not bit-equal by
+    design: the encoder's drug-protein hierarchy sums with index_add_,
+    whose atomics add in no fixed order on the card (B1's own sums are
+    fixed-order); the two uninterrupted runs' agreement shows that spread.
+    Returns the report."""
+    import tempfile
+
+    from tip_tpu_torch import kernels
+    from tip_tpu_torch.config import ModelConfig, TrainConfig
+    from tip_tpu_torch.train.loop import train
+
+    cfg, half = ModelConfig.tip_cat(), RESUME_EPOCHS // 2
+    runs, logs = {}, []
+    with tempfile.TemporaryDirectory() as ck:
+        for tag, epochs, kw in (
+                ("full", RESUME_EPOCHS, {}), ("again", RESUME_EPOCHS, {}),
+                ("half", half, {"checkpoint_dir": ck,
+                                "checkpoint_every": half}),
+                ("resumed", RESUME_EPOCHS, {"resume": ck})):
+            resume = kw.pop("resume", None)
+            kernels.reset_launch_counts()
+            _, runs[tag] = train(cfg, TrainConfig(epochs=epochs, **kw), data,
+                                 log=logs.append, device=dev, resume=resume)
+            launches = dict(kernels.LAUNCHES)
+            check_result("tip dense", len(runs[tag]["history"]), data.n_et,
+                         runs[tag], launches)
+        saved = sorted(os.listdir(ck))
+    check(saved == [f"ep{half - 1}.npz", "final.npz"],
+          f"resume: checkpoints {saved}")
+    resumed_from = [json.loads(x) for x in logs if "resumed_from" in x]
+    check(len(resumed_from) == 1 and resumed_from[0]["epoch"] == half,
+          f"resume: {resumed_from}")
+    full, again, resumed = runs["full"], runs["again"], runs["resumed"]
+    check([h["epoch"] for h in resumed["history"]]
+          == list(range(half, RESUME_EPOCHS)), "resume: resumed epochs")
+
+    def diffs(a, b):
+        la = {h["epoch"]: h["loss"] for h in a["history"]}
+        loss = max(abs(h["loss"] - la[h["epoch"]]) / abs(la[h["epoch"]])
+                   for h in b["history"])
+        metric = max(abs(a["final"][k] - b["final"][k])
+                     for k in ("auprc", "auroc", "ap"))
+        return loss, metric
+
+    loss_err, metric_err = diffs(full, resumed)
+    check(loss_err <= 1e-5 and metric_err <= 1e-4,
+          f"resume: losses {loss_err} (rtol 1e-5), metrics {metric_err} "
+          "(1e-4) off the uninterrupted run")
+    again_loss, again_metric = diffs(full, again)
+    return {"epochs": RESUME_EPOCHS, "resumed_at": half,
+            "losses_full": [h["loss"] for h in full["history"]],
+            "losses_resumed": [h["loss"] for h in resumed["history"]],
+            "loss_rel_err": loss_err, "metric_abs_err": metric_err,
+            "bit_equal": bool(loss_err == 0.0 and metric_err == 0.0),
+            "uninterrupted_twice": {"loss_rel_err": again_loss,
+                                    "metric_abs_err": again_metric},
+            "final_full": full["final"], "final_resumed": resumed["final"]}
+
+
+def run_profile_hook(data, dev) -> dict:
+    """The profiler hook: TIP-cat on the Decagon-shaped graph's strips
+    through train(..., profile_dir=) for PROFILE_EPOCHS epochs (counters at
+    0 before, launches exact); the Chrome trace it writes must hold B1's
+    kernel as CUDA events, once for each traced epoch (2-4).  Returns the
+    report."""
+    import tempfile
+
+    from tip_tpu_torch import kernels
+    from tip_tpu_torch.config import ModelConfig, TrainConfig
+    from tip_tpu_torch.train.loop import PROFILE_EPOCHS as TRACED, TRACE_FILE
+    from tip_tpu_torch.train.loop import train
+
+    with tempfile.TemporaryDirectory() as d:
+        kernels.reset_launch_counts()
+        _, result = train(ModelConfig.tip_cat(),
+                          TrainConfig(epochs=PROFILE_EPOCHS), data,
+                          log=lambda s: None, device=dev, profile_dir=d)
+        launches = dict(kernels.LAUNCHES)
+        check_result("tip dense", PROFILE_EPOCHS, data.n_et, result, launches)
+        path = os.path.join(d, TRACE_FILE)
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    b1 = [e for e in kern
+          if all(p in e.get("name", "") for p in B1_TRACE_NAME)]
+    traced = TRACED[1] - TRACED[0] + 1
+    check(len(b1) == traced, f"profile hook: {len(b1)} B1 kernel events in "
+          f"the trace, want {traced} (of {len(kern)} kernel events)")
+    return {"epochs": PROFILE_EPOCHS, "traced_epochs": list(TRACED),
+            "trace_bytes": size, "kernel_events": len(kern),
+            "b1_events": len(b1), "b1_name": b1[0]["name"][:120],
+            "b1_us": [e.get("dur") for e in b1], "launches": launches}
+
+
+def run_remat(data, dev) -> dict:
+    """remat on the graph beyond the dense budget (the chunked layout, where
+    the encoder's intermediates are largest): one step's loss and
+    gradients (TIP-cat, TIP.loss then backward) with and without remat,
+    counters at 0 before each; launches exact (remat runs B4's forward and
+    B5 once more in each layer); the loss within 1e-5 and each gradient
+    within 1e-4 of its largest, relative (B4's and B8's backwards add in no
+    fixed order); max_memory_allocated both ways.  Returns the report."""
+    import torch
+
+    from tip_tpu_torch import convert, kernels
+    from tip_tpu_torch.config import ModelConfig
+    from tip_tpu_torch.train.loop import step_seed
+    from tip_tpu_torch.train.model import TIP, make_graph_arrays
+
+    graph, gs = make_graph_arrays(data, dev, dense_dtype=None)
+    model = TIP.for_data(ModelConfig.tip_cat(), data, gs, dev)
+    out, rep = {}, {"dd_layout": gs.dd_layout, "pp_layout": gs.pp_layout}
+    for remat in (False, True):
+        params = model.init(torch.Generator().manual_seed(0))
+        for p in convert.leaves(params):
+            p.requires_grad_(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        kernels.reset_launch_counts()
+        loss = model.loss(params, graph, step_seed(0, 0), remat=remat)
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        want = expected_launches("tip chunked", 1, eval_rank=False,
+                                 remat=remat)
+        for name in kernels.KERNELS:
+            check(launches[name] == want.get(name, 0),
+                  f"remat={remat}: {name} launched {launches[name]} times, "
+                  f"expected {want.get(name, 0)}")
+        peak = torch.cuda.max_memory_allocated()
+        out[remat] = (loss.item(), [p.grad for p in convert.leaves(params)])
+        rep["remat" if remat else "plain"] = {
+            "loss": loss.item(), "launches": launches,
+            "max_memory_allocated": peak, "allocated_before": before,
+            "step_peak_bytes": peak - before}
+        del loss
+    (l0, g0), (l1, g1) = out[False], out[True]
+    loss_err = abs(l1 - l0) / abs(l0)
+    grad_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   for a, b in zip(g1, g0))
+    check(loss_err <= 1e-5 and grad_err <= 1e-4,
+          f"remat: loss {loss_err} (1e-5), grads {grad_err} (1e-4) of max")
+    rep.update(loss_rel_err=loss_err, grad_err_frac=grad_err)
+    del graph, out
+    torch.cuda.empty_cache()
+    return rep
 
 
 def check_ring_spmm(data, dev) -> dict:
@@ -2111,6 +2286,8 @@ def main() -> int:
 
     launches = {"tip dense": run_path("tip dense", data, dev, TRAIN_STEPS,
                                       "bfloat16")}
+    print("resume:", json.dumps(run_resume(data, dev)))
+    print("profile hook:", json.dumps(run_profile_hook(data, dev)))
     # float32 matmuls pinned: train() and the runner take the float32 pages
     launches["tip pages"] = run_path("tip pages", data, dev, TRAIN_STEPS,
                                      "float32", matmul_precision="highest")
@@ -2169,6 +2346,7 @@ def main() -> int:
                                           TRAIN_STEPS, None, decoder="nn")
     launches["dr-nn chunked"] = run_variant("dr-nn", big, dev, VARIANT_STEPS,
                                             profiled=True)
+    print("remat:", json.dumps(run_remat(big, dev)))
     del big
     torch.cuda.empty_cache()
 

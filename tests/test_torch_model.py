@@ -81,6 +81,25 @@ def test_tip_loss_and_grads_match_jax_u24_zero(setup):
                                    err_msg=str(path))
 
 
+def test_tip_remat_loss_and_grads_match_jax_u24_zero(setup):
+    """remat (the encoder recomputed in the backward: jax.checkpoint in the
+    JAX package, torch.utils.checkpoint in the port) in the deterministic
+    mode above, at its tolerances."""
+    _, _, jgraph, jmodel, graph, model, params = setup
+    with pltpu.force_tpu_interpret_mode():
+        jloss, jg = jax.jit(jax.value_and_grad(
+            lambda p: jmodel.loss(p, jgraph, jax.random.key(9), remat=True)))(
+                jax.tree.map(jnp.asarray, params))
+    tp = convert.params_from_jax(params, requires_grad=True)
+    loss = model.loss(tp, graph, seed=9, u24=torch.zeros((), dtype=torch.int64),
+                      remat=True)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-3)
+    for g, w in zip(jax.tree.leaves(_grads(tp)),
+                    jax.tree.leaves(jax.tree.map(np.asarray, jg))):
+        np.testing.assert_allclose(g, w, atol=2e-2 * np.abs(w).max())
+
+
 def test_adam_trajectory_matches_optax(setup):
     """Three Adam steps with the negative thresholds zeroed (positives only,
     so the field cannot differ): per-step losses within rtol 1e-3."""

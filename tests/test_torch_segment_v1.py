@@ -10,8 +10,8 @@ kernels accumulate dz and dh over all chunks and dw per relation block).
 Both get the same cotangent, so the bf16 rounding of each scattered
 contribution sees the same float32 inputs.  dw is compared on the
 relations that own a chunk: the TPU kernel never writes the others, the
-port writes 0 there.  B7's backward is also emulated in numpy in the CUDA
-kernel's order (lane-quad run sums) and held against both.
+port writes 0 there.  B6's and B7's backwards are also emulated in numpy
+in the CUDA kernels' order (lane-quad run sums) and held against both.
 """
 
 import numpy as np
@@ -177,7 +177,7 @@ def test_cpu_tensors_take_the_plain_versions_and_cuda_wrappers_refuse_them():
 
 
 @pytest.mark.parametrize("bad", ["width", "relations", "nodes", "dtype",
-                                 "g_shape", "table"])
+                                 "g_shape", "table", "chunk"])
 @pytest.mark.parametrize("kernel", ["distmult", "nn"])
 def test_cuda_argument_checks(kernel, bad):
     """What the CUDA wrappers refuse before they hand pointers to a kernel
@@ -190,12 +190,11 @@ def test_cuda_argument_checks(kernel, bad):
         nodes = {k: torch.from_numpy(x[k]) for k in ("h1", "h2")}
         rels = {k: torch.from_numpy(x[k]) for k in ("w1", "w2")}
     tb, g = _t(bufs), torch.from_numpy(cot)
-    # B6 keeps a table in shared memory both ways, B7 only in its forward
-    grads = kernel == "distmult"
-    port._check_v1_args(nodes, rels, tb, grads, "shared", g)  # valid: passes
-    if kernel == "nn":
-        with pytest.raises(ValueError, match="no table"):
-            port._check_v1_args(nodes, rels, tb, True, "shared", g)
+    # both forwards keep a table in shared memory, neither backward
+    port._check_v1_args(nodes, rels, tb, False, "shared", g)  # valid: passes
+    port._check_v1_args(nodes, rels, tb, True, "global", g)
+    with pytest.raises(ValueError, match="no table"):
+        port._check_v1_args(nodes, rels, tb, True, "shared", g)
     table = "shared"
     if bad == "width":  # the kernels are built for width 16 only
         nodes = {k: v[:, :12].contiguous() for k, v in nodes.items()}
@@ -208,19 +207,25 @@ def test_cuda_argument_checks(kernel, bad):
         tb[0] = tb[0].long()
     elif bad == "g_shape":
         g = g[:, :16].contiguous()
+    elif bad == "chunk":  # the lane quads walk 16-slot segments
+        tb = [tb[0][:, :24].contiguous(), tb[1][:, :24].contiguous(), tb[2]]
+        g = g[:, :24].contiguous()
+        for grads in (False, True):
+            with pytest.raises(ValueError, match="multiple of 16"):
+                port._check_v1_args(nodes, rels, tb, grads, None, g)
     else:
         table = "device"
     with pytest.raises(ValueError):
-        port._check_v1_args(nodes, rels, tb, grads, table, g)
+        port._check_v1_args(nodes, rels, tb, False, table, g)
 
 
 @pytest.mark.parametrize("tables,grads,n_max", [
-    (1, False, 3417), (1, True, 3402), (2, False, 29055), (2, True, 0)])
+    (1, False, 3417), (1, True, 0), (2, False, 29055), (2, True, 0)])
 def test_shared_table_boundary(tables, grads, n_max):
-    """The largest graph whose tables B6 (one node table) or B7 (two: its
-    forward's score rows, B9's) keep in shared memory; one node more takes
-    the global-memory mode, which has no limit.  B7's backward adds into
-    device memory at every n (n_max 0: never in shared memory)."""
+    """The largest graph whose tables B6's forward (one node table, B8's)
+    or B7's (two score rows, B9's) keeps in shared memory; one node more
+    takes the global-memory mode, which has no limit.  Both backwards add
+    into device memory at every n (n_max 0: never in shared memory)."""
     if n_max:
         assert port.v1_shared_fits(n_max, tables, grads)
     assert not port.v1_shared_fits(n_max + 1, tables, grads)
@@ -237,7 +242,7 @@ def test_shared_table_boundary(tables, grads, n_max):
 
 
 # ---------------------------------------------------------------------------
-# B7's backward in the CUDA kernel's order (csrc/nn_sddmm_v1.cu)
+# B6's and B7's backwards in the CUDA kernels' order (csrc/quad_walk.cuh)
 # ---------------------------------------------------------------------------
 
 SEG, BWD_WARPS = 16, 8  # a quad's segment; warps of a backward block
@@ -249,61 +254,100 @@ def _bf16(x):
         torch.bfloat16).float().numpy()
 
 
-def emulate_v1_bwd(h1, h2, w1, w2, src2d, dst2d, ct, g, bf16: bool):
-    """(dh1, dh2, dw1, dw2, reductions a side) in float32 in the kernel's
-    order: lane quads of 8-quad warps of an 8-warp block walk 16-slot
-    segments (segment k * 64 + warp * 8 + quad of a chunk); each slot's
-    contributions w1[t] g and w2[t] g are rounded (bf16) before they enter
-    a run sum a side, and a run of equal rows is added to dh once, where
-    it ends; the quad's dw partials are chains of h[row] g over its slots,
-    summed by a shuffle tree over a warp's quads, then the warps in order;
-    dw the chunks of a relation in order.  dh takes the runs in this
-    emulation's order (the kernel's is not fixed)."""
+def emulate_walk(src2d, dst2d, ct, g, n, n_et, d, slot, to, rows):
+    """(tables [2, n + 1, d], dw [n_et, rows, d], reductions a side) in
+    float32 in the order of the lane-quad backwards (csrc/quad_walk.cuh):
+    lane quads of 8-quad warps of an 8-warp block walk 16-slot segments
+    (segment k * 64 + warp * 8 + quad of a chunk); ``slot(t, s, dst, g)``
+    gives a slot's contributions to its src and dst rows and its dw
+    partials [rows, d]; each side's contributions enter a run sum, and a
+    run of equal rows is added to tables[to[side]] once, where it ends;
+    the quad's dw partials are chains over its slots, summed by a shuffle
+    tree over a warp's quads, then the warps in order; dw the chunks of a
+    relation in order.  The tables take the runs in this emulation's order
+    (the kernel's is not fixed)."""
     f = np.float32
-    n, d = h1.shape
-    hp = [np.vstack([h, np.zeros((1, d), f)]).astype(f) for h in (h1, h2)]
     nc, C = src2d.shape
     nseg, per = C // SEG, 8 * BWD_WARPS
-    dh = np.zeros((2, n + 1, d), f)
-    dwc = np.zeros((nc, 2, d), f)
+    tabs = np.zeros((2, n + 1, d), f)
+    dwc = np.zeros((nc, rows, d), f)
     runs_added = [0, 0]
     for c in range(nc):
-        w = [w1[ct[c]].astype(f), w2[ct[c]].astype(f)]
-        lanes = np.zeros((per, 2, d), f)
+        lanes = np.zeros((per, rows, d), f)
         for s0 in range(0, nseg, per):
             for j in range(min(per, nseg - s0)):
                 sl = slice((s0 + j) * SEG, (s0 + j + 1) * SEG)
                 runs = [[-1, None], [-1, None]]
-                for rows in zip(src2d[c, sl], dst2d[c, sl], g[c, sl]):
-                    gv = f(rows[2])
-                    for side in (0, 1):
-                        row = rows[side]
-                        v = w[side] * gv
-                        if bf16:
-                            v = _bf16(v)
-                        lanes[j, side] = lanes[j, side] + hp[side][row] * gv
+                for s, dd, gv in zip(src2d[c, sl], dst2d[c, sl], g[c, sl]):
+                    cs, cd, part = slot(ct[c], s, dd, f(gv))
+                    lanes[j] = lanes[j] + part
+                    for side, (row, v) in enumerate(((s, cs), (dd, cd))):
                         run = runs[side]
                         if row == run[0]:
                             run[1] = run[1] + v
                         else:
                             if run[0] >= 0:
-                                dh[side, run[0]] += run[1]
+                                tabs[to[side], run[0]] += run[1]
                                 runs_added[side] += 1
                             run[:] = [row, v]
                 for side, (row, v) in enumerate(runs):
-                    dh[side, row] += v
+                    tabs[to[side], row] += v
                     runs_added[side] += 1
-        warps = lanes.reshape(BWD_WARPS, 8, 2, d).copy()
+        warps = lanes.reshape(BWD_WARPS, 8, rows, d).copy()
         for o in (4, 2, 1):  # __shfl_down_sync by 16, 8, 4 lanes
             warps[:, :o] = warps[:, :o] + warps[:, o:2 * o]
-        t = np.zeros((2, d), f)
+        t = np.zeros((rows, d), f)
         for u in range(BWD_WARPS):
             t = t + warps[u, 0]
         dwc[c] = t
-    dw = np.zeros((2,) + w1.shape, f)
+    dw = np.zeros((n_et, rows, d), f)
     for c in range(nc):
-        dw[:, ct[c]] = dw[:, ct[c]] + dwc[c]
-    return dh[0, :n], dh[1, :n], dw[0], dw[1], runs_added
+        dw[ct[c]] = dw[ct[c]] + dwc[c]
+    return tabs, dw, runs_added
+
+
+def emulate_v1_bwd(h1, h2, w1, w2, src2d, dst2d, ct, g, bf16: bool):
+    """B7's backward (csrc/nn_sddmm_v1.cu) in the kernel's order
+    (emulate_walk): each slot's contributions w1[t] g and w2[t] g are
+    rounded (bf16) before they enter a run sum a side, into dh1 and dh2;
+    its dw partials h1[src] g and h2[dst] g.  (dh1, dh2, dw1, dw2,
+    reductions a side)."""
+    f = np.float32
+    n, d = h1.shape
+    hp = [np.vstack([h, np.zeros((1, d), f)]).astype(f) for h in (h1, h2)]
+
+    def slot(t, s, dd, gv):
+        v = [w1[t].astype(f) * gv, w2[t].astype(f) * gv]
+        if bf16:
+            v = [_bf16(x) for x in v]
+        return v[0], v[1], np.stack([hp[0][s] * gv, hp[1][dd] * gv])
+
+    tabs, dw, runs = emulate_walk(src2d, dst2d, ct, g, n, w1.shape[0], d,
+                                  slot, (0, 1), 2)
+    return tabs[0, :n], tabs[1, :n], dw[:, 0], dw[:, 1], runs
+
+
+def emulate_dm1_bwd(z, w, src2d, dst2d, ct, g, bf16: bool):
+    """B6's backward (csrc/distmult_sddmm_v1.cu: distmult_bwd.cuh's walk,
+    B8's, with B6's product order) in the kernel's order (emulate_walk):
+    each slot's contributions (z[dst] w[t]) g to its src row and (z[src]
+    w[t]) g to its dst row are rounded (bf16) before they enter a run sum,
+    both into the one table dz; its dw partial (z[src] z[dst]) g.  (dz,
+    dw, reductions a side)."""
+    f = np.float32
+    n, d = z.shape
+    zp = np.vstack([z, np.zeros((1, d), f)]).astype(f)
+
+    def slot(t, s, dd, gv):
+        a, b, wt = zp[s], zp[dd], w[t].astype(f)
+        cs, cd = (b * wt) * gv, (a * wt) * gv
+        if bf16:
+            cs, cd = _bf16(cs), _bf16(cd)
+        return cs, cd, ((a * b) * gv)[None]
+
+    tabs, dw, runs = emulate_walk(src2d, dst2d, ct, g, n, w.shape[0], d,
+                                  slot, (0, 0), 1)
+    return tabs[0, :n], dw[:, 0], runs
 
 
 def _skewed_setup(chunk, seed=8):
@@ -325,7 +369,9 @@ def _skewed_setup(chunk, seed=8):
     w1, w2 = (rng.normal(size=(3, 16)).astype(np.float32) for _ in range(2))
     cot = rng.normal(size=bufs[0].shape).astype(np.float32)
     valid = padded.valid.reshape(nc, chunk)
-    return bufs, (h1, h2, w1, w2), cot, valid
+    z = rng.normal(size=(60, 16)).astype(np.float32)
+    w = rng.normal(size=(3, 16)).astype(np.float32)
+    return bufs, (h1, h2, w1, w2), cot, valid, (z, w)
 
 
 @pytest.mark.parametrize("chunk", [32, 1056])
@@ -338,7 +384,7 @@ def test_cuda_backward_order_emulation_matches_plain_and_jax(chunk, dtype):
     each contribution; one reduction a run of equal rows in a segment, so
     the dst-sorted positives and the pad tails take far fewer than one a
     slot."""
-    bufs, hw, cot, valid = _skewed_setup(chunk)
+    bufs, hw, cot, valid, _ = _skewed_setup(chunk)
     src2d, dst2d, ct = bufs
     assert (ct == 0).sum() > len(ct) / 2 and (~valid).any()
     bf16 = dtype == "bfloat16"
@@ -361,3 +407,44 @@ def test_cuda_backward_order_emulation_matches_plain_and_jax(chunk, dtype):
         assert got[4][side] == segs.shape[0] + int(
             (segs[:, 1:] != segs[:, :-1]).sum())
     assert got[4][1] < src2d.size / 2
+
+
+@pytest.mark.parametrize("chunk", [32, 1056])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_distmult_backward_order_emulation_matches_plain_and_jax(
+        chunk, dtype):
+    """B6's new backward in its order (emulate_dm1_bwd: B8's lane-quad walk,
+    each contribution (z[other] w) g rounded before it enters a run sum)
+    gives the plain version's and the JAX interpret kernel's dz and dw to
+    the file's tolerance, on a skewed relation with pad tails, float32 and
+    bf16; one reduction a run of equal rows a side, and a pad slot adds
+    nothing to its src row (its dst row, n, is scratch)."""
+    bufs, _, cot, valid, (z, w) = _skewed_setup(chunk)
+    src2d, dst2d, ct = bufs
+    assert (ct == 0).sum() > len(ct) / 2 and (~valid).any()
+    bf16 = dtype == "bfloat16"
+    zr = _bf16(z) if bf16 else z  # compute_round
+    dz, dw, runs = emulate_dm1_bwd(zr, w, *bufs, cot, bf16)
+    pdz, pdw = port.distmult_v1_bwd_plain(*_t((zr, w, *bufs, cot)),
+                                          bf16=bf16)
+    _close(dz, pdz, 1e-4, 1e-4)
+    _close(dw, pdw, 1e-4, 1e-4)
+
+    def jloss(z, w):
+        return jnp.sum(j_dm1(z, w, *map(jnp.asarray, bufs),
+                             jnp.dtype(dtype)) * cot)
+
+    with pltpu.force_tpu_interpret_mode():
+        jgz, jgw = jax.grad(jloss, argnums=(0, 1))(z, w)
+    _close(dz, jgz, 1e-4, 1e-4)
+    owned = np.unique(ct)
+    _close(dw[owned], np.asarray(jgw)[owned], 1e-4, 1e-4)
+    for side, ids in enumerate((src2d, dst2d)):
+        segs = ids.reshape(-1, SEG)
+        assert runs[side] == segs.shape[0] + int(
+            (segs[:, 1:] != segs[:, :-1]).sum())
+    assert runs[1] < src2d.size / 2
+    # the pad slots alone add exactly zero to their src rows
+    pad_g = np.where(valid, 0, cot).astype(np.float32)
+    pad_dz, pad_dw, _ = emulate_dm1_bwd(zr, w, *bufs, pad_g, bf16)
+    assert not pad_dz.any() and not pad_dw.any()

@@ -82,10 +82,10 @@ class TrainConfig:
     epochs: int = 100
     seed: int = 1111
     split_rate: float = 0.9  # train fraction of each relation's edges
-    remat: bool = False  # recompute the encoder in backward (a later slice)
+    remat: bool = False  # recompute the encoder in backward
     log_every: int = 1
     eval_every: int = 0  # 0 = eval only at the end
-    checkpoint_dir: Optional[str] = None  # checkpointing is a later slice
+    checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 0  # 0 = only final
     # Fetch the loss to the host every N epochs (1 = per step, the
     # reference's behaviour).  Each fetch waits for the device; losses of

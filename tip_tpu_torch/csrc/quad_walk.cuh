@@ -1,15 +1,17 @@
 // The lane-quad scatter walk shared by the backwards of the chunked SDDMMs
-// (distmult_sddmm.cu, kernel B8; nn_sddmm.cu, kernel B9 with bf16
-// rounding).  A quad of lanes takes one slot at a time, lane q of the quad
-// holding features 4q .. 4q + 3 of the slot's 16-wide contributions, so a
-// slot's 16 scatters to a row are four 16-byte reductions to consecutive
-// addresses (red.global.add.v4.f32 through atomicAdd(float4*), sm_90) into
-// a device-memory table that L2 holds; never shared-memory float atomics,
-// which are compare-and-swap loops on this card.  A quad walks SEG
-// consecutive slots of a chunk in order and keeps a run sum a side: while
-// its slots' src (dst) stays the same row it adds their contributions in
-// registers and reduces the run's total once (the positives are
-// dst-sorted inside a chunk, and the pad tail is one run a side).
+// (distmult_bwd.cuh, kernels B8 and B6; nn_sddmm.cu, kernel B9 with bf16
+// rounding; nn_sddmm_v1.cu, kernel B7).  A quad of lanes takes one slot at
+// a time, lane q of the quad holding features 4q .. 4q + 3 of the slot's
+// 16-wide contributions, so a slot's 16 scatters to a row are four 16-byte
+// reductions to consecutive addresses (red.global.add.v4.f32 through
+// atomicAdd(float4*), sm_90) into a device-memory table that L2 holds;
+// never shared-memory float atomics, which are compare-and-swap loops on
+// this card.  A quad walks SEG consecutive slots of a chunk in order and
+// keeps a run sum a side: while its slots' src (dst) stays the same row it
+// adds their contributions in registers and reduces the run's total once
+// (the positives are dst-sorted inside a chunk, and the pad tail is one
+// run a side).
+
 #pragma once
 
 #include <cuda_runtime.h>

@@ -13,9 +13,10 @@ relation bin or window, so their forward passes sum each run of equal
 destinations in slot order (B4 a warp a run, its lanes over the features;
 B5 a warp a group of :data:`SPMM_GROUP` slots, its lanes over the
 features, the pieces of a run that crosses groups added in group order)
-and write it once: no atomics, deterministic results.  B4's backward and
-B6 scatter their gradients with atomics; B7's backward scatters with B8's
-lane quads (float4 reductions of run sums into device memory).
+and write it once: no atomics, deterministic results.  B4's backward
+scatters its gradients with atomics; B6's and B7's backwards scatter with
+B8's lane quads (float4 reductions of run sums into device memory; B6
+launches B8's walk with its own rounding points).
 
 B6 and B7 are the JAX package's first SDDMMs, which its decoder A/B
 benchmark (scripts/decoder_ab.py; the port's is
@@ -23,9 +24,11 @@ tip_tpu_torch/scripts/decoder_ab.py) times against the second ones, B8 and
 B9 (ops/sddmm2.py).  They compute the same logits (B6 launches B8's
 forward, B7 B9's, so the logits are equal bit for bit); they round to
 bf16 at other points (each scattered gradient contribution as the TPU
-kernel casts it) and take no ``n_nodes`` argument.  B6 keeps its tables
-in shared memory up to a node count past which it reads device memory,
-B7's forward its score rows (B9's boundary, 29,055 nodes).
+kernel casts it) and take no ``n_nodes`` argument.  B6's forward keeps
+its z table in shared memory up to a node count past which it reads
+device memory (B8's boundary, 3,417 nodes), B7's forward its score rows
+(B9's boundary, 29,055 nodes); both backwards add into device memory at
+any node count, and want a chunk length that is a multiple of 16.
 
 Each kernel has a plain PyTorch version here (``*_plain``) with the same
 arithmetic; CPU tensors take it, CUDA tensors launch the kernel or raise.
@@ -50,13 +53,13 @@ from tip_tpu_torch.ops.sddmm2 import (
     nn_logits_plain,
     nn_shared_fits,
     pad_row,
+    shared_table_fits,
 )
 
 TNS = "typed_neighbor_sum"
 SPMM = "gcn_spmm"
 DM1 = "distmult_sddmm_v1"
 NN1 = "nn_sddmm_v1"
-_WARPS = 16  # B6's backward blocks (512 threads): its dw reduction
 SPMM_GROUP = 32  # B5's warp takes this many slots (gcn_spmm.cu)
 SPMM_MAX_SLOTS = 2**31 - 2**12  # B5 indexes slots with int32
 
@@ -383,15 +386,16 @@ def distmult_v1_bwd_plain(z, w, src2d, dst2d, chunk_type, g,
 
 def v1_shared_fits(n: int, tables: int, grads: bool) -> bool:
     """Whether the kernel with ``tables`` node tables keeps them in one
-    block's shared memory.  B6 (one [n + 1, 17] float table, with the
-    backward's static dw reduction): n <= 3,417 forward, 3,402 backward.
-    B7 (two): its forward is B9's, whose two score rows of n + 1 floats
-    fit up to 29,055 nodes; its backward keeps no table in shared memory
-    (it adds into device memory at any n)."""
+    block's shared memory.  B6 (one): its forward is B8's, whose [n + 1,
+    17] float table fits up to 3,417 nodes.  B7 (two): its forward is
+    B9's, whose two score rows of n + 1 floats fit up to 29,055 nodes.
+    Neither backward keeps a table in shared memory (both add into device
+    memory at any n)."""
+    if grads:
+        return False
     if tables == 2:
-        return not grads and nn_shared_fits(n)
-    static = _WARPS * tables * D * 4 if grads else 0
-    return tables * (n + 1) * (D + 1) * 4 + static <= kernels.SMEM_BYTES
+        return nn_shared_fits(n)
+    return shared_table_fits(n)
 
 
 def _check_v1_args(nodes: dict, rels: dict, bufs, grads: bool, table=None,
@@ -400,9 +404,10 @@ def _check_v1_args(nodes: dict, rels: dict, bufs, grads: bool, table=None,
     [n, 16] node tables, [n_et, 16] relation rows ``rels``, ``bufs``
     (src2d, dst2d, chunk_type) and the backward's ``g``.  ``table`` None
     picks "shared" where the tables fit (:func:`v1_shared_fits`), else
-    "global"; "shared" raises where they do not fit.  B7 also wants a
-    chunk length that is a multiple of 16, and its forward at most
-    sddmm2.PLAN_RELATIONS relations (B9's plan)."""
+    "global"; "shared" raises where they do not fit, and for a backward.
+    Both want a chunk length that is a multiple of 16 (the backwards' lane
+    quads walk 16 slots; B7's forward reads 16 bytes a lane), and B7's
+    forward at most sddmm2.PLAN_RELATIONS relations (B9's plan)."""
     dev = bufs[0].device
     for name, x in {**nodes, **rels}.items():
         kernels.require(x, name, torch.float32, 2, dev)
@@ -420,17 +425,15 @@ def _check_v1_args(nodes: dict, rels: dict, bufs, grads: bool, table=None,
                              f"{tuple(bufs[0].shape)}")
     if table not in (None, *TABLES):
         raise ValueError(f"table {table!r} not in {TABLES}")
-    if len(nodes) == 2:
-        if bufs[0].shape[1] % SEG:
-            raise ValueError(f"chunk length {bufs[0].shape[1]} is not a "
-                             f"multiple of {SEG} (the kernel reads 16 bytes "
-                             f"a lane and its backward's lane quads walk "
-                             f"{SEG} slots)")
-        if not grads and n_et > PLAN_RELATIONS:
-            raise ValueError(f"{n_et} relations: the forward's plan takes "
-                             f"at most {PLAN_RELATIONS}")
-        if grads and table == "shared":
-            raise ValueError("the backward keeps no table in shared memory")
+    if bufs[0].shape[1] % SEG:
+        raise ValueError(f"chunk length {bufs[0].shape[1]} is not a "
+                         f"multiple of {SEG} (the backward's lane quads walk "
+                         f"{SEG} slots)")
+    if len(nodes) == 2 and not grads and n_et > PLAN_RELATIONS:
+        raise ValueError(f"{n_et} relations: the forward's plan takes at "
+                         f"most {PLAN_RELATIONS}")
+    if grads and table == "shared":
+        raise ValueError("the backward keeps no table in shared memory")
     fits = v1_shared_fits(n, len(nodes), grads)
     if table == "shared" and not fits:
         raise ValueError(f"n = {n} does not fit the shared-memory tables")
@@ -448,31 +451,36 @@ def distmult_v1_fwd_cuda(z, w, src2d, dst2d, chunk_type, table=None):
     out = torch.empty((n_chunks, chunk), dtype=torch.float32, device=z.device)
     if w.data_ptr() % 16:  # the forward reads w's rows 16 bytes a lane
         w = w.clone()
+    # B8's grid (sddmm2.distmult_logits_cuda)
     kernels.launch(DM1, "tip_dm1_fwd", "pppppiiiiip", pad_row(z), w, *bufs,
                    n_chunks, chunk, n, int(shared),
-                   2 * kernels.sm_count(z.device), out, device=z.device)
+                   (2 if shared else 4) * kernels.sm_count(z.device), out,
+                   device=z.device)
     return out
 
 
 def distmult_v1_bwd_cuda(z, w, src2d, dst2d, chunk_type, g,
                          bf16: bool = False, table=None):
-    """Launch the backward of csrc/distmult_sddmm_v1.cu: (dz, dw)."""
+    """Launch the backward of csrc/distmult_sddmm_v1.cu (B8's lane-quad
+    walk with B6's rounding points): (dz, dw).  It adds into device memory
+    at any n (``table`` None or "global")."""
     if not z.is_cuda:
         raise ValueError("distmult_v1_bwd_cuda needs CUDA tensors")
-    bufs = (src2d, dst2d, chunk_type)
-    n, shared = _check_v1_args({"z": z}, {"w": w}, bufs, True, table, g)
+    n, _ = _check_v1_args({"z": z}, {"w": w}, (src2d, dst2d, chunk_type),
+                          True, table, g)
     n_chunks, chunk = src2d.shape
-    blocks = (2 if shared else 4) * kernels.sm_count(z.device)
+    n_et = w.shape[0]
+    w, src2d, dst2d, g = aligned(w, src2d, dst2d, g)
     # scratch freed on return while the kernel may still run: the caching
     # allocator reuses it only for later work on this same stream
     f32 = dict(dtype=torch.float32, device=z.device)
-    part = torch.empty((blocks if shared else 0, n + 1, D), **f32)
     dwc = torch.empty((n_chunks, D), **f32)
     dz = torch.empty((n + 1, D), **f32)
-    dw = torch.empty((w.shape[0], D), **f32)
-    kernels.launch(DM1, "tip_dm1_bwd", "ppppppiiiiiiipppp", pad_row(z), w,
-                   *bufs, g, n_chunks, chunk, n, w.shape[0], int(bf16),
-                   int(shared), blocks, part, dwc, dz, dw, device=z.device)
+    dw = torch.empty((n_et, D), **f32)
+    kernels.launch(DM1, "tip_dm1_bwd", "ppppppiiiiiippp", pad_row(z), w,
+                   src2d, dst2d, chunk_type, g, n_chunks, chunk, n, n_et,
+                   int(bf16), kernels.sm_count(z.device), dwc, dz, dw,
+                   device=z.device)
     return dz[:n], dw
 
 

@@ -1,9 +1,10 @@
 """Kernels B8 (the DistMult SDDMM, csrc/distmult_sddmm.cu), B9 (the
 NN-decoder SDDMM, csrc/nn_sddmm.cu), B5 (the windowed P-P SpMM,
 csrc/gcn_spmm.cu), B11 (the ring SpMM step, csrc/ring_spmm.cu), B10 (the
-typed negative sampler, csrc/typed_neg_sampler.cu) and B7 (the v1
-NN-decoder SDDMM, csrc/nn_sddmm_v1.cu), and the TIP-cat and TIP-NN
-chunked steps that launch them.
+typed negative sampler, csrc/typed_neg_sampler.cu), B7 (the v1
+NN-decoder SDDMM, csrc/nn_sddmm_v1.cu) and B6 (the v1 DistMult SDDMM,
+csrc/distmult_sddmm_v1.cu), and the TIP-cat and TIP-NN chunked steps
+that launch them.
 
     python3 tip_tpu_torch/scripts/sddmm_bench.py [--root DIR]
 
@@ -39,11 +40,13 @@ spin hold the stream while it enqueues) and launch by launch, with a
 digest of (src, dst).  B7 (``b7_<tag>``, the same graphs): checked
 against the plain versions (float32 and bf16), forward, float32 and bf16
 backward timed whole and launch by launch, the forward's and backward's
-global modes whole, and the digests of its logits and of B9's.  Then the
-TIP-cat and
-TIP-NN chunked steps (1,536 x 800): the median of 5 synchronised steps
-after 2 warm-up, and chip_smoke.py's profile (device busy ms a step, idle
-share).  Prints one JSON line.  ``--root DIR`` times the
+global modes whole, and the digests of its logits and of B9's.  B6
+(``b6_<tag>``, the same graphs): the same, with B8's logits' digest and
+its dw's (deterministic); ``b8_<tag>`` also carries digests of B8's
+logits and dw (float32 and bf16), bit-equality across versions.  Then
+the TIP-cat and TIP-NN chunked steps (1,536 x 800): the median of 5
+synchronised steps after 2 warm-up, and chip_smoke.py's profile (device
+busy ms a step, idle share).  Prints one JSON line.  ``--root DIR`` times the
 ``tip_tpu_torch`` package under DIR (another commit unpacked there) in
 place of this checkout's (bench_root.py); run the script as a file, as
 above.  Needs a GPU.
@@ -228,6 +231,77 @@ def nn_v1_times(smoke, graph, gs, dev) -> dict:
     return out
 
 
+def dm_v1_times(smoke, graph, gs, dev) -> dict:
+    """B6 on one packed graph: checked against the plain versions (float32
+    and bf16), forward, float32 and bf16 backward timed whole and launch by
+    launch, the forward's and backward's global modes whole (the backward
+    has one mode since its redesign: "global" runs it), and the digests of
+    its logits and of B8's."""
+    import torch
+
+    from tip_tpu_torch.ops import sddmm2
+    from tip_tpu_torch.ops import typed_segment as ts
+    from tip_tpu_torch.ops.matmul import bf16_round
+
+    bufs = (graph["dd_src2d"], graph["dd_dst2d"], graph["dd_chunk_type"])
+    d, n, n_et = ts.D, gs.n_drug, gs.n_et
+    gen = torch.Generator().manual_seed(27)
+    z = (0.5 * torch.randn(n, d, generator=gen)).to(dev)
+    w = (0.3 * torch.randn(n_et, d, generator=gen)).to(dev)
+    g = torch.randn(bufs[0].shape, generator=gen).to(dev)
+    out = {"slots": bufs[0].numel()}
+    for bf16 in (False, True):
+        args = (bf16_round(z) if bf16 else z, w, *bufs)
+        el, ml = smoke.max_err(ts.distmult_v1_fwd_cuda(*args),
+                               ts.distmult_v1_fwd_plain(*args))
+        smoke.check(el <= 1e-5 * ml, f"B6 logits err {el} of max {ml}")
+        errs = smoke._frac_errs(ts.distmult_v1_bwd_cuda(*args, g, bf16),
+                                ts.distmult_v1_bwd_plain(*args, g, bf16))
+        smoke.check(max(errs) <= 1e-4, f"B6 bf16={bf16} grads err {errs}")
+        out["bf16" if bf16 else "float32"] = {"logit_max_abs_err": el,
+                                              "grad_err_frac": errs}
+    args = (z, w, *bufs)
+    lk = ts.distmult_v1_fwd_cuda(*args)
+    out["logits_digest"] = digest(lk)
+    out["b8_logits_digest"] = digest(sddmm2.distmult_logits_cuda(*args))
+    dz, dw = ts.distmult_v1_bwd_cuda(*args, g)
+    out["dw_digest"] = digest(dw)
+    out["dw_deterministic"] = torch.equal(
+        dw, ts.distmult_v1_bwd_cuda(*args, g)[1])
+    calls = {"fwd": lambda: ts.distmult_v1_fwd_cuda(*args),
+             "bwd": lambda: ts.distmult_v1_bwd_cuda(*args, g),
+             "bwd_bf16": lambda: ts.distmult_v1_bwd_cuda(*args, g, True)}
+    for key, fn in calls.items():
+        out[f"{key}_ms"] = smoke.cuda_ms(fn, reps=20, primed=True)
+        out[f"{key}_kernels"] = smoke.kernel_breakdown(fn)
+    out["fwd_global_ms"] = smoke.cuda_ms(lambda: ts.distmult_v1_fwd_cuda(
+        *args, table="global"), reps=20, primed=True)
+    out["bwd_global_ms"] = smoke.cuda_ms(lambda: ts.distmult_v1_bwd_cuda(
+        *args, g, table="global"), reps=20, primed=True)
+    return out
+
+
+def b8_digests(graph, gs, dev) -> dict:
+    """Digests of B8's logits and of its backward's dw, float32 and bf16
+    (B8's walk moved into a header shared with B6: its bits must not)."""
+    import torch
+
+    from tip_tpu_torch.ops import sddmm2
+    from tip_tpu_torch.ops.matmul import bf16_round
+
+    bufs = (graph["dd_src2d"], graph["dd_dst2d"], graph["dd_chunk_type"])
+    gen = torch.Generator().manual_seed(28)
+    z = (0.5 * torch.randn(gs.n_drug, sddmm2.D, generator=gen)).to(dev)
+    w = (0.3 * torch.randn(gs.n_et, sddmm2.D, generator=gen)).to(dev)
+    g = torch.randn(bufs[0].shape, generator=gen).to(dev)
+    out = {"logits": digest(sddmm2.distmult_logits_cuda(z, w, *bufs))}
+    for bf16 in (False, True):
+        zr = bf16_round(z) if bf16 else z
+        _, dw = sddmm2.distmult_bwd_cuda(zr, w, *bufs, g, bf16)
+        out["dw_bf16" if bf16 else "dw"] = digest(dw)
+    return out
+
+
 def gcn_spmm_times(smoke, graph, gs, data, dev) -> dict:
     """B5 on one windowed P-P graph at d = 32 and 16: checked, timed whole
     and launch by launch, beside torch.sparse.mm on the CSR matrix."""
@@ -287,8 +361,8 @@ def main(argv=None) -> dict:
     import bench_root  # beside this file, first on sys.path
 
     parser = argparse.ArgumentParser(
-        description="Kernels B8, B9, B5, B11, B10 and B7, and the TIP-cat "
-                    "and TIP-NN chunked steps")
+        description="Kernels B8, B9, B5, B11, B10, B7 and B6, and the "
+                    "TIP-cat and TIP-NN chunked steps")
     bench_root.add_option(parser)
     args = parser.parse_args(argv)
     root = bench_root.import_package(args.root)
@@ -308,7 +382,7 @@ def main(argv=None) -> dict:
     set_matmul_precision()
     kernels.build(["distmult_sddmm", "nn_sddmm", "ring_spmm",
                    "typed_neighbor_sum", "gcn_spmm", "typed_neg_sampler",
-                   "nn_sddmm_v1"])
+                   "nn_sddmm_v1", "distmult_sddmm_v1"])
     out = {"root": str(root), "card": smoke.card_line()}
     decagon = build_trigraph(synthetic_trigraph(**DECAGON_SHAPE), 0.9, 1111)
     big = build_trigraph(synthetic_trigraph(**smoke.BEYOND_DENSE), 0.9, 1111)
@@ -321,11 +395,13 @@ def main(argv=None) -> dict:
         if tag in ("main", "decagon"):
             rep = smoke.check_distmult_sddmm(graph, gs, data, dev)
             out[f"b8_{tag}"] = {k: rep[k] for k in B8_KEYS}
+            out[f"b8_{tag}"]["digests"] = b8_digests(graph, gs, dev)
         if tag != "hub":
             out[f"b9_{tag}"] = nn_sddmm_times(smoke, graph, gs, dev)
         if tag in ("main", "decagon"):
             out[f"b10_{tag}"] = sampler_times(smoke, graph, gs, dev)
             out[f"b7_{tag}"] = nn_v1_times(smoke, graph, gs, dev)
+            out[f"b6_{tag}"] = dm_v1_times(smoke, graph, gs, dev)
         if tag in ("decagon", "hub"):
             out[f"b5_{tag}"] = gcn_spmm_times(smoke, graph, gs, data, dev)
         del graph

@@ -6,14 +6,20 @@ small random tri-graph; otherwise the Decagon files are read from
 ``--data-dir`` (or ``$TIP_DATA_DIR``).  ``$JAX_DEFAULT_MATMUL_PRECISION``
 set to ``float32`` or ``highest`` asks for exact float32 matmuls, as it does
 of the JAX package's CLI: a float32 kernel dtype then takes the float32
-pages.
+pages.  ``--checkpoint-dir``/``--checkpoint-every`` write checkpoints,
+``--resume`` continues from one, ``--remat`` recomputes the encoder in
+the backward, ``--profile-dir`` records a trace of epochs 2-4
+(train/loop.py:train).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
+
+import numpy as np
 
 from tip_tpu_torch.config import add_config_flags, configs_from_args
 
@@ -27,6 +33,20 @@ def main(argv=None) -> None:
                         help="tiny random graph")
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU instead of the GPU")
+    parser.add_argument("--mono", action="store_true",
+                        help="use mono side-effect drug features")
+    parser.add_argument(
+        "--feat-norm", choices=["ones", "sqrt"], default="ones",
+        help="drug-feature row normalization: 'ones' = the reference's "
+             "shipped d_norm; 'sqrt' = the square roots of the drug "
+             "features' row sums")
+    parser.add_argument("--profile-dir", default=None,
+                        help="write a torch.profiler trace of epochs 2-4 "
+                             "here")
+    parser.add_argument(
+        "--resume", default=None, metavar="DIR_OR_PREFIX",
+        help="resume from a checkpoint: a --checkpoint-dir (latest epoch "
+             "picked) or a path prefix like runs/ck/ep49")
     parser.add_argument(
         "--split-seed", type=int, default=None,
         help="90/10 split seed (default: the training seed)")
@@ -47,11 +67,17 @@ def main(argv=None) -> None:
         raw = synthetic_trigraph()
     else:
         kw = {"data_dir": args.data_dir} if args.data_dir else {}
+        if args.mono:
+            kw["mono"] = True
         raw = load_decagon_raw(**kw)
     data = build_trigraph(raw, split_rate=tcfg.split_rate, seed=split_seed)
+    if args.feat_norm == "sqrt" and data.drug_feat is not None:
+        d_norm = np.sqrt(data.drug_feat.sum(axis=1)).astype(np.float32)
+        data = dataclasses.replace(data, d_norm=d_norm)
     _, result = train(cfg, tcfg, data, device=device,
                       matmul_precision=os.environ.get(
-                          "JAX_DEFAULT_MATMUL_PRECISION", "default"))
+                          "JAX_DEFAULT_MATMUL_PRECISION", "default"),
+                      resume=args.resume, profile_dir=args.profile_dir)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"final": result["final"], "history": result["history"]},

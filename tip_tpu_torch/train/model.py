@@ -54,6 +54,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from tip_tpu_torch.config import ModelConfig
 from tip_tpu_torch.data.packing import (
@@ -403,12 +404,27 @@ class TIP:
                                 self.cfg.nn_decoder_l1_dim, device=self.device)),
         }
 
-    def encode(self, params, graph, mesh=None):
+    def encode(self, params, graph, mesh=None, remat: bool = False):
         """Drug embeddings z [n_drug, n_hid2] from the training graph (this
-        rank's view of it under ``mesh``; z is replicated)."""
-        return fm_encoder_apply(params["encoder"], graph, self.cfg, self.gs,
-                                x_drug=graph.get("drug_feat"),
-                                d_norm=graph.get("d_norm"), mesh=mesh)
+        rank's view of it under ``mesh``; z is replicated).  ``remat``
+        keeps none of the encoder's intermediates for the backward, which
+        runs the encoder again (its kernels launch twice): memory for
+        compute, as ``jax.checkpoint`` in the JAX package.  Not under a
+        ``mesh``, whose recompute would repeat the collectives."""
+        def enc(p):
+            return fm_encoder_apply(p, graph, self.cfg, self.gs,
+                                    x_drug=graph.get("drug_feat"),
+                                    d_norm=graph.get("d_norm"), mesh=mesh)
+
+        if not remat:
+            return enc(params["encoder"])
+        if mesh is not None:
+            raise NotImplementedError(
+                "remat under a mesh: the recompute would run the encoder's "
+                "collectives again inside the backward; train sharded "
+                "without remat")
+        return torch.utils.checkpoint.checkpoint(enc, params["encoder"],
+                                                 use_reentrant=False)
 
     def score(self, params, z, src, dst, et, sigmoid: bool = True):
         """Scores of (src, dst, relation) triples, flat (the eval's)."""
@@ -424,7 +440,8 @@ class TIP:
         return apply(params["decoder"], z, src2d, dst2d, chunk_type, sigmoid,
                      kernel_dtype=self.cfg.kernel_dtype)
 
-    def loss(self, params, graph, seed: int, u24=None, mesh=None):
+    def loss(self, params, graph, seed: int, u24=None, mesh=None,
+             remat: bool = False):
         """Mean BCE over the train edges.  ``seed`` (uint32) keys the
         negatives; ``u24`` replaces their random bits: the fused dense
         BCEs' cell field (CPU only), or the sampler's draws (kernel B10
@@ -444,11 +461,12 @@ class TIP:
         Under ``mesh``: the chunked layout only; ``graph`` is this rank's
         view, the sampler's seed is folded with the rank (``u24``: this
         rank's slice of the draws), and the masked sums are summed over the
-        ranks before the division, so every rank returns the same loss."""
+        ranks before the division, so every rank returns the same loss.
+        ``remat``: see :meth:`encode`."""
         gs = self.gs
         if mesh is not None:
             seed = fold_seed(seed, mesh.rank)
-        z = self.encode(params, graph, mesh)
+        z = self.encode(params, graph, mesh, remat=remat)
         if (gs.dd_layout != "chunked" and self.cfg.decoder == "distmult"
                 and self.cfg.negatives != "sampled"):
             w = params["decoder"]["weight"]
