@@ -11,6 +11,13 @@ Phases, each fatal on failure:
      strips and the chunked layout, TIP-cat and DR-DF on the float32 full
      pages, TIP-cat with sampled negatives on the strips, TIP-cat with the
      NN decoder on the strips and chunked, DR-NN on the float32 pages;
+  3b. the data and analysis layers (run_data_path): BioSNAP-shaped CSVs at
+     Decagon's sizes, written from a seed, through preprocess_decagon, the
+     --et-band selection, load_decagon_raw and cached_trigraph (cold, then
+     warm: equal graphs), then the training CLI with --et-band and
+     --report on the dense strips (B1 once a step), the report's rows
+     against the result, and the Dice matrix of 645 x 32,768 folded counts
+     on the card, bit-equal to the CPU's; a ``data:`` line;
   4. build a Decagon-shaped synthetic tri-graph (645 drugs, 19,081
      proteins, 1,097 relations), pack it in both layouts, and hold each
      kernel against its plain PyTorch version (KERNEL_CHECKS: B1 on the
@@ -2211,6 +2218,304 @@ def run_decoder_ab(data, dev) -> dict:
     return launches
 
 
+# The data phase's raw CSVs: BioSNAP's Decagon files at their published
+# sizes (bio-decagon-combo: 4,649,441 drug-drug-side-effect rows over 645
+# drugs and 1,317 side effects; bio-decagon-ppi: 715,612 rows over 19,081
+# proteins; bio-decagon-targets: 18,596 targets inside the PPI, here with 94
+# more outside it, which preprocessing drops; bio-decagon-mono: 174,977
+# rows over 10,184 mono side effects), random from a seed
+DECAGON_CSV = dict(n_drug=645, n_prot=19081, n_combo=4649441, n_se=1317,
+                   n_ppi=715612, n_targets=18596, n_targets_out=94,
+                   n_mono=174977, n_mono_se=10184)
+DATA_BAND = (1000, 5000)  # --et-band: the reference's 1k-5k nnz band
+DATA_EPOCHS = 5
+DICE_BITS = 1 << 15  # fold_fingerprints' default width
+
+
+def _unique_pairs(rng, n: int, m: int, weights=None):
+    """m distinct unordered pairs (i < j) of n nodes, endpoints drawn by
+    ``weights`` (uniform without)."""
+    import numpy as np
+
+    if m > n * (n - 1) // 2:
+        raise ValueError(f"{m} distinct pairs of {n} nodes do not exist")
+    keys = np.empty(0, np.int64)
+    while keys.size < m:
+        a = rng.choice(n, size=2 * (m - keys.size) + 64, p=weights)
+        b = rng.choice(n, size=a.size, p=weights)
+        a, b = a[a != b], b[a != b]
+        new = np.minimum(a, b).astype(np.int64) * n + np.maximum(a, b)
+        keys = np.unique(np.concatenate([keys, new]))
+    keys = rng.permutation(keys)[:m]
+    return keys // n, keys % n
+
+
+def write_biosnap_csvs(raw_dir: str, seed: int, *, n_drug: int, n_prot: int,
+                       n_combo: int, n_se: int, n_ppi: int, n_targets: int,
+                       n_targets_out: int, n_mono: int,
+                       n_mono_se: int) -> dict:
+    """Write bio-decagon-{combo,ppi,targets,mono}.csv (the sizes of
+    DECAGON_CSV's keys) with Decagon's columns and codes (CID drugs, UMLS C
+    side effects, Entrez gene ids) into raw_dir.  Side effects' pair counts
+    are log-normal (sigma 1.2), so a band of nnz keeps part of them; pairs
+    are distinct within a side effect and listed in either order; every
+    protein appears in the PPI; the targets are drawn from all drugs and
+    proteins (drug 0 and protein 0 among them).  The side effects' codes include Decagon's reported best and worst ones
+    (analysis/report.py).  Returns {UMLS id: name} of the side effects."""
+    import numpy as np
+
+    from tip_tpu_torch.analysis.report import (
+        DECAGON_BEST_ORG_ID, DECAGON_WORST_ORG_ID,
+    )
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(raw_dir, exist_ok=True)
+    drug_code = rng.choice(10 ** 8, n_drug, replace=False) + 1
+    gene = rng.choice(10 ** 6, n_prot + n_targets_out, replace=False) + 1
+    gene, gene_out = gene[:n_prot], gene[n_prot:]
+    reported = np.array(DECAGON_BEST_ORG_ID + DECAGON_WORST_ORG_ID)
+    se_code = np.concatenate([reported, rng.choice(
+        np.setdiff1d(np.arange(1, 10 ** 7), reported),
+        n_se - reported.size, replace=False)])
+    names = {int(c): f"side effect {int(c)}" for c in se_code}
+
+    sizes = rng.lognormal(0.0, 1.2, n_se)
+    sizes = np.maximum(1, np.floor(sizes / sizes.sum() * n_combo)).astype(int)
+    sizes[np.argmax(sizes)] += n_combo - sizes.sum()
+    d1, d2, se = [], [], []
+    for t, m in enumerate(sizes):
+        a, b = _unique_pairs(rng, n_drug, int(m))
+        swap = rng.random(m) < 0.5
+        d1.append(np.where(swap, b, a))
+        d2.append(np.where(swap, a, b))
+        se.append(np.full(m, t))
+    order = rng.permutation(n_combo)
+    d1, d2, se = (np.concatenate(x)[order] for x in (d1, d2, se))
+    dc = [f"CID{c:09d}" for c in drug_code]
+    sc = [f"C{c:07d},{names[int(c)]}" for c in se_code]
+    with open(os.path.join(raw_dir, "bio-decagon-combo.csv"), "w") as f:
+        f.write("STITCH 1,STITCH 2,Polypharmacy Side Effect,"
+                "Side Effect Name\n")
+        f.write("".join(f"{dc[i]},{dc[j]},{sc[t]}\n" for i, j, t in
+                        zip(d1.tolist(), d2.tolist(), se.tolist())))
+
+    # a chain through every protein first, then pairs drawn by a skewed
+    # degree weight (hub proteins, as in the PPI)
+    perm = rng.permutation(n_prot)
+    w = 1.0 / (np.arange(n_prot) + 10.0) ** 0.8
+    w = w[rng.permutation(n_prot)]
+    a, b = _unique_pairs(rng, n_prot, n_ppi, w / w.sum())
+    chain = np.minimum(perm[:-1], perm[1:]) * n_prot + np.maximum(
+        perm[:-1], perm[1:])
+    rest = np.setdiff1d(a.astype(np.int64) * n_prot + b, chain,
+                        assume_unique=True)
+    rest = rng.permutation(rest)[:n_ppi - chain.size]
+    pairs = np.concatenate([chain, rest])
+    p1, p2 = pairs // n_prot, pairs % n_prot
+    with open(os.path.join(raw_dir, "bio-decagon-ppi.csv"), "w") as f:
+        f.write("Gene 1,Gene 2\n")
+        f.write("".join(f"{gene[i]},{gene[j]}\n"
+                        for i, j in zip(p1.tolist(), p2.tolist())))
+
+    # the combo file's first drug targets the PPI file's first protein:
+    # drug 0 and protein 0 once preprocessed
+    first = d1[0] * n_prot + p1[0]
+    tk = rng.choice(n_drug * n_prot, n_targets + 1, replace=False)
+    tk = np.concatenate([[first], tk[tk != first]])[:n_targets]
+    rows = [f"{dc[k // n_prot]},{gene[k % n_prot]}\n" for k in tk.tolist()]
+    rows += [f"{dc[i]},{g}\n" for i, g in
+             zip(rng.integers(0, n_drug, n_targets_out).tolist(),
+                 gene_out.tolist())]
+    with open(os.path.join(raw_dir, "bio-decagon-targets.csv"), "w") as f:
+        f.write("STITCH,Gene\n")
+        f.write("".join(rng.permutation(rows)))
+
+    mono_code = rng.choice(10 ** 7, n_mono_se, replace=False) + 1
+    mk = rng.choice(n_drug * n_mono_se, n_mono, replace=False)
+    with open(os.path.join(raw_dir, "bio-decagon-mono.csv"), "w") as f:
+        f.write("STITCH,Individual Side Effect,Side Effect Name\n")
+        f.write("".join(
+            f"{dc[k // n_mono_se]},C{mono_code[k % n_mono_se]:07d},mono\n"
+            for k in mk.tolist()))
+    return names
+
+
+def biosnap_targets(raw_dir: str, data_dir: str) -> set:
+    """{(protein id, drug id)} of bio-decagon-targets.csv through the id
+    maps preprocess_decagon wrote, targets outside the PPI left out; holds
+    (0, 0) (write_biosnap_csvs)."""
+    import pickle
+
+    maps = {}
+    for name in ("drug-map", "protein-map"):
+        with open(os.path.join(data_dir, "index_map", f"{name}.pkl"),
+                  "rb") as f:
+            maps[name] = pickle.load(f)
+    drug, prot = maps["drug-map"], maps["protein-map"]
+    with open(os.path.join(raw_dir, "bio-decagon-targets.csv")) as f:
+        rows = [line.split(",") for line in f.read().splitlines()[1:]]
+    out = {(prot[int(g)], drug[int(d[3:])]) for d, g in rows
+           if int(g) in prot}
+    check((0, 0) in out, "no target on drug 0 and protein 0")
+    return out
+
+
+def _graphs_equal(a, b) -> bool:
+    import dataclasses
+
+    import numpy as np
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if hasattr(x, "edge_index"):
+            x = (x.edge_index, x.edge_type, x.range_list)
+            y = (y.edge_index, y.edge_type, y.range_list)
+        elif not isinstance(x, np.ndarray):
+            if x != y:
+                return False
+            continue
+        else:
+            x, y = (x,), (y,)
+        for u, v in zip(x, y):
+            if u.dtype != v.dtype or not np.array_equal(u, v):
+                return False
+    return True
+
+
+def dice_counts(n_drug: int, seed: int = 0):
+    """Folded counted fingerprints [n_drug, DICE_BITS] of random molecules:
+    20-120 environment identifiers each, counts 1-6."""
+    import numpy as np
+
+    from tip_tpu_torch.data.drug_structure import fold_fingerprints
+
+    rng = np.random.default_rng(seed)
+    fps = []
+    for _ in range(n_drug):
+        ids = rng.integers(0, 2 ** 63, rng.integers(20, 121), dtype=np.int64)
+        fps.append({int(i): int(c) for i, c in
+                    zip(ids, rng.integers(1, 7, ids.size))})
+    return fold_fingerprints(fps, n_bits=DICE_BITS)
+
+
+def run_data_path(dev, card: str) -> dict:
+    """The port's data and analysis layers end to end on the card: the
+    BioSNAP-shaped CSVs (write_biosnap_csvs, Decagon's sizes) through
+    preprocess_decagon, the --et-band selection (et_list_by_nnz_band) and
+    load_decagon_raw (each drug-protein edge on its own drug and protein,
+    biosnap_targets), cached_trigraph cold then warm (equal graphs), then
+    the training CLI (tip_tpu_torch.train.__main__.main) with --et-band and
+    --report on the default dense strips, every launch counter at 0 just
+    before and read just after (B1 once a step, nothing else), the report's
+    rows against result["per_relation"]; then dice_similarity_matrix on the
+    card at 645 x DICE_BITS folded counts, bit-equal to the CPU's.  Prints
+    the data line; returns the launch counts."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tip_tpu_torch import kernels
+    from tip_tpu_torch.analysis.report import DECAGON_BEST_ORG_ID
+    from tip_tpu_torch.data.cache import cached_trigraph
+    from tip_tpu_torch.data.decagon import (
+        et_list_by_nnz_band, load_decagon_raw,
+    )
+    from tip_tpu_torch.data.drug_structure import dice_similarity_matrix
+    from tip_tpu_torch.data.preprocess import preprocess_decagon
+    from tip_tpu_torch.train import __main__ as train_cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        raw_dir, data_dir, cache_dir = (os.path.join(tmp, d) for d in
+                                        ("raw", "data", "cache"))
+        t0 = time.time()
+        names = write_biosnap_csvs(raw_dir, 0, **DECAGON_CSV)
+        csv_sec = time.time() - t0
+        t0 = time.time()
+        info = preprocess_decagon(raw_dir, data_dir)
+        preprocess_sec = time.time() - t0
+        check(info == (DECAGON_CSV["n_drug"], DECAGON_CSV["n_prot"],
+                       DECAGON_CSV["n_se"], DECAGON_CSV["n_mono_se"]),
+              f"preprocess_decagon counted {info}")
+        # the side effects' names, which BioSNAP's combo file carries and
+        # the shipped data keeps beside the id maps
+        with open(os.path.join(data_dir, "index_map",
+                               "combo-name-map.pkl"), "wb") as f:
+            pickle.dump(names, f)
+        t0 = time.time()
+        et_ids = et_list_by_nnz_band(*DATA_BAND, data_dir)
+        raw = load_decagon_raw(data_dir, et_list=et_ids)
+        load_sec = time.time() - t0
+        check(len(et_ids) > 0 and np.array_equal(raw.et_ids, et_ids),
+              f"band {DATA_BAND} selected {len(et_ids)} relations")
+        check(raw.dp_shift == 0 and set(zip(*raw.dp_edge_index.tolist()))
+              == biosnap_targets(raw_dir, data_dir),
+              "the loaded drug-protein edges are not the targets' own")
+        t0 = time.time()
+        cold = cached_trigraph(raw, cache_dir=cache_dir)
+        cold_sec = time.time() - t0
+        t0 = time.time()
+        warm = cached_trigraph(raw, cache_dir=cache_dir)
+        warm_sec = time.time() - t0
+        check(_graphs_equal(cold, warm), "the warm cache load differs from "
+              "the cold build")
+        report = os.path.join(tmp, "report.json")
+        os.environ["TIP_CACHE_DIR"] = cache_dir  # the CLI loads it warm
+        kernels.reset_launch_counts()
+        result = train_cli.main([
+            "--data-dir", data_dir, "--et-band", ",".join(map(str, DATA_BAND)),
+            "--epochs", str(DATA_EPOCHS), "--report", report])
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        del os.environ["TIP_CACHE_DIR"]
+        check_result("tip dense", DATA_EPOCHS, len(et_ids), result, launches)
+        with open(report) as f:
+            rep = json.load(f)
+        with open(os.path.join(data_dir, "index_map", "combo_map.pkl"),
+                  "rb") as f:
+            code_of = {v: k for k, v in pickle.load(f).items()}
+        per = result["per_relation"]
+        want = [{"et": int(t), "name": names[code_of[int(t)]],
+                 **{k: round(float(per[k][i]), 4)
+                    for k in ("auprc", "auroc", "ap")}}
+                for i, t in enumerate(et_ids) if per["valid"][i]]
+        check(rep["per_relation"] == want, "the report's rows differ from "
+              "result['per_relation']")
+        ranked = {code_of[int(t)] for t in et_ids} & set(DECAGON_BEST_ORG_ID)
+        check({int(k) for k in rep["summary"]["decagon_best_ranks"]}
+              == ranked, "the report ranks other side effects than Decagon's "
+              "best in the band")
+
+    counts = dice_counts(DECAGON_CSV["n_drug"])
+    dice_ms = []
+    for _ in range(3):  # the first call loads cdist's kernel
+        t0 = time.time()
+        sim = dice_similarity_matrix(counts, device=dev)
+        dice_ms.append(1e3 * (time.time() - t0))
+    t0 = time.time()
+    sim_cpu = dice_similarity_matrix(counts, device="cpu")
+    dice_cpu_ms = 1e3 * (time.time() - t0)
+    check(sim.dtype == np.float32 and sim.shape == sim_cpu.shape
+          and np.array_equal(sim.view(np.uint32), sim_cpu.view(np.uint32)),
+          "Dice on the card differs from the CPU's")
+    step_sec = sorted(h["sec"] for h in result["history"][1:])
+    print("data: " + json.dumps({
+        "csv_rows": {k: v for k, v in DECAGON_CSV.items() if k.startswith("n_")},
+        "cut": None, "csv_sec": csv_sec, "preprocess_sec": preprocess_sec,
+        "band": DATA_BAND, "n_et": len(et_ids), "load_sec": load_sec,
+        "dd_train_edges": cold.dd_train.n_edges,
+        "cache_cold_sec": cold_sec, "cache_warm_sec": warm_sec,
+        "losses": [h["loss"] for h in result["history"]],
+        "final": result["final"], "launches": launches,
+        "step_ms_median": 1e3 * step_sec[len(step_sec) // 2],
+        "step_ms_all": [1e3 * h["sec"] for h in result["history"]],
+        "report_rows": len(rep["per_relation"]),
+        "dice_shape": list(counts.shape), "dice_ms": dice_ms[-1],
+        "dice_ms_all": dice_ms, "dice_cpu_ms": dice_cpu_ms, "card": card}))
+    return launches
+
+
 # the path whose launches the kernels line reports for each kernel, and the
 # kernel checks (graph and layout) at that path's shapes
 KERNEL_PATH = {
@@ -2271,6 +2576,7 @@ def main() -> int:
             ("dr-nn", "float32", "auto", None)):
         print("small slice gpu vs cpu:", json.dumps(check_small_slice_cpu_vs_gpu(
             dev, dense_dtype, kind, negatives, pp_dense)))
+    run_data_path(dev, card)
 
     t0 = time.time()
     data = build_trigraph(synthetic_trigraph(**DECAGON_SHAPE), 0.9, 1111)

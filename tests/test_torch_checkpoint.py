@@ -402,6 +402,7 @@ def test_cli_mono_and_feat_norm_sqrt_match_the_jax_cli(monkeypatch, capsys):
     import tip_tpu.data as jdata_mod
     import tip_tpu.utils
     import tip_tpu_torch.data as tdata_mod
+    import tip_tpu_torch.data.decagon as tdecagon
     from tip_tpu.train.__main__ import main as jmain
 
     seen = {}
@@ -418,8 +419,9 @@ def test_cli_mono_and_feat_norm_sqrt_match_the_jax_cli(monkeypatch, capsys):
             return None, {"final": {}, "history": []}
         return fake_train
 
-    monkeypatch.setattr(tdata_mod, "load_decagon_raw",
+    monkeypatch.setattr(tdecagon, "load_decagon_raw",
                         loader("port", synthetic_trigraph))
+    monkeypatch.setattr(tdata_mod, "cached_trigraph", tdata_mod.build_trigraph)
     monkeypatch.setattr(loop, "train", capture("port"))
     _cli(["--cpu", "--mono", "--feat-norm", "sqrt", "--epochs", "1"], capsys)
     assert seen["port"] == {"mono": True}

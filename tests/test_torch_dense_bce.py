@@ -10,6 +10,8 @@ modes (q = 0 and q = 2^24) against a float64 oracle, and statistically
 against the estimator's analytic expectation.
 """
 
+import ctypes
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -22,7 +24,7 @@ from tip_tpu.data.packing import dense_relation_adj
 from tip_tpu.ops.pallas_dense_bce import dense_bce_sum
 from tests.torch_tile_math import (
     PLAIN_ULPS, assert_readings, diagnosis, digest, digests, mma,
-    softplus_sigmoid, split, tf32,
+    op_divergence, recorded, softplus_sigmoid, split, tf32,
 )
 from tip_tpu_torch import kernels
 from tip_tpu_torch.data.packing import poisson_neg_thresholds
@@ -65,19 +67,20 @@ def test_plain_u24_zero_matches_jax_interpret_kernel(setup, dtype):
     terms (tests/torch_tile_math.py: PLAIN_ULPS for the plain version,
     JAX_ULPS where the JAX kernel takes part), on both page dtypes.
 
-    The port runs first, and its inputs and outputs must come through the
-    JAX call unchanged; a failing port reading recomputes the port from
-    fresh copies of the inputs, checks the inputs against their digests
-    from the fixture and names the cell with the largest error
-    (``torch_tile_math.diagnosis``)."""
+    The port runs first, recorded op by op (``torch_tile_math.recorded``),
+    and its inputs and outputs must come through the JAX call unchanged; a
+    failing port reading recomputes the port from fresh copies of the
+    inputs, checks the inputs against their digests from the fixture,
+    names the cell with the largest error and the first op where the
+    recomputation parts from the first call (``torch_tile_math.diagnosis``)."""
     data, da, _, w, z = setup
     q = np.zeros((data.n_et, 3), np.int32)
     for t, c in enumerate([0, 1, 2, 3, 1, 2]):  # count #{k: q_k > 0}
         q[t, :c] = 7
     pages = pages_tensor(da, dtype)
     built = dict(_BUILT, pages=digest(pages))
-    port_out = _torch_value_and_grads(
-        w, z, pages, q, seed=3, u24=torch.zeros((), dtype=torch.int64))
+    port_out, first_call = recorded(lambda: _torch_value_and_grads(
+        w, z, pages, q, seed=3, u24=torch.zeros((), dtype=torch.int64)))
     port_digests = digests(value=np.float64(port_out[0]), dw=port_out[1],
                            dz=port_out[2])
     jpages = jnp.asarray(da.astype(np.float32)).astype(jnp.dtype(dtype))
@@ -129,8 +132,34 @@ def test_plain_u24_zero_matches_jax_interpret_kernel(setup, dtype):
             dict(da=da, w=w, z=z, pages=pages,
                  **{f"port {k} (before the JAX call)": a for k, a in
                     zip(names, (np.float64(port_out[0]), *port_out[1:]))}),
-            cells))
+            cells, first_call))
     assert not moved, f"the JAX call changed the port's outputs {moved}"
+
+
+def test_diagnosis_names_a_tensor_written_between_ops():
+    """The u24 = 0 tests' first-call record (torch_tile_math.recorded)
+    names a tensor whose bytes change between two ops from outside the
+    call, as a stray write into reused memory would: the first op whose
+    outputs differ from a clean recomputation's, as the call left them,
+    and the op that reads it."""
+    x = torch.arange(8, dtype=torch.float32)
+
+    def call(stray: bool):
+        sp = torch.exp(-x)
+        if stray:  # bytes written from outside, without an ATen op
+            ctypes.c_float.from_address(sp.data_ptr() + 12).value += 0.5
+        return torch.sum(sp * 2.0).item()
+
+    value, first = recorded(lambda: call(True))
+    again_value, again = recorded(lambda: call(False))
+    assert value != again_value
+    text = op_divergence(first, again)
+    assert "op 1 aten.exp.default: outputs differ" in text
+    assert "(op 0)" in text  # it read aten.neg's output
+    assert first["ops"][2][1][0] == first["ops"][1][2][0][0]  # mul reads it
+    assert first["threads"][0] == "MainThread" and first["native_threads"] > 0
+    assert "left equal bytes" in op_divergence(
+        again, recorded(lambda: call(False))[1])
 
 
 def _oracle(w, z, da, cnt, abs_sums: bool = False):

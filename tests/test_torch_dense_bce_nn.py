@@ -24,7 +24,7 @@ from tip_tpu.data import build_trigraph, synthetic_trigraph
 from tip_tpu.data.packing import dense_relation_adj, pad_dense_adj
 from tip_tpu.ops.pallas_dense_bce_nn import dense_bce_nn_sum
 from tests.torch_tile_math import (
-    PLAIN_ULPS_NN, assert_readings, diagnosis, digest, digests,
+    PLAIN_ULPS_NN, assert_readings, diagnosis, digest, digests, recorded,
 )
 from tip_tpu_torch import kernels
 from tip_tpu_torch.data.packing import cast_dense_adj, poisson_neg_thresholds
@@ -61,10 +61,11 @@ def _torch_value_and_grads(args, pages, q, seed, u24=None):
 
 def _port_then_jax(args, pages, q, jpages):
     """The port's plain value and grads under u24 = 0, then the JAX
-    kernel's (interpret mode) on ``jpages``; the port runs first, and the
-    digests of its outputs before the JAX call come with them."""
-    port_out = _torch_value_and_grads(args, pages, q, seed=3,
-                                      u24=torch.zeros((), dtype=torch.int64))
+    kernel's (interpret mode) on ``jpages``; the port runs first, recorded
+    op by op (``torch_tile_math.recorded``), and the digests of its outputs
+    before the JAX call and the record come with them."""
+    port_out, first_call = recorded(lambda: _torch_value_and_grads(
+        args, pages, q, seed=3, u24=torch.zeros((), dtype=torch.int64)))
     port_out = (port_out[0], *port_out[1])
     before = _digests_of(port_out)
     with pltpu.force_tpu_interpret_mode():
@@ -72,7 +73,8 @@ def _port_then_jax(args, pages, q, jpages):
             lambda a: dense_bce_nn_sum(*a, jpages, jnp.asarray(q),
                                        jax.random.key(3)))(
             tuple(map(jnp.asarray, args)))
-    return port_out, (float(jval), *map(np.asarray, jgrads)), before
+    return (port_out, (float(jval), *map(np.asarray, jgrads)), before,
+            first_call)
 
 
 _NAMES = ("value", "dw1", "dw2", "dh1", "dh2")
@@ -84,7 +86,8 @@ def _digests_of(port_out):
         for k, v in zip(_NAMES, port_out)})
 
 
-def _check_u24_zero(port_out, jax_out, args, da, pages, q, built, before):
+def _check_u24_zero(port_out, jax_out, args, da, pages, q, built, before,
+                    first_call):
     """The port's plain version and the JAX kernel under u24 = 0, each
     against the float64 oracle and against each other, within a few
     float32 roundings of the sum of each result's absolute terms
@@ -94,8 +97,9 @@ def _check_u24_zero(port_out, jax_out, args, da, pages, q, built, before):
     to small entries.  The port's outputs must come through the JAX call
     unchanged (``before``: their digests); a failing port reading
     recomputes the port from fresh copies of the inputs, checks the
-    inputs against ``built`` and names the cell with the largest error
-    (``torch_tile_math.diagnosis``)."""
+    inputs against ``built``, names the cell with the largest error and
+    the first op where the recomputation parts from the first call
+    (``first_call``; ``torch_tile_math.diagnosis``)."""
     dan = np.asarray(da, np.float64)
     cnt = (q > 0).sum(1)[:, None, None] * (dan == 0)
     oracle, sabs = _oracle(args, dan, cnt, abs_sums=True)
@@ -124,7 +128,7 @@ def _check_u24_zero(port_out, jax_out, args, da, pages, q, built, before):
             dict(inputs, **{f"port {k} (before the JAX call)": np.asarray(
                 v, np.float64 if k == "value" else np.float32)
                 for k, v in zip(_NAMES, port_out)}),
-            cells))
+            cells, first_call))
     after = _digests_of(port_out)
     moved = [k for k in after if after[k] != before[k]]
     assert not moved, f"the JAX call changed the port's outputs {moved}"
@@ -136,9 +140,10 @@ def test_plain_u24_zero_matches_jax_interpret_kernel(setup):
     q = np.zeros((data.n_et, 3), np.int32)
     for t, c in enumerate([0, 1, 2, 3, 1, 2]):
         q[t, :c] = 7
-    port_out, jax_out, before = _port_then_jax(
+    port_out, jax_out, before, first_call = _port_then_jax(
         args, pages, q, jnp.asarray(pad_dense_adj(da.astype(np.float32))))
-    _check_u24_zero(port_out, jax_out, args, da, pages, q, _BUILT, before)
+    _check_u24_zero(port_out, jax_out, args, da, pages, q, _BUILT, before,
+                    first_call)
 
 
 def _oracle(args, da, cnt, abs_sums: bool = False):
@@ -302,6 +307,7 @@ def test_plain_u24_zero_on_float32_pages_past_255_matches_jax(setup):
     q = np.zeros((data.n_et, 3), np.int32)
     q[::2, :2] = 7
     built = dict(_BUILT, da=digest(da), pages=digest(da))
-    port_out, jax_out, before = _port_then_jax(
+    port_out, jax_out, before, first_call = _port_then_jax(
         args, da, q, jnp.asarray(pad_dense_adj(da)))
-    _check_u24_zero(port_out, jax_out, args, da, da, q, built, before)
+    _check_u24_zero(port_out, jax_out, args, da, da, q, built, before,
+                    first_call)

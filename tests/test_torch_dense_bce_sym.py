@@ -25,7 +25,7 @@ from tip_tpu.data.packing import (
 )
 from tip_tpu.ops.pallas_dense_bce_sym import dense_bce_sym_sum
 from tests.torch_tile_math import (
-    PLAIN_ULPS, assert_readings, diagnosis, digests, mma, split,
+    PLAIN_ULPS, assert_readings, diagnosis, digests, mma, recorded, split,
 )
 from tip_tpu_torch import kernels
 from tip_tpu_torch.ops import dense_bce_sym as port
@@ -92,19 +92,20 @@ def test_plain_u24_zero_matches_jax_interpret_kernel(setup):
     JAX_ULPS where the JAX kernel takes part): the error of an f32 sum is
     bounded relative to that sum, and dw's and dz's elements cancel.
 
-    The port runs first, and its inputs and outputs must come through the
-    JAX call unchanged; a failing port reading recomputes the port from
-    fresh copies of the inputs, checks the inputs against their digests
-    from the fixture and names the cell with the largest error
-    (``torch_tile_math.diagnosis``)."""
+    The port runs first, recorded op by op (``torch_tile_math.recorded``),
+    and its inputs and outputs must come through the JAX call unchanged; a
+    failing port reading recomputes the port from fresh copies of the
+    inputs, checks the inputs against their digests from the fixture,
+    names the cell with the largest error and the first op where the
+    recomputation parts from the first call (``torch_tile_math.diagnosis``)."""
     data, da, pages, _, w, z = setup
     # per-rate-class counts #{k: q_k > 0}, varied over relations
     q8 = np.zeros((data.n_et, 8), np.int32)
     for t, (cs, cd) in enumerate(zip([0, 1, 2, 3, 1], [1, 2, 0, 4, 3])):
         q8[t, :cs] = 7
         q8[t, 4:4 + cd] = 7
-    port_out = _torch_value_and_grads(w, z, pages, q8, seed=5,
-                                      u24=torch.zeros((), dtype=torch.int64))
+    port_out, first_call = recorded(lambda: _torch_value_and_grads(
+        w, z, pages, q8, seed=5, u24=torch.zeros((), dtype=torch.int64)))
     port_digests = digests(value=np.float64(port_out[0]), dw=port_out[1],
                            dz=port_out[2])
     # TPU interpret mode keeps one process-wide simulated memory: start
@@ -157,7 +158,7 @@ def test_plain_u24_zero_matches_jax_interpret_kernel(setup):
             dict(da=da, w=w, z=z, pages=pages,
                  **{f"port {k} (before the JAX call)": a for k, a in
                     zip(names, (np.float64(port_out[0]), *port_out[1:]))}),
-            cells))
+            cells, first_call))
     assert not moved, f"the JAX call changed the port's outputs {moved}"
 
 

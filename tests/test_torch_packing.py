@@ -266,3 +266,8 @@ def test_port_imports_with_jax_blocked():
     assert {"tip_tpu_torch.parallel.mesh", "tip_tpu_torch.parallel.collectives",
             "tip_tpu_torch.parallel.ring", "tip_tpu_torch.parallel.sharded",
             "tip_tpu_torch.ops.ring", "tip_tpu_torch.scripts.sharded"} <= set(mods)
+    assert {"tip_tpu_torch.data.cache", "tip_tpu_torch.data.compat",
+            "tip_tpu_torch.data.preprocess",
+            "tip_tpu_torch.data.drug_structure",
+            "tip_tpu_torch.analysis.report", "tip_tpu_torch.analysis.plots",
+            "tip_tpu_torch.analysis.explain"} <= set(mods)

@@ -16,8 +16,11 @@ shared by the tests of kernels B1, B2 and B3.
   ``JAX_ULPS`` are the multiples), all taken before it raises; a failing
   port reading appends the test's diagnosis (``diagnosis``: a
   recomputation from fresh copies of the inputs, the inputs' digests
-  against those taken when the fixture built them, and the terms of the
-  cell with the largest error).
+  against those taken when the fixture built them, the terms of the
+  cell with the largest error, and, against the first call's record
+  (``recorded``: the live threads and the digests of each ATen op's
+  outputs as the call left them), the first op where the recomputation
+  parts from it).
 """
 
 import hashlib
@@ -171,8 +174,83 @@ def digests(**arrays) -> dict:
     return {k: digest(v) for k, v in arrays.items()}
 
 
+def recorded(fn):
+    """Run ``fn()`` (the port's first call in a u24 = 0 test) and record,
+    through the test (the program has no hook for it): the threads alive
+    when it starts (Python's by name, and the process's native count),
+    and every ATen op it runs, forward and backward, with the key (data
+    pointer, dtype, shape, strides) of each tensor input and output.
+    While fn runs, the record neither copies nor reads a tensor: it keeps
+    a reference to each op's outputs and digests them once fn has
+    returned.  So what it reads is each intermediate's bytes at the end
+    of the call, and what it changes is that none of them is freed and
+    its memory reused during the call (ROADMAP Queue C).  Returns (fn's
+    result, the record) for ``diagnosis(..., first_call=)``."""
+    import os
+    import threading
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    def tensors(tree):
+        return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+    def key(t):
+        return f"{t.data_ptr():#x} {t.dtype} {tuple(t.shape)} {t.stride()}"
+
+    ops = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            ops.append((func, [key(t) for t in tensors((args, kwargs))],
+                        tensors(out)))
+            return out
+
+    record = {"threads": [t.name for t in threading.enumerate()],
+              "native_threads": len(os.listdir("/proc/self/task"))}
+    with Record():
+        result = fn()
+    record["ops"] = [(str(func), ins, [(key(t), digest(t)) for t in outs])
+                     for func, ins, outs in ops]
+    return result, record
+
+
+def op_divergence(first: dict, again: dict) -> str:
+    """Where the first call's record (``recorded``) and a recomputation's
+    part: the live threads, then the first op whose outputs, as the call
+    left them, differ, with the ops that wrote its inputs; its digests
+    name the tensor that moved."""
+    lines = [f"threads at the first call: {first['threads']} "
+             f"({first['native_threads']} native); at the recomputation: "
+             f"{again['threads']} ({again['native_threads']} native)"]
+    a, b = first["ops"], again["ops"]
+    for k, ((fa, ia, oa), (fb, _, ob)) in enumerate(zip(a, b)):
+        if fa != fb:
+            lines.append(f"op {k}: the first call ran {fa}, the "
+                         f"recomputation {fb}")
+            break
+        if [d for _, d in oa] != [d for _, d in ob]:
+            writers = {}
+            for j, (_, _, outs) in enumerate(a[:k]):
+                writers.update({kk: j for kk, _ in outs})
+            reads = ", ".join(
+                f"{kk} (op {writers[kk]})" if kk in writers else kk
+                for kk in ia)
+            lines.append(
+                f"op {k} {fa}: outputs differ: first call "
+                f"{[f'{kk} {d}' for kk, d in oa]}, recomputation "
+                f"{[d for _, d in ob]}; it read {reads}")
+            break
+    else:
+        lines.append(f"all {len(a)} ops of the first call and {len(b)} of "
+                     f"the recomputation left equal bytes")
+    return "\n".join(lines)
+
+
 def diagnosis(recompute, names, exact, sabs, port_ulps, built: dict,
-              now: dict, cells=None) -> str:
+              now: dict, cells=None, first_call=None) -> str:
     """The diagnosis of a failing port reading.
 
     recompute: () -> the port's plain outputs from fresh copies of the
@@ -183,11 +261,20 @@ def diagnosis(recompute, names, exact, sabs, port_ulps, built: dict,
     cells: optional () -> (float32 terms, float64 terms, labels): arrays of
         each cell's share of the value, recomputed in float32 by torch and
         in float64, and a dict of per-cell arrays (logit, count, page
-        value, ...); the cell with the largest error and its terms."""
+        value, ...); the cell with the largest error and its terms.
+    first_call: optional record of the first call (``recorded``); the
+        recomputation is recorded too and ``op_divergence`` of the two
+        follows."""
     lines = []
-    for name, got, ex, s in zip(names, recompute(), exact, sabs):
+    if first_call is not None:
+        outs, again = recorded(recompute)
+    else:
+        outs, again = recompute(), None
+    for name, got, ex, s in zip(names, outs, exact, sabs):
         lines.append(_reading_line(f"recomputed port {name} vs float64", got,
                                    ex, s, port_ulps)[1])
+    if again is not None:
+        lines.append(op_divergence(first_call, again))
     for k, arr in now.items():
         d = digest(arr)
         lines.append(f"input {k}: digest {d} "

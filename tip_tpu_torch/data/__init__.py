@@ -1,4 +1,10 @@
 from tip_tpu_torch.data.decagon import DecagonRaw, load_decagon_raw
+from tip_tpu_torch.data.drug_structure import (
+    calculate_drug_similarity,
+    dice_similarity_matrix,
+    morgan_fingerprint,
+)
+from tip_tpu_torch.data.cache import cached_trigraph
 from tip_tpu_torch.data.packing import (
     TriGraphData,
     TypedEdges,
@@ -17,4 +23,8 @@ __all__ = [
     "sort_typed_edges",
     "build_trigraph",
     "synthetic_trigraph",
+    "cached_trigraph",
+    "calculate_drug_similarity",
+    "dice_similarity_matrix",
+    "morgan_fingerprint",
 ]

@@ -4,11 +4,14 @@ Trains and evaluates one of the reference's experiment variants (DR-DF,
 DR-NN, PR-HMP-NN, PP-GAE) on the GPU (``cuda``) unless ``--cpu`` is given;
 without a GPU and without ``--cpu`` it stops with an error.  ``--synthetic``
 trains on a small random tri-graph; otherwise the Decagon files are read
-from ``--data-dir`` (or ``$TIP_DATA_DIR``).  ``$JAX_DEFAULT_MATMUL_PRECISION``
+from ``--data-dir`` (or ``$TIP_DATA_DIR``), ``--et-band LOW,HIGH`` keeps the
+relations whose symmetric nnz lies in (LOW, HIGH), and the packed graph
+comes from the npz cache (data/cache.py).  ``$JAX_DEFAULT_MATMUL_PRECISION``
 set to ``float32`` or ``highest`` asks for exact float32 matmuls, as it does
-of the JAX package's CLI: DR-DF and DR-NN then take the float32 pages.  The
-JAX package's ``--et-band``, ``--report`` and ``--backend`` flags are not
-ported yet.
+of the JAX package's CLI: DR-DF and DR-NN then take the float32 pages.
+``--report PATH`` writes the named per-relation metrics of the D-D variants
+(analysis/report.py:write_report; names from ``--data-dir``).  The JAX
+package's ``--backend`` flag is not ported yet.  ``main`` returns the result of ``train_variant``.
 """
 
 from __future__ import annotations
@@ -23,16 +26,20 @@ import numpy as np
 from tip_tpu_torch.models.runner import VARIANTS
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(
-        description="Train a TIP model variant (PyTorch/CUDA); --et-band, "
-                    "--report and --backend of the JAX CLI are not ported")
+        description="Train a TIP model variant (PyTorch/CUDA); --backend of "
+                    "the JAX CLI is not ported")
     parser.add_argument("--variant", required=True, choices=VARIANTS)
     parser.add_argument("--epochs", type=int, default=100)
     parser.add_argument("--lr", type=float, default=0.01)
     parser.add_argument("--seed", type=int, default=1111)
     parser.add_argument("--eval-every", type=int, default=0)
     parser.add_argument("--data-dir", default=None, help="Decagon data dir")
+    parser.add_argument(
+        "--et-band", default=None, metavar="LOW,HIGH",
+        help="train only relations with nnz in (LOW, HIGH) (cut_data "
+             "analog)")
     parser.add_argument("--mono", action="store_true",
                         help="use [identity | mono] drug features "
                              "(reference: model/ddm-*.py mono=True)")
@@ -54,21 +61,26 @@ def main(argv=None) -> None:
                         default="float32")
     parser.add_argument("--out", default=None,
                         help="write final metrics JSON here")
+    parser.add_argument(
+        "--report", default=None,
+        help="write named per-relation metric report (json/csv) here")
     args = parser.parse_args(argv)
 
+    from tip_tpu_torch.analysis.report import write_report
     from tip_tpu_torch.data import (
-        build_trigraph, load_decagon_raw, synthetic_trigraph,
+        build_trigraph, cached_trigraph, synthetic_trigraph,
     )
+    from tip_tpu_torch.data.decagon import DEFAULT_DATA_DIR, load_decagon_band
     from tip_tpu_torch.models.runner import build_variant, train_variant
     from tip_tpu_torch.train.model import resolve_device
 
     device = resolve_device("cpu" if args.cpu else "cuda")
     if args.synthetic:
         raw = synthetic_trigraph()
+        data = build_trigraph(raw, seed=args.seed)
     else:
-        kw = {"data_dir": args.data_dir} if args.data_dir else {}
-        raw = load_decagon_raw(mono=args.mono, **kw)
-    data = build_trigraph(raw, seed=args.seed)
+        raw = load_decagon_band(args.data_dir, args.et_band, args.mono)
+        data = cached_trigraph(raw, seed=args.seed)
     if args.feat_norm == "sqrt" and data.drug_feat is not None:
         data = dataclasses.replace(
             data, d_norm=np.sqrt(data.drug_feat.sum(axis=1)).astype(np.float32))
@@ -87,6 +99,10 @@ def main(argv=None) -> None:
         with open(args.out, "w") as f:
             json.dump({"variant": args.variant, "final": result["final"],
                        "history": result["history"]}, f)
+    if args.report and args.variant != "pp-gae":
+        write_report(args.report, result, raw.et_ids,
+                     args.data_dir or DEFAULT_DATA_DIR, rank_comparison=False)
+    return result
 
 
 if __name__ == "__main__":
