@@ -10,8 +10,11 @@ comes from the npz cache (data/cache.py).  ``$JAX_DEFAULT_MATMUL_PRECISION``
 set to ``float32`` or ``highest`` asks for exact float32 matmuls, as it does
 of the JAX package's CLI: DR-DF and DR-NN then take the float32 pages.
 ``--report PATH`` writes the named per-relation metrics of the D-D variants
-(analysis/report.py:write_report; names from ``--data-dir``).  The JAX
-package's ``--backend`` flag is not ported yet.  ``main`` returns the result of ``train_variant``.
+(analysis/report.py:write_report; names from ``--data-dir``).
+``--backend {auto,xla,pallas}`` routes DR-DF's and DR-NN's sparse ops as
+the JAX package's flag does ('auto' is 'pallas', the kernels, on every
+device; 'xla' launches none).  ``main`` returns the result of
+``train_variant``.
 """
 
 from __future__ import annotations
@@ -28,8 +31,7 @@ from tip_tpu_torch.models.runner import VARIANTS
 
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(
-        description="Train a TIP model variant (PyTorch/CUDA); --backend of "
-                    "the JAX CLI is not ported")
+        description="Train a TIP model variant (PyTorch/CUDA)")
     parser.add_argument("--variant", required=True, choices=VARIANTS)
     parser.add_argument("--epochs", type=int, default=100)
     parser.add_argument("--lr", type=float, default=0.01)
@@ -57,6 +59,8 @@ def main(argv=None) -> dict:
                         help="tiny random graph")
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU instead of the GPU")
+    parser.add_argument("--backend", choices=["auto", "xla", "pallas"],
+                        default="auto")
     parser.add_argument("--kernel-dtype", choices=["float32", "bfloat16"],
                         default="float32")
     parser.add_argument("--out", default=None,
@@ -91,7 +95,7 @@ def main(argv=None) -> dict:
         args.variant, data, device, kernel_dtype=args.kernel_dtype,
         matmul_precision=os.environ.get("JAX_DEFAULT_MATMUL_PRECISION",
                                         "default"),
-        dims=dim_over or None)
+        dims=dim_over or None, backend=args.backend)
     _, result = train_variant(model, graph, test, epochs=args.epochs,
                               lr=args.lr, seed=args.seed,
                               eval_every=args.eval_every)

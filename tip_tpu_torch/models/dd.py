@@ -25,6 +25,11 @@ ships only what its route reads (train/model.py:dense_dd_arrays):
 the chunked loss, except that DR-DF scores its positives over the full
 pages, as the JAX package does; DR-NN's strips then ship no pages, and the
 layout is ``strips``.
+
+``backend`` (train/model.py:resolve_backend): 'pallas' runs the kernels
+named above on CUDA tensors (their plain versions on CPU tensors); 'xla'
+the JAX package's XLA branches, which launch none.  As in the JAX
+package, ``DDModel`` has no sharded (EP) route.
 """
 
 from __future__ import annotations
@@ -53,9 +58,13 @@ from tip_tpu_torch.nn.rgcn import (
     rgcn_apply_padded,
     rgcn_init,
 )
-from tip_tpu_torch.ops.dense_bce import dense_bce_sum
-from tip_tpu_torch.ops.dense_bce_nn import dense_bce_nn_sum
-from tip_tpu_torch.ops.dense_bce_sym import dense_bce_sym_sum, softplus
+from tip_tpu_torch.ops.dense_bce import dense_bce_sum, dense_bce_sum_xla
+from tip_tpu_torch.ops.dense_bce_nn import dense_bce_nn_sum, dense_bce_nn_sum_xla
+from tip_tpu_torch.ops.dense_bce_sym import (
+    dense_bce_sym_sum,
+    dense_bce_sym_sum_xla,
+    softplus,
+)
 from tip_tpu_torch.sampling import (
     typed_negative_sampling,
     typed_negative_sampling_chunked,
@@ -65,6 +74,7 @@ from tip_tpu_torch.train.model import (
     check_negatives,
     chunk_arrays,
     dense_dd_arrays,
+    resolve_backend,
     resolve_device,
 )
 
@@ -143,9 +153,11 @@ class DDModel:
     cfg: DDConfig
     gs: GraphStatic
     device: torch.device
+    backend: str = "pallas"
 
     @staticmethod
-    def for_data(cfg: DDConfig, gs: GraphStatic, device=None) -> "DDModel":
+    def for_data(cfg: DDConfig, gs: GraphStatic, device=None,
+                 backend: str = "auto") -> "DDModel":
         if gs.dd_sampled and gs.dd_layout == "strips":
             # either decoder's sampled loss reads the chunk buffers; DR-DF's
             # positives also read the pages, which DR-NN's strips lack
@@ -157,7 +169,8 @@ class DDModel:
                              f"{cfg.decoder} decoder; pack it with "
                              f"decoder={cfg.decoder!r}")
         check_negatives(cfg.negatives, gs)
-        return DDModel(cfg=cfg, gs=gs, device=resolve_device(device))
+        return DDModel(cfg=cfg, gs=gs, device=resolve_device(device),
+                       backend=resolve_backend(backend))
 
     def init(self, gen: torch.Generator) -> dict:
         cfg, gs, dev = self.cfg, self.gs, self.device
@@ -189,10 +202,9 @@ class DDModel:
         if gs.dd_layout == "chunked":
             dd = (graph["dd_src2d"], graph["dd_dst2d"], graph["dd_chunk_type"],
                   graph["dd_deg"], gs.n_drug, gs.n_et)
-            x = torch.relu(rgcn_apply_padded(params["rgcn1"], x, *dd,
-                                             kernel_dtype=self.cfg.kernel_dtype))
-            x = rgcn_apply_padded(params["rgcn2"], x, *dd,
-                                  kernel_dtype=self.cfg.kernel_dtype)
+            kw = dict(kernel_dtype=self.cfg.kernel_dtype, backend=self.backend)
+            x = torch.relu(rgcn_apply_padded(params["rgcn1"], x, *dd, **kw))
+            x = rgcn_apply_padded(params["rgcn2"], x, *dd, **kw)
         elif gs.dd_layout == "pages":
             x = dense_rgcn_pair_apply(params["rgcn1"], params["rgcn2"], x,
                                       graph["dd_adj_t"], graph["dd_deg"])
@@ -212,7 +224,7 @@ class DDModel:
         apply = (distmult_apply_padded if self.cfg.decoder == "distmult"
                  else nn_decoder_apply_padded)
         return apply(params["decoder"], z, src2d, dst2d, chunk_type, sigmoid,
-                     kernel_dtype=self.cfg.kernel_dtype)
+                     kernel_dtype=self.cfg.kernel_dtype, backend=self.backend)
 
     def loss(self, params, graph, seed: int, u24=None):
         """Mean BCE over the train edges.  ``seed`` (uint32) keys the
@@ -223,25 +235,27 @@ class DDModel:
         z = self.encode(params, graph)
         dec = params["decoder"]
         if gs.dd_layout != "chunked" and cfg.negatives != "sampled":
+            xla = self.backend == "xla"
             if cfg.decoder == "nn":
                 h1, h2 = nn_hiddens(dec, z)
                 pages = graph["dd_adj_u8" if gs.dd_layout == "strips_pages"
                               else "dd_adj_t"]
-                total = dense_bce_nn_sum(dec["w1_l2"], dec["w2_l2"], h1, h2,
-                                         pages, graph["dd_neg_q"], seed,
-                                         u24=u24)
+                bce_nn = dense_bce_nn_sum_xla if xla else dense_bce_nn_sum
+                total = bce_nn(dec["w1_l2"], dec["w2_l2"], h1, h2, pages,
+                               graph["dd_neg_q"], seed, u24=u24)
             elif gs.dd_layout == "strips":
-                total = dense_bce_sym_sum(dec["weight"], z,
-                                          graph["dd_adj_sym"],
-                                          graph["dd_neg_q8"], seed, u24=u24)
+                bce_sym = dense_bce_sym_sum_xla if xla else dense_bce_sym_sum
+                total = bce_sym(dec["weight"], z, graph["dd_adj_sym"],
+                                graph["dd_neg_q8"], seed, u24=u24)
             else:
-                total = dense_bce_sum(dec["weight"], z, graph["dd_adj_t"],
-                                      graph["dd_neg_q"], seed, u24=u24)
+                bce = dense_bce_sum_xla if xla else dense_bce_sum
+                total = bce(dec["weight"], z, graph["dd_adj_t"],
+                            graph["dd_neg_q"], seed, u24=u24)
             return total / float(gs.dd_n_valid)
         ct = graph["dd_chunk_type"]
         neg_src2d, neg_dst2d = typed_negative_sampling_chunked(
             seed, ct, graph["dd_bitmap"], gs.n_drug, gs.n_et, gs.dd_chunk,
-            u24=u24)
+            u24=u24, backend=self.backend)
         valid = graph["dd_valid"]
         if gs.dd_layout != "chunked" and cfg.decoder == "distmult":
             pos_sum = distmult_dense_pos_bce_sum(

@@ -28,6 +28,7 @@ from tip_tpu_torch.train.loop import step_seed
 from tip_tpu_torch.train.model import (
     make_test_arrays,
     preferred_dense_dtype,
+    resolve_backend,
     resolve_device,
 )
 
@@ -37,9 +38,13 @@ VARIANTS = ("dr-df", "dr-nn", "pr-hmp-nn", "pp-gae")
 def build_variant(variant: str, data: TriGraphData, device=None,
                   kernel_dtype: str = "float32",
                   matmul_precision: str = "default",
-                  dims: Optional[dict] = None):
+                  dims: Optional[dict] = None, backend: str = "auto"):
     """(model, graph, test) of one reference experiment variant on
     ``device`` (default ``cuda``; raises without a GPU unless 'cpu').
+    ``backend`` (train/model.py:resolve_backend) routes DR-DF's and DR-NN's
+    sparse ops: 'pallas' (the default 'auto') through the kernels, 'xla'
+    through the JAX package's XLA branches; PR-HMP-NN and PP-GAE run no
+    kernel either way.
 
     ``dims`` overrides DDConfig's dimension fields (n_embed, n_hid1, n_hid2,
     num_base) for dr-df / dr-nn.  Their graph takes the layout
@@ -57,8 +62,9 @@ def build_variant(variant: str, data: TriGraphData, device=None,
         graph, gs = make_dd_graph_arrays(
             data, dev, dense_dtype=dense_dtype, decoder=cfg.decoder,
             sampled=cfg.negatives == "sampled")
-        return (DDModel.for_data(cfg, gs, dev), graph,
+        return (DDModel.for_data(cfg, gs, dev, backend=backend), graph,
                 make_test_arrays(data, dev))
+    resolve_backend(backend)  # validated; the flat models have one route
     if variant == "pr-hmp-nn":
         graph, test = make_pd_graph_arrays(data, dev)
         return PDModel.for_data(PDConfig(), data, dev), graph, test

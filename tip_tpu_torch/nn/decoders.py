@@ -1,7 +1,10 @@
 """Multi-relational decoders (port of tip_tpu/nn/decoders.py:17-107,
 110-171): DistMult and the per-relation two-layer NN decoder, each with a
 flat scorer of (src, dst, relation) triples and a chunk-aligned variant of
-the chunked layout, kernels B8 and B9 (ops/sddmm2.py); and the DistMult
+the chunked layout: kernels B8 and B9 (ops/sddmm2.py) with
+``backend="pallas"``, the JAX package's XLA branches with ``backend="xla"``
+(per-slot gathers with the pad dst clamped to n - 1; the NN decoder
+through its dense (node, relation) score tables); and the DistMult
 positives' BCE over the full count pages, which the sampled-negative route
 takes on the dense layouts."""
 
@@ -34,13 +37,41 @@ def distmult_apply(params, z, src, dst, edge_type, sigmoid: bool = True):
                           sigmoid=sigmoid)
 
 
+def _flat_slots(z, src2d, dst2d, chunk_type):
+    """(src, dst, et) of every slot, flat; pad dst (= n) clamped to n - 1,
+    whose scores the caller masks."""
+    chunk = src2d.shape[1]
+    dst = torch.clamp(dst2d.reshape(-1).long(), max=z.shape[0] - 1)
+    return (src2d.reshape(-1).long(), dst,
+            torch.repeat_interleave(chunk_type.long(), chunk))
+
+
+def _rows(x, idx):
+    """x[idx] by ``index_select``, whose backward is an ``index_add_``:
+    advanced indexing's sorts millions of repeated indices on the card."""
+    return x.index_select(0, idx)
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in ("pallas", "xla"):
+        raise ValueError(f"unknown backend {backend!r}: 'pallas' or 'xla'")
+
+
 def distmult_apply_padded(params, z, src2d, dst2d, chunk_type,
-                          sigmoid: bool = True, kernel_dtype: str = "float32"):
-    """Chunk-aligned variant returning flat scores [n_chunks * chunk]; pad
-    slots (dst = n) score a logit of exactly 0."""
-    logits = distmult_logits_padded2(z, params["weight"], src2d, dst2d,
-                                     chunk_type, z.shape[0],
-                                     kernel_dtype).reshape(-1)
+                          sigmoid: bool = True, kernel_dtype: str = "float32",
+                          backend: str = "pallas"):
+    """Chunk-aligned variant returning flat scores [n_chunks * chunk].
+    'pallas': kernel B8, pad slots (dst = n) score a logit of exactly 0;
+    'xla': gathers, pad slots score garbage the caller masks."""
+    _check_backend(backend)
+    if backend == "pallas":
+        logits = distmult_logits_padded2(z, params["weight"], src2d, dst2d,
+                                         chunk_type, z.shape[0],
+                                         kernel_dtype).reshape(-1)
+    else:
+        src, dst, et = _flat_slots(z, src2d, dst2d, chunk_type)
+        logits = torch.sum(_rows(z, src) * _rows(z, dst)
+                           * _rows(params["weight"], et), dim=-1)
     return torch.sigmoid(logits) if sigmoid else logits
 
 
@@ -104,12 +135,22 @@ def nn_decoder_apply(params, z, src, dst, edge_type, sigmoid: bool = True):
 
 def nn_decoder_apply_padded(params, z, src2d, dst2d, chunk_type,
                             sigmoid: bool = True,
-                            kernel_dtype: str = "float32"):
+                            kernel_dtype: str = "float32",
+                            backend: str = "pallas"):
     """Chunk-aligned NN decoder returning flat scores [n_chunks * chunk]
-    (kernel B9); pad slots score their pad src, so the caller masks
-    them."""
+    (kernel B9 with 'pallas'; the dense (node, relation) score tables and
+    scalar gathers with 'xla'); pad slots score garbage, so the caller
+    masks them."""
+    _check_backend(backend)
     h1, h2 = nn_hiddens(params, z)
-    logits = nn_logits_padded2(h1, h2, params["w1_l2"], params["w2_l2"],
-                               src2d, dst2d, chunk_type, z.shape[0],
-                               kernel_dtype).reshape(-1)
+    if backend == "pallas":
+        logits = nn_logits_padded2(h1, h2, params["w1_l2"], params["w2_l2"],
+                                   src2d, dst2d, chunk_type, z.shape[0],
+                                   kernel_dtype).reshape(-1)
+    else:
+        src, dst, et = _flat_slots(z, src2d, dst2d, chunk_type)
+        n_et = params["w1_l2"].shape[0]
+        s1 = (h1 @ params["w1_l2"].T).reshape(-1)  # [n, n_et], flat
+        s2 = (h2 @ params["w2_l2"].T).reshape(-1)
+        logits = _rows(s1, src * n_et + et) + _rows(s2, dst * n_et + et)
     return torch.sigmoid(logits) if sigmoid else logits

@@ -1,21 +1,22 @@
-"""Encoders (port of tip_tpu/nn/encoders.py:36-100, 100-218 without the
-EP branches, and 226-242).
+"""Encoders (port of tip_tpu/nn/encoders.py:36-100, 100-218 and 226-242).
 
 P-P: two GCN layers, dense over the int8 (A+I) where the graph ships it,
 else windowed over the P-P edge buffers (kernel B5, the JAX package's
-``backend="pallas"`` branch); P->D: the mean hierarchy conv; the drug
-embedding joined by concatenation (TIP-cat) or sum (TIP-add); D-D: both
-R-GCN layers from one M-first contraction over the symmetric strips or the
-full count pages where the graph ships them, else two chunked layers
-(kernel B4).  The tri-graph
-encoder takes the windowed P-P path where the JAX package's XLA backend
-takes the COO one; the COO path (:func:`pp_encoder_apply`, plain
-``index_add_``) serves PP-GAE where its dense (A+I) cannot be built.
-Under a mesh (parallel/mesh.py) with ring-sharded protein rows
-(``gs.pp_ring_shards``) the P-P GCN runs row-sharded over the ring (the
-dense row blocks where ``pp_a1r`` ships, else the COO ring, kernel B11)
-and the hierarchy completes its sum over the ring (parallel/ring.py); the
-D-D side runs only chunked there, each rank on its own chunks.
+``backend="pallas"`` branch) or, with ``backend="xla"``, over the COO
+cached normalization (:func:`pp_encoder_apply`, plain ``index_add_``, the
+JAX package's XLA branch; PP-GAE's too, where its dense (A+I) cannot be
+built); P->D: the mean hierarchy conv; the drug embedding joined by
+concatenation (TIP-cat) or sum (TIP-add); D-D: both R-GCN layers from one
+M-first contraction over the symmetric strips or the full count pages
+where the graph ships them, else two chunked layers (kernel B4, or the
+segment sum of the XLA branch).  Under a mesh (parallel/mesh.py) with
+ring-sharded protein rows (``gs.pp_ring_shards``) the P-P GCN runs
+row-sharded over the ring (the dense row blocks where ``pp_a1r`` ships,
+else the COO ring: kernel B11 with 'pallas', the ppermute ring of
+parallel/ring.py with 'xla') and the hierarchy completes its sum over the
+ring (parallel/ring.py); the D-D side runs chunked there, each rank on its
+own chunks, or on any layout once it is relation-partitioned
+(parallel/ep.py, ``gs.ep_r_max`` > 0: each rank on its relations' block).
 The P-D-only hierarchy encoder (PR-HMP-NN) embeds drugs from their
 protein targets alone.
 """
@@ -99,13 +100,22 @@ def fm_encoder_init(gen, cfg: ModelConfig, n_drug: int, n_prot: int,
 
 
 def fm_encoder_apply(params, graph, cfg: ModelConfig, gs, x_drug=None,
-                     x_prot=None, d_norm=None, mesh=None):
+                     x_prot=None, d_norm=None, mesh=None,
+                     backend: str = "pallas"):
     """Final drug embeddings z [n_drug, n_hid2]; ``gs.pp_layout`` and
     ``gs.dd_layout`` say which buffers ``graph`` carries.  ``mesh``: this
     rank's place when ``graph`` is its view of a sharded graph
-    (parallel/sharded.py:place_graph)."""
-    if mesh is not None and gs.dd_layout != "chunked":
-        raise ValueError(f"a mesh shards the chunked D-D layout, not "
+    (parallel/sharded.py:place_graph); the chunked layout, or any layout
+    once it is relation-partitioned (``gs.ep_r_max`` > 0; ``params`` then
+    hold the rank's own ``att`` rows and ``graph`` the rank's relation
+    block, train/model.py:TIP._ep_encoder_view).  ``backend``: 'pallas'
+    (the kernels) or 'xla' (the JAX package's XLA branches)."""
+    if backend not in ("pallas", "xla"):
+        raise ValueError(f"unknown backend {backend!r}: 'pallas' or 'xla'")
+    if mesh is not None and gs.dd_layout != "chunked" and not gs.ep_r_max:
+        raise ValueError(f"a mesh shards the chunked D-D layout, or a dense "
+                         f"one partitioned by relation (parallel/ep.py:"
+                         f"ep_shard_graph), not a replicated "
                          f"{gs.dd_layout!r} (parallel/sharded.py:shard_graph)")
     if mesh is not None and gs.pp_ring_shards > 0:
         if "pp_a1r" in graph:
@@ -113,13 +123,16 @@ def fm_encoder_apply(params, graph, cfg: ModelConfig, gs, x_drug=None,
                                                    mesh, x_prot)
         else:
             hp_local = ring_pp_encoder_apply(params["pp"], graph, gs, mesh,
-                                             x_prot)
+                                             x_prot, backend=backend)
         hd = ring_hierarchy_apply(params["hier"], hp_local, graph,
                                   graph["dp_deg"], gs.n_drug, mesh)
     else:
         if gs.pp_layout == "dense":
             hp = pp_encoder_apply_dense(params["pp"], x_prot, graph["pp_a1"],
                                         graph["pp_dinv"])
+        elif gs.pp_layout == "windowed" and backend == "xla":
+            hp = pp_encoder_apply(params["pp"], x_prot, graph["pp_norm_index"],
+                                  graph["pp_norm_weight"], gs.n_prot)
         elif gs.pp_layout == "windowed":
             hp = pp_encoder_apply_windowed(params["pp"], x_prot, graph, gs,
                                            cfg.kernel_dtype)
@@ -134,16 +147,17 @@ def fm_encoder_apply(params, graph, cfg: ModelConfig, gs, x_drug=None,
     x = torch.cat([xd, hd], dim=1) if cfg.mode == "cat" else xd + hd
     if gs.dd_layout == "strips":
         return dense_rgcn_pair_apply_sym(params["rgcn1"], params["rgcn2"], x,
-                                         graph["dd_adj_sym"], graph["dd_deg"])
+                                         graph["dd_adj_sym"], graph["dd_deg"],
+                                         mesh=mesh)
     if gs.dd_layout == "pages":
         return dense_rgcn_pair_apply(params["rgcn1"], params["rgcn2"], x,
-                                     graph["dd_adj_t"], graph["dd_deg"])
+                                     graph["dd_adj_t"], graph["dd_deg"],
+                                     mesh=mesh)
     dd = (graph["dd_src2d"], graph["dd_dst2d"], graph["dd_chunk_type"],
           graph["dd_deg"], gs.n_drug, gs.n_et)
-    x = torch.relu(rgcn_apply_padded(params["rgcn1"], x, *dd,
-                                     kernel_dtype=cfg.kernel_dtype, mesh=mesh))
-    return rgcn_apply_padded(params["rgcn2"], x, *dd,
-                             kernel_dtype=cfg.kernel_dtype, mesh=mesh)
+    kw = dict(kernel_dtype=cfg.kernel_dtype, mesh=mesh, backend=backend)
+    x = torch.relu(rgcn_apply_padded(params["rgcn1"], x, *dd, **kw))
+    return rgcn_apply_padded(params["rgcn2"], x, *dd, **kw)
 
 
 def hier_encoder_init(gen, source_dim: int, embed_dim: int, target_dim: int,

@@ -142,7 +142,9 @@ def dense_bce_cuda(w, z, pages, q, seed: int, grads: bool = False):
     return loss, dw, dz
 
 
-def _run(w, z, pages, q, seed, grads, u24):
+def _run(w, z, pages, q, seed, grads, u24, plain=False):
+    if plain:
+        return dense_bce_plain(w, z, pages, q, seed, grads, u24)
     if pages.is_cuda:
         if u24 is not None:
             raise ValueError("an explicit u24 field is for the plain version "
@@ -155,18 +157,18 @@ def _run(w, z, pages, q, seed, grads, u24):
 
 class _DenseBce(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w, z, pages, q, seed, u24):
+    def forward(ctx, w, z, pages, q, seed, u24, plain):
         w, z = w.float().contiguous(), z.float().contiguous()
         if not (ctx.needs_input_grad[0] or ctx.needs_input_grad[1]):
-            return _run(w, z, pages, q, seed, False, u24)
-        loss, dw, dz = _run(w, z, pages, q, seed, True, u24)
+            return _run(w, z, pages, q, seed, False, u24, plain)
+        loss, dw, dz = _run(w, z, pages, q, seed, True, u24, plain)
         ctx.save_for_backward(dw, dz)
         return loss
 
     @staticmethod
     def backward(ctx, g):
         dw, dz = ctx.saved_tensors
-        return g * dw, g * dz, None, None, None, None
+        return g * dw, g * dz, None, None, None, None, None
 
 
 def dense_bce_sum(w, z, pages, q, seed: int,
@@ -178,4 +180,18 @@ def dense_bce_sum(w, z, pages, q, seed: int,
     (poisson_neg_thresholds); seed: int (its low 32 bits key the u24
     field).  Differentiable in w and z; with a gradient needed, one fused
     pass yields (loss, dw, dz)."""
-    return _DenseBce.apply(w, z, pages, q, int(seed) & _M32, u24)
+    return _DenseBce.apply(w, z, pages, q, int(seed) & _M32, u24, False)
+
+
+def dense_bce_sum_xla(w, z, pages, q, seed: int,
+                      u24: Optional[torch.Tensor] = None):
+    """The ``backend="xla"`` route of :func:`dense_bce_sum` (port of
+    tip_tpu/ops/pallas_dense_bce.py:363 ``dense_bce_sum_xla``): the same
+    arguments and value, on CPU or CUDA tensors, no kernel."""
+    # The JAX package's XLA branch (dense_bce_sum_xla) computes the kernel's estimator
+    # by autodiff over threefry draws.  With the port's hashed u24 field in
+    # their place it is the function the plain version computes (the same
+    # cells, counts and sums; the gradient by hand, not by autodiff), so
+    # the xla route runs the plain version on any device and launches no
+    # kernel.
+    return _DenseBce.apply(w, z, pages, q, int(seed) & _M32, u24, True)

@@ -155,7 +155,9 @@ def dense_bce_nn_cuda(w1, w2, h1, h2, pages, q, seed: int,
     return loss, dw1, dw2, dh1, dh2
 
 
-def _run(w1, w2, h1, h2, pages, q, seed, grads, u24):
+def _run(w1, w2, h1, h2, pages, q, seed, grads, u24, plain=False):
+    if plain:
+        return dense_bce_nn_plain(w1, w2, h1, h2, pages, q, seed, grads, u24)
     if pages.is_cuda:
         if u24 is not None:
             raise ValueError("an explicit u24 field is for the plain version "
@@ -168,18 +170,19 @@ def _run(w1, w2, h1, h2, pages, q, seed, grads, u24):
 
 class _DenseBceNN(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w1, w2, h1, h2, pages, q, seed, u24):
+    def forward(ctx, w1, w2, h1, h2, pages, q, seed, u24, plain):
         args = [x.float().contiguous() for x in (w1, w2, h1, h2)]
         if not any(ctx.needs_input_grad[:4]):
-            return _run(*args, pages, q, seed, False, u24)
-        loss, *grads = _run(*args, pages, q, seed, True, u24)
+            return _run(*args, pages, q, seed, False, u24, plain)
+        loss, *grads = _run(*args, pages, q, seed, True, u24, plain)
         ctx.save_for_backward(*grads)
         return loss
 
     @staticmethod
     def backward(ctx, g):
         dw1, dw2, dh1, dh2 = ctx.saved_tensors
-        return g * dw1, g * dw2, g * dh1, g * dh2, None, None, None, None
+        return (g * dw1, g * dw2, g * dh1, g * dh2, None, None, None, None,
+                None)
 
 
 def dense_bce_nn_sum(w1_l2, w2_l2, h1, h2, pages, q, seed: int,
@@ -192,4 +195,19 @@ def dense_bce_nn_sum(w1_l2, w2_l2, h1, h2, pages, q, seed: int,
     thresholds; seed: int (its low 32 bits key the u24 field).
     Differentiable in w1_l2, w2_l2, h1 and h2."""
     return _DenseBceNN.apply(w1_l2, w2_l2, h1, h2, pages, q,
-                             int(seed) & _M32, u24)
+                             int(seed) & _M32, u24, False)
+
+
+def dense_bce_nn_sum_xla(w1_l2, w2_l2, h1, h2, pages, q, seed: int,
+                         u24: Optional[torch.Tensor] = None):
+    """The ``backend="xla"`` route of :func:`dense_bce_nn_sum` (port of
+    tip_tpu/ops/pallas_dense_bce_nn.py:248 ``dense_bce_nn_sum_xla``): the
+    same arguments and value, on CPU or CUDA tensors, no kernel."""
+    # The JAX package's XLA branch (dense_bce_nn_sum_xla) computes the kernel's estimator
+    # by autodiff over threefry draws.  With the port's hashed u24 field in
+    # their place it is the function the plain version computes (the same
+    # cells, counts and sums; the gradient by hand, not by autodiff), so
+    # the xla route runs the plain version on any device and launches no
+    # kernel.
+    return _DenseBceNN.apply(w1_l2, w2_l2, h1, h2, pages, q,
+                             int(seed) & _M32, u24, True)

@@ -209,7 +209,9 @@ def dense_bce_sym_cuda(w, z, pages, q8, seed: int, grads: bool = False):
     return loss, dw, dz
 
 
-def _run(w, z, pages, q8, seed, grads, u24):
+def _run(w, z, pages, q8, seed, grads, u24, plain=False):
+    if plain:
+        return dense_bce_sym_plain(w, z, pages, q8, seed, grads, u24)
     if pages.is_cuda:
         if u24 is not None:
             raise ValueError("an explicit u24 field is for the plain version "
@@ -222,17 +224,17 @@ def _run(w, z, pages, q8, seed, grads, u24):
 
 class _DenseBceSym(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w, z, pages, q8, seed, u24):
+    def forward(ctx, w, z, pages, q8, seed, u24, plain):
         if not (ctx.needs_input_grad[0] or ctx.needs_input_grad[1]):
-            return _run(w, z, pages, q8, seed, False, u24)
-        loss, dw, dz = _run(w, z, pages, q8, seed, True, u24)
+            return _run(w, z, pages, q8, seed, False, u24, plain)
+        loss, dw, dz = _run(w, z, pages, q8, seed, True, u24, plain)
         ctx.save_for_backward(dw, dz)
         return loss
 
     @staticmethod
     def backward(ctx, g):
         dw, dz = ctx.saved_tensors
-        return g * dw, g * dz, None, None, None, None
+        return g * dw, g * dz, None, None, None, None, None
 
 
 def dense_bce_sym_sum(w, z, pages, q8, seed: int,
@@ -243,4 +245,18 @@ def dense_bce_sym_sum(w, z, pages, q8, seed: int,
     (sym_strip_pack); q8 [n_et, 8] int32 (poisson_neg_thresholds_sym);
     seed: int (its low 32 bits key the u24 field).  Differentiable in w
     and z; with a gradient needed, one fused pass yields (loss, dw, dz)."""
-    return _DenseBceSym.apply(w, z, pages, q8, int(seed) & _M32, u24)
+    return _DenseBceSym.apply(w, z, pages, q8, int(seed) & _M32, u24, False)
+
+
+def dense_bce_sym_sum_xla(w, z, pages, q8, seed: int,
+                          u24: Optional[torch.Tensor] = None):
+    """The ``backend="xla"`` route of :func:`dense_bce_sym_sum` (port of
+    tip_tpu/ops/pallas_dense_bce_sym.py:354 ``dense_bce_sym_sum_xla``):
+    the same arguments and value, on CPU or CUDA tensors, no kernel."""
+    # The JAX package's XLA branch (dense_bce_sym_sum_xla) computes the kernel's estimator
+    # by autodiff over threefry draws.  With the port's hashed u24 field in
+    # their place it is the function the plain version computes (the same
+    # cells, counts and sums; the gradient by hand, not by autodiff), so
+    # the xla route runs the plain version on any device and launches no
+    # kernel.
+    return _DenseBceSym.apply(w, z, pages, q8, int(seed) & _M32, u24, True)

@@ -1,8 +1,12 @@
 """Segment reductions and edge scoring on tensors.
 
-Port of tip_tpu/ops/segment.py:24,31,55,67: ``segment_sum_sorted`` is an
+Port of tip_tpu/ops/segment.py:24,31,41,55,67: ``segment_sum_sorted`` is an
 ``index_add_`` (the ids need not be sorted here; the name keeps the
-counterpart's), ``weighted_gather_sum`` the COO SpMM over it,
+counterpart's), ``weighted_gather_sum`` the COO SpMM over it (gathers by
+``index_select``, whose backward is an ``index_add_``: advanced indexing
+sorts its repeated indices in the backward, slowly on the card),
+``typed_neighbor_sum`` the flat (relation, dst) binning of the R-GCN (the
+JAX package's XLA route; kernel B4 bins the chunked buffers),
 ``mean_from_sum`` divides by in-degree with empty means at zero
 (torch-scatter's scatter_mean convention), ``distmult_score`` is the
 DistMult gather-multiply-reduce.
@@ -24,7 +28,19 @@ def segment_sum_sorted(data: torch.Tensor, segment_ids: torch.Tensor,
 def weighted_gather_sum(x, src, dst, weight, n_nodes: int) -> torch.Tensor:
     """out[d] = sum over edges e with dst_e = d of weight_e * x[src_e]; with
     the cached GCN normalization this is A_hat @ x."""
-    return segment_sum_sorted(x[src.long()] * weight[:, None], dst, n_nodes)
+    return segment_sum_sorted(x.index_select(0, src.long()) * weight[:, None],
+                              dst, n_nodes)
+
+
+def typed_neighbor_sum(x, src, dst, edge_type, n_nodes: int,
+                       n_et: int) -> torch.Tensor:
+    """P[t, d] = sum over edges e of relation t with dst_e = d of x[src_e]:
+    [n_et, n_nodes, d_in], one segment sum over segment ids
+    t * n_nodes + dst."""
+    seg = edge_type.long() * n_nodes + dst.long()
+    flat = segment_sum_sorted(x.index_select(0, src.long()), seg,
+                              n_et * n_nodes)
+    return flat.reshape(n_et, n_nodes, x.shape[-1])
 
 
 def mean_from_sum(summed: torch.Tensor, degree: torch.Tensor) -> torch.Tensor:

@@ -40,7 +40,8 @@ from tip_tpu_torch.parallel.collectives import (
 
 # the replicated P-P and P->D buffers the ring buffers take the place of
 _REPLACED_BY_RING = ("pp_a1", "pp_dinv", "ppw_src", "ppw_dstl", "ppw_w",
-                     "ppw_chunk_window", "dp_src", "dp_dst")
+                     "ppw_chunk_window", "pp_norm_index", "pp_norm_weight",
+                     "dp_src", "dp_dst")
 
 
 def ring_shard_size(n_rows: int, n_shards: int) -> int:
@@ -187,19 +188,23 @@ def local_rows(x, mesh, n_shards: int, n_local: int):
     return x[i * n_local:(i + 1) * n_local]
 
 
-def ring_pp_encoder_apply(params, graph, gs, mesh, x_prot=None):
+def ring_pp_encoder_apply(params, graph, gs, mesh, x_prot=None,
+                          backend: str = "pallas"):
     """Row-sharded 2-layer P-P GCN over the COO ring blocks; returns
     hp_local [n_local, pp_hid2].  Identity protein features (x_prot=None):
     layer 1's weight rows are the activation table, so each rank slices its
     own rows; with features, each rank projects its own row shard.  The
     SpMM is kernel B11 on CUDA tensors (ops/ring.py:ring_spmm_rdma), its
-    plain version on CPU tensors."""
+    plain version on CPU tensors; ``backend="xla"`` takes the ppermute ring
+    (:func:`ring_spmm`) on either, as the JAX package's XLA branch."""
     from tip_tpu_torch.ops.ring import ring_spmm_rdma
 
     k, n_local = gs.pp_ring_shards, ring_shard_size(gs.n_prot, gs.pp_ring_shards)
     blocks = (graph["ppr_src"][0], graph["ppr_dstl"][0], graph["ppr_w"][0])
 
     def spmm(h):
+        if backend == "xla":
+            return ring_spmm(h, *blocks, n_local, mesh)
         return ring_spmm_rdma(h, *blocks, mesh)
 
     if x_prot is None:

@@ -13,7 +13,11 @@ draws or copies in a training step).
 
 :func:`typed_negative_sampling_chunked` (the training negatives of the
 chunked layout): one draw per slot of the chunk-aligned buffer, kernel B10
-(ops/sampler.py) on CUDA tensors, its plain version on CPU tensors.
+(ops/sampler.py) on CUDA tensors, its plain version on CPU tensors
+(``backend="pallas"``); with ``backend="xla"``, the JAX package's XLA
+branch: the flat sampler above over the slots' relations, ``rounds``
+rounds, drawn by a generator seeded with the step seed on the chunk
+buffers' device.
 """
 
 from __future__ import annotations
@@ -63,10 +67,25 @@ def typed_negative_sampling(gen: torch.Generator, edge_type, bitmap,
 
 def typed_negative_sampling_chunked(seed: int, chunk_type, bitmap,
                                     n_nodes: int, n_et: int, chunk: int,
-                                    u24=None):
-    """Negatives for a chunk-aligned buffer: (src2d, dst2d) int32
-    [n_chunks, chunk], one per slot, from the step ``seed`` (``u24``
-    replaces its draws: ops/sampler.py); on CUDA one launch of kernel B10
-    draws, resolves and splits them."""
-    return typed_negative_sampling_padded(seed, chunk_type, bitmap, n_nodes,
-                                          n_et, chunk, u24=u24, split=True)
+                                    u24=None, backend: str = "pallas",
+                                    rounds: int = 4):
+    """Negatives for a chunk-aligned buffer: (src2d, dst2d)
+    [n_chunks, chunk], one per slot, from the step ``seed``.  'pallas':
+    int32, on CUDA one launch of kernel B10 draws, resolves and splits them
+    (``u24`` replaces its draws: ops/sampler.py); 'xla': int64, the flat
+    sampler with ``rounds`` rounds (``u24`` is the kernel route's and
+    raises here)."""
+    if backend == "pallas":
+        return typed_negative_sampling_padded(seed, chunk_type, bitmap,
+                                              n_nodes, n_et, chunk, u24=u24,
+                                              split=True)
+    if backend != "xla":
+        raise ValueError(f"unknown backend {backend!r}: 'pallas' or 'xla'")
+    if u24 is not None:
+        raise ValueError("u24 draws are kernel B10's; the xla route draws "
+                         "from its own generator")
+    gen = torch.Generator(device=chunk_type.device).manual_seed(int(seed))
+    et = torch.repeat_interleave(chunk_type.long(), chunk)
+    src, dst = typed_negative_sampling(gen, et, bitmap, n_nodes, rounds)
+    shape = (chunk_type.shape[0], chunk)
+    return src.reshape(shape), dst.reshape(shape)

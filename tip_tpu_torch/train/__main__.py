@@ -12,7 +12,12 @@ of the JAX package's CLI: a float32 kernel dtype then takes the float32
 pages.  ``--checkpoint-dir``/``--checkpoint-every`` write checkpoints,
 ``--resume`` continues from one, ``--remat`` recomputes the encoder in
 the backward, ``--profile-dir`` records a trace of epochs 2-4
-(train/loop.py:train).  ``--report PATH`` writes the named per-relation
+(train/loop.py:train).  ``--backend {auto,xla,pallas}`` routes the sparse
+ops as the JAX package's flag does: 'pallas' through the hand-written
+kernels on the card (their plain versions with ``--cpu``), 'xla' through
+the ports of the JAX package's XLA branches, which launch no kernel;
+'auto' is 'pallas' here on every device (train/model.py:resolve_backend
+says why it differs from the JAX package's).  ``--report PATH`` writes the named per-relation
 metrics (analysis/report.py:write_report; json or csv), with
 ``type_{id}`` names and the plain summary where the data directory has no name maps.  The
 names and Decagon's ranks are read from ``--data-dir``, where the JAX
@@ -52,6 +57,9 @@ def main(argv=None) -> dict:
         help="drug-feature row normalization: 'ones' = the reference's "
              "shipped d_norm; 'sqrt' = the square roots of the drug "
              "features' row sums")
+    parser.add_argument(
+        "--backend", choices=["auto", "xla", "pallas"], default="auto",
+        help="sparse-ops route (auto: pallas, the kernels, on every device)")
     parser.add_argument("--profile-dir", default=None,
                         help="write a torch.profiler trace of epochs 2-4 "
                              "here")
@@ -94,7 +102,8 @@ def main(argv=None) -> dict:
     _, result = train(cfg, tcfg, data, device=device,
                       matmul_precision=os.environ.get(
                           "JAX_DEFAULT_MATMUL_PRECISION", "default"),
-                      resume=args.resume, profile_dir=args.profile_dir)
+                      resume=args.resume, profile_dir=args.profile_dir,
+                      backend=args.backend)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"final": result["final"], "history": result["history"]},

@@ -146,7 +146,7 @@ def step_seed(seed: int, epoch: int) -> int:
 def train(cfg: ModelConfig, tcfg: TrainConfig, data: TriGraphData,
           log: Callable[[str], None] = print, device=None,
           matmul_precision: str = "default", resume: Optional[str] = None,
-          profile_dir: Optional[str] = None):
+          profile_dir: Optional[str] = None, backend: str = "auto"):
     """Train TIP on a packed tri-graph on ``device`` (default ``cuda``;
     raises without a GPU unless ``device='cpu'``).  The D-D layout is the
     one ``preferred_dense_dtype`` picks for ``cfg.kernel_dtype`` and
@@ -165,8 +165,11 @@ def train(cfg: ModelConfig, tcfg: TrainConfig, data: TriGraphData,
     steps' timing.  ``tcfg.remat`` recomputes the encoder in the backward.
     ``profile_dir``: a torch.profiler trace of epochs 2-4 (CPU, and CUDA
     on the card), written there as the Chrome trace :data:`TRACE_FILE`
-    (stopped at the loop's end where the run has fewer epochs).  Returns
-    (params, {"final", "history", "per_relation"})."""
+    (stopped at the loop's end where the run has fewer epochs).
+    ``backend`` (train/model.py:resolve_backend): 'auto' and 'pallas' run
+    the hand-written kernels on the card, 'xla' the JAX package's XLA
+    branches (no kernel).  Returns (params, {"final", "history",
+    "per_relation"})."""
     dev = resolve_device(device)
     set_matmul_precision()
     dense_dtype = preferred_dense_dtype(data, cfg.kernel_dtype,
@@ -174,7 +177,7 @@ def train(cfg: ModelConfig, tcfg: TrainConfig, data: TriGraphData,
     graph, gs = make_graph_arrays(data, dev, dense_dtype=dense_dtype,
                                   sampled=cfg.negatives == "sampled",
                                   decoder=cfg.decoder)
-    model = TIP.for_data(cfg, data, gs, dev)
+    model = TIP.for_data(cfg, data, gs, dev, backend=backend)
     test = make_test_arrays(data, dev)
 
     gen = torch.Generator().manual_seed(tcfg.seed)

@@ -38,17 +38,36 @@ else windowed (``ppw_*``, kernel B5).  Parameters are nested dicts of
 tensors in the JAX package's layout; every method is a plain function of
 (params, graph).
 
-Sharded (port of tip_tpu/train/model.py:387-405 and 424-554 without the
-EP branches): ``encode`` and ``loss`` take a ``mesh``
-(parallel/mesh.py) where the JAX package takes ``axis_name``; ``graph`` is
-then this rank's view (parallel/sharded.py), chunked: each rank samples
-and scores its own chunks with the rank folded into the seed, and the
-loss sums are summed over the ranks before dividing by the global edge
-count.
+Sharded (port of tip_tpu/train/model.py:326-554): ``encode`` and ``loss``
+take a ``mesh`` (parallel/mesh.py) where the JAX package takes
+``axis_name``; ``graph`` is then this rank's view (parallel/sharded.py).
+Chunked: each rank samples and scores its own chunks with the rank folded
+into the seed, and the loss sums are summed over the ranks before dividing
+by the global edge count.  Relation-partitioned (EP, parallel/ep.py,
+``gs.ep_r_max`` > 0), on any layout: the rank's ``att`` and decoder rows
+are its relations' ([1, r_max, ...] leaves); the R-GCN contracts the
+rank's block of strips or pages, or bins the rank's chunks over its local
+relations (kernel B4 with R = r_max), and sums over the ranks; the fused
+dense BCE (B1 on the strips, B2 on the pages) scores the rank's block and
+its total is summed over the ranks before the division; the sampled route
+draws by GLOBAL relation id (B10 reads the global bitmap) and scores by
+local row (B8, B9).  B1's and B2's cell field is keyed by (seed, relation,
+row, col): under EP the relation is the rank's local slot and the seed is
+folded with the rank, so every rank draws its own stream, the counterpart
+of the JAX package's device-folded key.  The unsharded eval of an EP graph
+runs on its slot-ordered strips or pages (M is the same in any relation
+order), or, without them, gathers ``att`` back to global order through
+``ep_slot``.
+
+``backend`` (:func:`resolve_backend`): 'pallas' runs the hand-written CUDA
+kernels on CUDA tensors and their plain versions on CPU tensors; 'xla'
+runs ports of the JAX package's XLA branches (segment sums, gathers, the
+flat sampler, the COO P-P GCN, the ppermute ring), which launch no kernel.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -86,9 +105,14 @@ from tip_tpu_torch.nn.decoders import (
     nn_decoder_apply_padded,
     nn_decoder_init,
 )
-from tip_tpu_torch.ops.dense_bce import dense_bce_sum
-from tip_tpu_torch.ops.dense_bce_sym import dense_bce_sym_sum, softplus
+from tip_tpu_torch.ops.dense_bce import dense_bce_sum, dense_bce_sum_xla
+from tip_tpu_torch.ops.dense_bce_sym import (
+    dense_bce_sym_sum,
+    dense_bce_sym_sum_xla,
+    softplus,
+)
 from tip_tpu_torch.parallel.collectives import psum
+from tip_tpu_torch.parallel.ep import _DECODER_REL_LEAVES
 from tip_tpu_torch.sampling import (
     bitmap_tensor,
     typed_negative_sampling,
@@ -145,6 +169,9 @@ class GraphStatic:
     # > 0: the protein rows ring-sharded over the mesh's ring axis
     # (parallel/ring.py:add_ring_pp)
     pp_ring_shards: int = 0
+    # > 0: the relation rows EP-partitioned, r_max a rank
+    # (parallel/ep.py:ep_shard_graph)
+    ep_r_max: int = 0
 
 
 def dense_rgcn_feasible(n_drug: int, n_et: int, itemsize: int = 2) -> bool:
@@ -285,7 +312,7 @@ def make_graph_arrays(data: TriGraphData, device=None, dd_chunk: int = 1024,
     ``pp_dense`` (default: ``dense_dtype is not None``) ships
     the dense int8 (A+I) P-P parts where feasible and free of duplicates,
     else the P-P edges windowed by ``pp_window`` and padded to
-    ``pp_chunk``."""
+    ``pp_chunk`` (kernel B5) and the COO edges (``backend="xla"``)."""
     if dense_dtype not in (None, "bfloat16", "float32"):
         raise ValueError(f"dense_dtype {dense_dtype!r}: None, 'bfloat16' or "
                          "'float32'")
@@ -329,6 +356,9 @@ def make_graph_arrays(data: TriGraphData, device=None, dd_chunk: int = 1024,
             ppw_dstl=t(wpp.dst_local.reshape(npp, pp_chunk)),
             ppw_w=t(wpp.weight.reshape(npp, pp_chunk)),
             ppw_chunk_window=t(wpp.chunk_window),
+            # the COO edges of backend="xla" (nn/encoders.py)
+            pp_norm_index=t(data.pp_norm_index.astype("int64")),
+            pp_norm_weight=t(data.pp_norm_weight),
         )
     if data.drug_feat is not None:
         graph["drug_feat"] = t(data.drug_feat)
@@ -347,6 +377,23 @@ def make_graph_arrays(data: TriGraphData, device=None, dd_chunk: int = 1024,
     return graph, gs
 
 
+def relation_ordered(graph: dict, n_drug: int) -> dict:
+    """The graph with its chunk buffers in relation order: chunks by global
+    type, inert pad chunks (dst = n_drug) after their relation's real ones,
+    each relation's chunks in the order they had (a stable sort).  An EP
+    graph's chunks are device-major; its unsharded eval bins them in
+    relation order, one run a relation, as kernel B4 wants."""
+    pad = (graph["dd_dst2d"][:, 0] >= n_drug).long()
+    order = torch.argsort(graph["dd_chunk_type"].long() * 2 + pad,
+                          stable=True)
+    chunk = graph["dd_src2d"].shape[1]
+    return dict(graph, dd_src2d=graph["dd_src2d"][order],
+                dd_dst2d=graph["dd_dst2d"][order],
+                dd_chunk_type=graph["dd_chunk_type"][order],
+                dd_valid=graph["dd_valid"].reshape(-1, chunk)[order]
+                .reshape(-1))
+
+
 def make_test_arrays(data: TriGraphData, device=None) -> dict:
     src, dst = data.dd_test.edge_index
     return {
@@ -357,6 +404,23 @@ def make_test_arrays(data: TriGraphData, device=None) -> dict:
     }
 
 
+BACKENDS = ("auto", "xla", "pallas")
+
+
+def resolve_backend(requested: str = "auto") -> str:
+    """The sparse-op route: 'pallas' (the hand-written kernels on CUDA
+    tensors, their plain versions on CPU tensors) or 'xla' (the JAX
+    package's XLA branches, no kernel).  'auto' is 'pallas' on every
+    device.  The JAX package's 'auto' picks 'xla' off the TPU, because
+    there its Pallas kernels run only on the TPU (interpret mode elsewhere
+    is a test harness); the port's kernels run on the card and their plain
+    versions on the CPU, so 'pallas' runs everywhere and 'auto' never
+    takes 'xla' on a CUDA device: only a caller that names 'xla' gets it."""
+    if requested not in BACKENDS:
+        raise ValueError(f"unknown backend {requested!r}: one of {BACKENDS}")
+    return "pallas" if requested == "auto" else requested
+
+
 @dataclass(frozen=True)
 class TIP:
     """Static model description; parameters live in explicit dicts."""
@@ -364,10 +428,11 @@ class TIP:
     cfg: ModelConfig
     gs: GraphStatic
     device: torch.device
+    backend: str = "pallas"
 
     @staticmethod
     def for_data(cfg: ModelConfig, data: TriGraphData, gs: GraphStatic,
-                 device=None) -> "TIP":
+                 device=None, backend: str = "auto") -> "TIP":
         if data.n_et * bitmap_stride_bits(data.n_drug) >= 2**31:
             raise ValueError(
                 "relation-strided key space exceeds int32; enable x64 keys")
@@ -389,7 +454,8 @@ class TIP:
                     f"{gs.dd_decoder} decoder lacks what DistMult's loss "
                     "reads; pack with decoder='distmult'")
             check_negatives(cfg.negatives, gs)
-        return TIP(cfg=cfg, gs=gs, device=resolve_device(device))
+        return TIP(cfg=cfg, gs=gs, device=resolve_device(device),
+                   backend=resolve_backend(backend))
 
     def init(self, gen: torch.Generator) -> dict:
         gs = self.gs
@@ -404,6 +470,69 @@ class TIP:
                                 self.cfg.nn_decoder_l1_dim, device=self.device)),
         }
 
+    def _ep_encoder_view(self, enc_params, graph, mesh):
+        """(params, graph, gs) of an EP graph as fm_encoder_apply takes them.
+
+        Under a mesh the rank's ``att`` [1, r_max, B] is its relation
+        block: the strips and pages of the rank's view hold the same local
+        rows; the chunked layer bins by the view's chunk bins over
+        R = r_max and takes the rows in bin order (parallel/ep.py:
+        local_bins).  Unsharded (the eval): the strips or pages are in slot
+        order and M = sum_t att[t] DA[t] is the same in any relation order
+        (padding slots: zero rows against zero pages), so ``att`` is
+        reshaped to slot order as it is; without them ``att`` is gathered
+        back to global order through ``ep_slot`` and the chunks are put in
+        relation order (:func:`relation_ordered`)."""
+        gs = self.gs
+        if mesh is not None:
+            if gs.dd_layout == "chunked":
+                if "dd_chunk_bin" not in graph:
+                    raise ValueError("an EP rank view without chunk bins: "
+                                     "place it with place_graph(graph, mesh, "
+                                     "gs)")
+                rel = graph["ep_bin_rel"]
+                graph = dict(graph, dd_chunk_type=graph["dd_chunk_bin"])
+
+                def fix(att):
+                    return att[0][rel]
+            else:
+                def fix(att):
+                    return att[0]
+            gs = dataclasses.replace(gs, n_et=gs.ep_r_max)
+        elif gs.dd_layout != "chunked":
+            def fix(att):
+                return att.reshape(-1, att.shape[-1])
+        else:
+            slot = graph["ep_slot"].long()
+            graph = relation_ordered(graph, gs.n_drug)
+
+            def fix(att):
+                return att.reshape(-1, att.shape[-1])[slot]
+        out = dict(enc_params)
+        for name in ("rgcn1", "rgcn2"):
+            out[name] = dict(enc_params[name],
+                             att=fix(enc_params[name]["att"]))
+        return out, graph, gs
+
+    def _ep_decoder_view(self, dec_params, graph, mesh):
+        """The relation-row decoder leaves of EP params (DistMult
+        ``weight``; the NN decoder's ``w1_l2``/``w2_l2``) as the scorers
+        take them: under a mesh the rank's rows in bin order (the view's
+        ``ep_bin_rel``), unsharded the global order through ``ep_slot``."""
+        if mesh is not None:
+            rel = graph["ep_bin_rel"]
+
+            def fix(w):
+                return w[0][rel]
+        else:
+            slot = graph["ep_slot"].long()
+
+            def fix(w):
+                return w.reshape(-1, w.shape[-1])[slot]
+        return dict(dec_params, **{k: fix(dec_params[k])
+                                   for k in _DECODER_REL_LEAVES
+                                   if k in dec_params})
+
     def encode(self, params, graph, mesh=None, remat: bool = False):
         """Drug embeddings z [n_drug, n_hid2] from the training graph (this
         rank's view of it under ``mesh``; z is replicated).  ``remat``
@@ -411,19 +540,25 @@ class TIP:
         runs the encoder again (its kernels launch twice): memory for
         compute, as ``jax.checkpoint`` in the JAX package.  Not under a
         ``mesh``, whose recompute would repeat the collectives."""
+        enc_params, gs = params["encoder"], self.gs
+        if gs.ep_r_max:
+            enc_params, graph, gs = self._ep_encoder_view(enc_params, graph,
+                                                          mesh)
+
         def enc(p):
-            return fm_encoder_apply(p, graph, self.cfg, self.gs,
+            return fm_encoder_apply(p, graph, self.cfg, gs,
                                     x_drug=graph.get("drug_feat"),
-                                    d_norm=graph.get("d_norm"), mesh=mesh)
+                                    d_norm=graph.get("d_norm"), mesh=mesh,
+                                    backend=self.backend)
 
         if not remat:
-            return enc(params["encoder"])
+            return enc(enc_params)
         if mesh is not None:
             raise NotImplementedError(
                 "remat under a mesh: the recompute would run the encoder's "
                 "collectives again inside the backward; train sharded "
                 "without remat")
-        return torch.utils.checkpoint.checkpoint(enc, params["encoder"],
+        return torch.utils.checkpoint.checkpoint(enc, enc_params,
                                                  use_reentrant=False)
 
     def score(self, params, z, src, dst, et, sigmoid: bool = True):
@@ -434,63 +569,82 @@ class TIP:
 
     def score_padded(self, params, z, src2d, dst2d, chunk_type, sigmoid=True):
         """Flat scores [n_chunks * chunk] of a chunk-aligned buffer (kernel
-        B8 for DistMult, B9 for the NN decoder)."""
+        B8 for DistMult, B9 for the NN decoder; gathers with 'xla')."""
         apply = (distmult_apply_padded if self.cfg.decoder == "distmult"
                  else nn_decoder_apply_padded)
         return apply(params["decoder"], z, src2d, dst2d, chunk_type, sigmoid,
-                     kernel_dtype=self.cfg.kernel_dtype)
+                     kernel_dtype=self.cfg.kernel_dtype, backend=self.backend)
 
     def loss(self, params, graph, seed: int, u24=None, mesh=None,
              remat: bool = False):
         """Mean BCE over the train edges.  ``seed`` (uint32) keys the
         negatives; ``u24`` replaces their random bits: the fused dense
         BCEs' cell field (CPU only), or the sampler's draws (kernel B10
-        reads them on the card).
+        reads them on the card; not the xla route's).
 
         DistMult on the strips or pages with ``negatives`` auto or poisson:
         positives plus Poissonized negatives from the fused dense BCE,
         kernel B1 on the strips, B2 on the pages (``u24`` is its cell
-        field).  Otherwise (the chunked layout, ``negatives="sampled"``, or
-        the NN decoder): one sampled negative per slot (kernel B10; ``u24``
-        is the sampler's [n_chunks, 1, draws * chunk] draws) scored by the
-        decoder's SDDMM (kernel B8 or B9), positives scored by it over the
-        chunk buffers, except DistMult's on the dense layouts, which are
-        scored over the full pages; softplus terms of slots masked by
-        ``dd_valid``.
+        field).  Otherwise (the chunked layout, ``negatives="sampled"``, the
+        NN decoder, or an EP graph unsharded): one sampled negative per
+        slot (kernel B10; ``u24`` is the sampler's [n_chunks, 1, draws *
+        chunk] draws) scored by the decoder's SDDMM (kernel B8 or B9),
+        positives scored by it over the chunk buffers, except DistMult's on
+        the dense layouts without EP, which are scored over the full pages;
+        softplus terms of slots masked by ``dd_valid``.
 
-        Under ``mesh``: the chunked layout only; ``graph`` is this rank's
-        view, the sampler's seed is folded with the rank (``u24``: this
-        rank's slice of the draws), and the masked sums are summed over the
+        Under ``mesh``: the chunked layout, or any EP-laid one; ``graph``
+        is this rank's view, the seed is folded with the rank (``u24``:
+        this rank's slice of the draws), and the sums are summed over the
         ranks before the division, so every rank returns the same loss.
         ``remat``: see :meth:`encode`."""
-        gs = self.gs
+        gs, cfg = self.gs, self.cfg
+        ep = gs.ep_r_max > 0
         if mesh is not None:
             seed = fold_seed(seed, mesh.rank)
         z = self.encode(params, graph, mesh, remat=remat)
-        if (gs.dd_layout != "chunked" and self.cfg.decoder == "distmult"
-                and self.cfg.negatives != "sampled"):
+        if (gs.dd_layout != "chunked" and cfg.decoder == "distmult"
+                and cfg.negatives != "sampled" and (mesh is None) != ep):
             w = params["decoder"]["weight"]
+            if ep:
+                w = w[0]  # the rank's rows, in the order of its pages
+            xla = self.backend == "xla"
             if gs.dd_layout == "strips":
-                total = dense_bce_sym_sum(w, z, graph["dd_adj_sym"],
-                                          graph["dd_neg_q8"], seed, u24=u24)
+                bce = dense_bce_sym_sum_xla if xla else dense_bce_sym_sum
+                total = bce(w, z, graph["dd_adj_sym"], graph["dd_neg_q8"],
+                            seed, u24=u24)
             else:
-                total = dense_bce_sum(w, z, graph["dd_adj_t"],
-                                      graph["dd_neg_q"], seed, u24=u24)
+                bce = dense_bce_sum_xla if xla else dense_bce_sum
+                total = bce(w, z, graph["dd_adj_t"], graph["dd_neg_q"], seed,
+                            u24=u24)
+            if mesh is not None:
+                total = psum(total)
             return total / float(gs.dd_n_valid)
-        ct = graph["dd_chunk_type"]
+        if cfg.negatives == "poisson":
+            raise ValueError(POISSON_NEEDS_DENSE)
+        dec_params, score_ct = params, graph["dd_chunk_type"]
+        if ep:
+            if mesh is None:
+                graph = relation_ordered(graph, gs.n_drug)
+                score_ct = graph["dd_chunk_type"]
+            else:
+                score_ct = graph["dd_chunk_bin"]
+            dec_params = dict(params, decoder=self._ep_decoder_view(
+                params["decoder"], graph, mesh))
+        # sampled by GLOBAL relation id: the bitmap's layout
         neg_src2d, neg_dst2d = typed_negative_sampling_chunked(
-            seed, ct, graph["dd_bitmap"], gs.n_drug, gs.n_et, gs.dd_chunk,
-            u24=u24)
+            seed, graph["dd_chunk_type"], graph["dd_bitmap"], gs.n_drug,
+            gs.n_et, gs.dd_chunk, u24=u24, backend=self.backend)
         valid = graph["dd_valid"]
-        if gs.dd_layout == "chunked" or self.cfg.decoder == "nn":
-            pos = self.score_padded(params, z, graph["dd_src2d"],
-                                    graph["dd_dst2d"], ct, sigmoid=False)
+        if gs.dd_layout == "chunked" or cfg.decoder == "nn" or ep:
+            pos = self.score_padded(dec_params, z, graph["dd_src2d"],
+                                    graph["dd_dst2d"], score_ct, sigmoid=False)
             pos_sum = torch.sum(softplus(-pos) * valid)
         else:
             pos_sum = distmult_dense_pos_bce_sum(
                 params["decoder"]["weight"], z, graph["dd_adj_t"],
-                kernel_dtype=self.cfg.kernel_dtype)
-        neg = self.score_padded(params, z, neg_src2d, neg_dst2d, ct,
+                kernel_dtype=cfg.kernel_dtype)
+        neg = self.score_padded(dec_params, z, neg_src2d, neg_dst2d, score_ct,
                                 sigmoid=False)
         total = pos_sum + torch.sum(softplus(neg) * valid)
         if mesh is not None:
@@ -505,8 +659,13 @@ class TIP:
     @torch.no_grad()
     def evaluate(self, params, graph, test, test_neg):
         """Per-relation + macro AUPRC/AUROC/AP on the test split; the
-        encoder runs on the train graph and test edges are only scored."""
+        encoder runs on the train graph and test edges are only scored.  An
+        EP graph is evaluated whole: its params in the [n_dev, r_max, ...]
+        layout (parallel/ep.py:gather_params), no mesh."""
         z = self.encode(params, graph)
+        if self.gs.ep_r_max:
+            params = dict(params, decoder=self._ep_decoder_view(
+                params["decoder"], graph, None))
         pos = self.score(params, z, test["src"], test["dst"], test["et"])
         neg = self.score(params, z, test_neg["src"], test_neg["dst"],
                          test["et"])
