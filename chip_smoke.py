@@ -5,7 +5,8 @@
 
 Phases, each fatal on failure:
   1. print the card (nvidia-smi name and power limit) and torch/CUDA versions;
-  2. build every CUDA kernel from tip_tpu_torch/csrc with nvcc, in parallel;
+  2. build every CUDA kernel from tip_tpu_torch/csrc with nvcc, in parallel,
+     and the native packing library (tip_tpu_torch/native) with g++;
   3. hold the whole training loss and its gradients on the GPU against the
      same slice on the CPU, on a small graph: TIP-cat and DR-NN on the
      strips and the chunked layout, TIP-cat and DR-DF on the float32 full
@@ -19,7 +20,10 @@ Phases, each fatal on failure:
      against the result, and the Dice matrix of 645 x 32,768 folded counts
      on the card, bit-equal to the CPU's; a ``data:`` line;
   4. build a Decagon-shaped synthetic tri-graph (645 drugs, 19,081
-     proteins, 1,097 relations), pack it in both layouts, and hold each
+     proteins, 1,097 relations) and pack it on the host through the native
+     packing library (tip_tpu_torch/native) and through its plain numpy
+     versions, bit-equal, a ``native:`` line with the seconds of each
+     (run_native_packing); pack it in both layouts, and hold each
      kernel against its plain PyTorch version (KERNEL_CHECKS: B1 on the
      dense strips, B2 on the full float32 and bf16 pages and B3 on DR-NN's
      uint8, bf16 and float32 pages, the dense paths' shapes, B2 and B3
@@ -2566,6 +2570,82 @@ def _graphs_equal(a, b) -> bool:
     return True
 
 
+def run_native_packing(raw, card: str):
+    """The Decagon-shaped packing (build_trigraph) on this machine's host
+    through the native library (tip_tpu_torch/native, the main path) and
+    through its plain numpy versions (native.plain_versions), alternating
+    library, plain, plain, library; the graphs must be bit-equal.  Then
+    each of the four entry points alone on the packed graph's own inputs,
+    both ways (best of 3).  Prints a ``native:`` line; returns the
+    library's graph and its first packing's seconds."""
+    import numpy as np
+
+    from tip_tpu_torch import native
+    from tip_tpu_torch.data import build_trigraph, packing
+
+    graphs, secs = {}, {"library": [], "plain": []}
+    for way in ("library", "plain", "plain", "library"):
+        t0 = time.perf_counter()
+        if way == "plain":
+            with native.plain_versions():
+                g = build_trigraph(raw, 0.9, 1111)
+        else:
+            g = build_trigraph(raw, 0.9, 1111)
+        secs[way].append(time.perf_counter() - t0)
+        if way in graphs:
+            check(_graphs_equal(g, graphs[way]), f"native: {way} repacks alike")
+        graphs[way] = g
+        del g
+    check(_graphs_equal(graphs["library"], graphs["plain"]),
+          "native: the library's graph is the plain versions' bit for bit")
+    data = graphs.pop("library")
+    del graphs
+    tr = data.dd_train
+    src, dst = tr.edge_index
+    n = data.n_drug
+    stride = packing.bitmap_stride_bits(n)
+    keys = tr.edge_type.astype(np.int64) * stride + dst.astype(np.int64) * n + src
+    counts = tr.counts()
+    padded = np.maximum(1, -(-counts // 512)) * 512
+    outs = np.cumsum(padded) - padded
+    calls = {
+        "sort_edges_order": lambda: native.sort_edges_order(
+            tr.edge_type, dst, src, n),
+        "build_bitmap": lambda: native.build_bitmap(keys, data.n_et * stride),
+        "pad_typed_fill": lambda: native.pad_typed_fill(
+            src, dst, tr.range_list, outs, int(padded.sum()), n),
+        "bincount_i32": lambda: native.bincount_i32(dst, n),
+    }
+    alone = {}
+    for name, call in calls.items():
+        times = {}
+        for way in ("library", "plain"):
+            best = float("inf")
+            for _ in range(3):
+                t0 = time.perf_counter()
+                if way == "plain":
+                    with native.plain_versions():
+                        out = call()
+                else:
+                    out = call()
+                best = min(best, time.perf_counter() - t0)
+            times[way] = (best, out)
+        a, b = times["library"][1], times["plain"][1]
+        same = all(np.array_equal(x, y) and x.dtype == y.dtype
+                   for x, y in zip(a if isinstance(a, tuple) else (a,),
+                                   b if isinstance(b, tuple) else (b,)))
+        check(same, f"native: {name} equals its plain version")
+        alone[name] = {"library_s": times["library"][0],
+                       "plain_s": times["plain"][0]}
+    rep = {"card": card, "host_cpus": os.cpu_count(),
+           "dd_train_edges": tr.n_edges,
+           "build_trigraph_library_s": secs["library"],
+           "build_trigraph_plain_s": secs["plain"], "bit_equal": True,
+           "alone": alone}
+    print("native:", json.dumps(rep))
+    return data, secs["library"][0]
+
+
 def dice_counts(n_drug: int, seed: int = 0):
     """Folded counted fingerprints [n_drug, DICE_BITS] of random molecules:
     20-120 environment identifiers each, counts 1-6."""
@@ -2728,7 +2808,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    from tip_tpu_torch import kernels
+    from tip_tpu_torch import kernels, native
     from tip_tpu_torch.data import build_trigraph, synthetic_trigraph
     from tip_tpu_torch.ops.matmul import set_matmul_precision
     from tip_tpu_torch.scripts.decoder_ab import DECAGON_SHAPE
@@ -2755,6 +2835,9 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}")
     print(f"built {sorted(logs)} in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    print(f"built the native packing library {native.load()._name} in "
+          f"{time.time() - t0:.1f} s")
     mark("build")
 
     for kind, dense_dtype, negatives, pp_dense in (
@@ -2770,9 +2853,10 @@ def main() -> int:
     run_data_path(dev, card)
     mark("data")
 
-    t0 = time.time()
-    data = build_trigraph(synthetic_trigraph(**DECAGON_SHAPE), 0.9, 1111)
-    print("graph:", json.dumps(graph_summary(data, time.time() - t0)))
+    data, build_sec = run_native_packing(synthetic_trigraph(**DECAGON_SHAPE),
+                                         card)
+    mark("native packing")
+    print("graph:", json.dumps(graph_summary(data, build_sec)))
     checks = {}
     for layout, kw in (("dense", {"dense_dtype": "bfloat16"}),
                        ("chunked", {"dense_dtype": None, "pp_dense": False})):

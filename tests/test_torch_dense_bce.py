@@ -23,7 +23,7 @@ from tip_tpu.data import build_trigraph, synthetic_trigraph
 from tip_tpu.data.packing import dense_relation_adj
 from tip_tpu.ops.pallas_dense_bce import dense_bce_sum
 from tests.torch_tile_math import (
-    PLAIN_ULPS, assert_readings, diagnosis, digest, digests, mma,
+    PLAIN_ULPS, assert_readings, diagnosis, digest, digests, mkl_vml_ops, mma,
     op_divergence, recorded, softplus_sigmoid, split, tf32,
 )
 from tip_tpu_torch import kernels
@@ -123,9 +123,7 @@ def test_plain_u24_zero_matches_jax_interpret_kernel(setup, dtype):
     assert_readings(
         names, port_out, jax_out, oracle, sabs, PLAIN_ULPS,
         lambda: diagnosis(
-            lambda: _torch_value_and_grads(
-                w.copy(), z.copy(), pages_tensor(da.copy(), dtype), q.copy(),
-                seed=3, u24=torch.zeros((), dtype=torch.int64)),
+            lambda: _fresh_call(w, z, da, q, dtype),
             names, oracle, sabs, PLAIN_ULPS,
             dict(built, **{f"port {k} (before the JAX call)": v
                            for k, v in port_digests.items()}),
@@ -134,6 +132,32 @@ def test_plain_u24_zero_matches_jax_interpret_kernel(setup, dtype):
                     zip(names, (np.float64(port_out[0]), *port_out[1:]))}),
             cells, first_call))
     assert not moved, f"the JAX call changed the port's outputs {moved}"
+
+
+def _fresh_call(w, z, da, q, dtype):
+    """Fresh copies of the u24 = 0 test's inputs, built here, and the
+    port's call on them, made as the first call was (only the call is
+    recorded, so the two op streams start alike)."""
+    w, z, q = w.copy(), z.copy(), q.copy()
+    pages = pages_tensor(da.copy(), dtype)
+    return lambda: _torch_value_and_grads(
+        w, z, pages, q, seed=3, u24=torch.zeros((), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("u24", ["zero", "hashed"])
+def test_plain_version_calls_no_mkl_vml_function(setup, u24):
+    """The plain version's value and gradients call no function that torch
+    runs through MKL's VML on the CPU (torch_tile_math.MKL_VML_OPS): the
+    first parallel exp of a process there returned one thread's share of
+    softplus at about half of float32's precision, the drift of this
+    file's u24 = 0 test (ROADMAP Queue C)."""
+    _, da, q, w, z = setup
+    pages = pages_tensor(da, "float32")
+    field = torch.zeros((), dtype=torch.int64) if u24 == "zero" else None
+    _, record = recorded(lambda: _torch_value_and_grads(w, z, pages, q, 3,
+                                                        u24=field))
+    assert mkl_vml_ops(record) == []
+    assert any(f.startswith("aten.softplus") for f, _, _ in record["ops"])
 
 
 def test_diagnosis_names_a_tensor_written_between_ops():
@@ -154,12 +178,56 @@ def test_diagnosis_names_a_tensor_written_between_ops():
     again_value, again = recorded(lambda: call(False))
     assert value != again_value
     text = op_divergence(first, again)
-    assert "op 1 aten.exp.default: outputs differ" in text
+    assert "op 1 aten.exp.default (recomputation's op 1): outputs differ" \
+        in text
     assert "(op 0)" in text  # it read aten.neg's output
     assert first["ops"][2][1][0] == first["ops"][1][2][0][0]  # mul reads it
     assert first["threads"][0] == "MainThread" and first["native_threads"] > 0
-    assert "left equal bytes" in op_divergence(
+    assert "aligned ops left equal bytes" in op_divergence(
         again, recorded(lambda: call(False))[1])
+
+
+@pytest.mark.parametrize("case", ["prefix", "gap"])
+def test_diagnosis_names_the_altered_op_past_unaligned_ops(case):
+    """The record's op streams need not start or run alike: with the
+    recomputation's inputs built inside its recorded call (a prefix of
+    ops the first call lacks, as in the u24 tests before their inputs
+    moved out) or one op more in the middle of the first call,
+    ``op_divergence`` aligns the two by op name, counts the ops it
+    skipped, and still names the op whose output a stray write altered
+    and the op that wrote its input."""
+    xs = np.arange(8, dtype=np.float32)
+    x = torch.from_numpy(xs.copy())
+
+    def call(x, stray: bool, extra: bool):
+        y = -x
+        if extra:  # an op the other call does not run
+            torch.zeros(3)
+        sp = torch.exp(y)
+        if stray:
+            ctypes.c_float.from_address(sp.data_ptr() + 12).value += 0.5
+        return torch.sum(sp * 2.0).item()
+
+    value, first = recorded(lambda: call(x, True, case == "gap"))
+    if case == "prefix":
+        again_value, again = recorded(
+            lambda: call(torch.tensor(xs.copy()) + 0.0, False, False))
+        assert len(again["ops"]) > len(first["ops"])
+    else:
+        again_value, again = recorded(lambda: call(x, False, False))
+        assert len(again["ops"]) < len(first["ops"])
+    assert value != again_value
+    assert first["ops"][0][0] != again["ops"][0][0] or case == "gap"
+    text = op_divergence(first, again)
+    n_a, n_b = len(first["ops"]), len(again["ops"])
+    assert f"{n_a} ops in the first call, {n_b} in the recomputation" in text
+    assert f"skipped {max(n_a - n_b, 0)} and {max(n_b - n_a, 0)}" in text
+    k = next(i for i, (f, _, _) in enumerate(first["ops"])
+             if f == "aten.exp.default")
+    assert f"op {k} aten.exp.default (recomputation's op" in text
+    assert "outputs differ" in text
+    assert "(op 0)" in text  # it read aten.neg's output, the first op
+    assert "settings at the first call: torch " in text
 
 
 def _oracle(w, z, da, cnt, abs_sums: bool = False):

@@ -24,7 +24,8 @@ from tip_tpu.data import build_trigraph, synthetic_trigraph
 from tip_tpu.data.packing import dense_relation_adj, pad_dense_adj
 from tip_tpu.ops.pallas_dense_bce_nn import dense_bce_nn_sum
 from tests.torch_tile_math import (
-    PLAIN_ULPS_NN, assert_readings, diagnosis, digest, digests, recorded,
+    PLAIN_ULPS_NN, assert_readings, diagnosis, digest, digests, mkl_vml_ops,
+    recorded,
 )
 from tip_tpu_torch import kernels
 from tip_tpu_torch.data.packing import cast_dense_adj, poisson_neg_thresholds
@@ -86,6 +87,19 @@ def _digests_of(port_out):
         for k, v in zip(_NAMES, port_out)})
 
 
+def _fresh_call(args, pages, q):
+    """Fresh copies of the u24 = 0 test's inputs, built here, and the
+    port's call on them, made as the first call was (only the call is
+    recorded, so the two op streams start alike)."""
+    args, pages, q = [a.copy() for a in args], pages.copy(), q.copy()
+
+    def call():
+        value, grads = _torch_value_and_grads(
+            args, pages, q, seed=3, u24=torch.zeros((), dtype=torch.int64))
+        return (value, *grads)
+    return call
+
+
 def _check_u24_zero(port_out, jax_out, args, da, pages, q, built, before,
                     first_call):
     """The port's plain version and the JAX kernel under u24 = 0, each
@@ -121,9 +135,7 @@ def _check_u24_zero(port_out, jax_out, args, da, pages, q, built, before,
     assert_readings(
         _NAMES, port_out, jax_out, oracle, sabs, PLAIN_ULPS_NN,
         lambda: diagnosis(
-            lambda: (lambda v, g: (v, *g))(*_torch_value_and_grads(
-                [a.copy() for a in args], pages.copy(), q.copy(), seed=3,
-                u24=torch.zeros((), dtype=torch.int64))),
+            lambda: _fresh_call(args, pages, q),
             _NAMES, oracle, sabs, PLAIN_ULPS_NN, dict(built, **before),
             dict(inputs, **{f"port {k} (before the JAX call)": np.asarray(
                 v, np.float64 if k == "value" else np.float32)
@@ -144,6 +156,19 @@ def test_plain_u24_zero_matches_jax_interpret_kernel(setup):
         args, pages, q, jnp.asarray(pad_dense_adj(da.astype(np.float32))))
     _check_u24_zero(port_out, jax_out, args, da, pages, q, _BUILT, before,
                     first_call)
+
+
+@pytest.mark.parametrize("u24", ["zero", "hashed"])
+def test_plain_version_calls_no_mkl_vml_function(setup, u24):
+    """The plain version's value and gradients call no function that torch
+    runs through MKL's VML on the CPU (torch_tile_math.MKL_VML_OPS): the
+    first parallel exp of a process there can return one thread's share
+    at about half of float32's precision (ROADMAP Queue C)."""
+    _, _, pages, q, args = setup
+    field = torch.zeros((), dtype=torch.int64) if u24 == "zero" else None
+    _, record = recorded(lambda: _torch_value_and_grads(args, pages, q, 3,
+                                                        u24=field))
+    assert mkl_vml_ops(record) == []
 
 
 def _oracle(args, da, cnt, abs_sums: bool = False):

@@ -25,7 +25,8 @@ from tip_tpu.data.packing import (
 )
 from tip_tpu.ops.pallas_dense_bce_sym import dense_bce_sym_sum
 from tests.torch_tile_math import (
-    PLAIN_ULPS, assert_readings, diagnosis, digests, mma, recorded, split,
+    PLAIN_ULPS, assert_readings, diagnosis, digests, mkl_vml_ops, mma,
+    recorded, split,
 )
 from tip_tpu_torch import kernels
 from tip_tpu_torch.ops import dense_bce_sym as port
@@ -149,9 +150,7 @@ def test_plain_u24_zero_matches_jax_interpret_kernel(setup):
     assert_readings(
         names, port_out, jax_out, oracle, sabs, PLAIN_ULPS,
         lambda: diagnosis(
-            lambda: _torch_value_and_grads(
-                w.copy(), z.copy(), pages.copy(), q8.copy(), seed=5,
-                u24=torch.zeros((), dtype=torch.int64)),
+            lambda: _fresh_call(w, z, pages, q8),
             names, oracle, sabs, PLAIN_ULPS,
             dict(_BUILT, **{f"port {k} (before the JAX call)": v
                             for k, v in port_digests.items()}),
@@ -160,6 +159,30 @@ def test_plain_u24_zero_matches_jax_interpret_kernel(setup):
                     zip(names, (np.float64(port_out[0]), *port_out[1:]))}),
             cells, first_call))
     assert not moved, f"the JAX call changed the port's outputs {moved}"
+
+
+def _fresh_call(w, z, pages, q8):
+    """Fresh copies of the u24 = 0 test's inputs, built here, and the
+    port's call on them, made as the first call was (only the call is
+    recorded, so the two op streams start alike)."""
+    w, z, pages, q8 = w.copy(), z.copy(), pages.copy(), q8.copy()
+    return lambda: _torch_value_and_grads(
+        w, z, pages, q8, seed=5, u24=torch.zeros((), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("u24", ["zero", "hashed"])
+def test_plain_version_calls_no_mkl_vml_function(setup, u24):
+    """The plain version's value and gradients call no function that torch
+    runs through MKL's VML on the CPU (torch_tile_math.MKL_VML_OPS): the
+    first parallel exp of a process there can return one thread's share
+    at about half of float32's precision (ROADMAP Queue C; B1's dw drifted
+    so).  sigmoid(-L) = 1 - exp(-softplus(-L)) is taken by expm1."""
+    _, _, pages, q8, w, z = setup
+    field = torch.zeros((), dtype=torch.int64) if u24 == "zero" else None
+    _, record = recorded(lambda: _torch_value_and_grads(w, z, pages, q8, 5,
+                                                        u24=field))
+    assert mkl_vml_ops(record) == []
+    assert any(f.startswith("aten.expm1") for f, _, _ in record["ops"])
 
 
 @pytest.mark.parametrize("mode", ["positives_only", "saturated"])

@@ -18,9 +18,10 @@ shared by the tests of kernels B1, B2 and B3.
   recomputation from fresh copies of the inputs, the inputs' digests
   against those taken when the fixture built them, the terms of the
   cell with the largest error, and, against the first call's record
-  (``recorded``: the live threads and the digests of each ATen op's
-  outputs as the call left them), the first op where the recomputation
-  parts from it).
+  (``recorded``: the live threads, the process settings and the digests
+  of each ATen op's outputs as the call left them), the settings that
+  moved and the first op, of those the two calls' op streams align on,
+  where the recomputation parts from it).
 """
 
 import hashlib
@@ -33,8 +34,9 @@ U32 = 2.0 ** -24  # unit roundoff of float32
 # oracles, bit-stable over thread counts and MKL's and ATen's CPU kernels:
 # they read <= 1.1 on B1's and B2's inputs (PLAIN_ULPS) and <= 6.9 on B3's
 # (<= 8.5 under MKL_CBWR=COMPATIBLE; PLAIN_ULPS_NN), so a drift like those
-# seen under pytest-xdist (B1's dw at 18.8, B2's value at 61.6; cause not
-# found) fails and prints its readings and diagnosis.  The JAX interpret kernels against the oracles
+# seen under pytest-xdist (B1's dw at 18.8, B2's value at 61.6 and 65.3:
+# MKL's first parallel exp, MKL_VML_OPS below) fails and prints its
+# readings and diagnosis.  The JAX interpret kernels against the oracles
 # read <= 7.9, and the port against them <= 10.6 (JAX_ULPS).
 PLAIN_ULPS = 8
 PLAIN_ULPS_NN = 16
@@ -110,13 +112,88 @@ def sum_bound_reading(got, want, sabs):
         float(want[at]), float(sabs[at])
 
 
-def _torch_settings() -> str:
+def _cpu_model() -> str:
+    """The CPU's model name and its bf16/AMX flags, from /proc/cpuinfo."""
+    model, flags = "unknown", []
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                k, _, v = line.partition(":")
+                if k.strip() == "model name" and model == "unknown":
+                    model = v.strip()
+                elif k.strip() == "flags":
+                    flags = [x for x in v.split()
+                             if x == "avx512_bf16" or x.startswith("amx")]
+                    break
+    except OSError:
+        pass
+    return f"{model} [{' '.join(flags) or 'no avx512_bf16/amx'}]"
+
+
+def _denormals() -> str:
+    """Whether this thread's float unit flushes denormal results to zero
+    (FTZ) and reads denormal inputs as zero (DAZ), probed with numpy."""
+    f = np.float32
+    with np.errstate(all="ignore"):
+        ftz = (np.array([1e-30], f) * f(1e-10))[0] == 0
+        daz = (np.array([1e-39], f) * f(1.0))[0] == 0
+    return f"FTZ {'on' if ftz else 'off'}, DAZ {'on' if daz else 'off'}"
+
+
+def _tipcore_state() -> str:
+    """Whether the JAX package's native packing library loaded in this
+    process, without calling it (its build is not safe to enter twice)."""
+    import datetime
+    import os
+    import sys
+
+    mod = sys.modules.get("tip_tpu.native")
+    if mod is None:
+        return "tip_tpu.native not imported"
+    so = getattr(mod, "_SO", "")
+    try:
+        age = "written " + datetime.datetime.fromtimestamp(
+            os.path.getmtime(so)).strftime("%H:%M:%S.%f")[:-3]
+    except OSError:
+        age = "absent"
+    if getattr(mod, "_lib", None) is not None:
+        state = "loaded"
+    elif getattr(mod, "_tried", False):
+        state = "fell back to numpy"
+    else:
+        state = "not yet asked for"
+    return f"tip_tpu.native {state}; its library {age}"
+
+
+def process_settings() -> dict:
+    """What the port's plain float32 arithmetic may depend on and a freshly
+    started machine may set differently: torch's build, threads and CPU
+    dispatch, the CPU, the OpenMP/MKL environment, denormal handling, the
+    load, and the native library's state.  Reads no tensor."""
+    import os
+
     import torch
 
-    return (f"torch {torch.__version__}, {torch.get_num_threads()} threads, "
-            f"CPU capability {torch.backends.cpu.get_cpu_capability()}, "
-            f"float32 matmul precision "
-            f"{torch.get_float32_matmul_precision()}")
+    env = {k: v for k, v in sorted(os.environ.items())
+           if k.startswith(("OMP_", "MKL_", "KMP_", "GOMP_", "OPENBLAS_"))}
+    return {
+        "torch": torch.__version__,
+        "threads": f"{torch.get_num_threads()} intra-op, "
+                   f"{torch.get_num_interop_threads()} inter-op",
+        "affinity": f"{len(os.sched_getaffinity(0))} CPUs",
+        "CPU capability": torch.backends.cpu.get_cpu_capability(),
+        "CPU": _cpu_model(),
+        "float32 matmul precision": torch.get_float32_matmul_precision(),
+        "OpenMP/MKL env": env or "none set",
+        "denormals": _denormals(),
+        "load average": " ".join(f"{x:.2f}" for x in os.getloadavg()),
+        "native packing": _tipcore_state(),
+    }
+
+
+def _torch_settings(settings=None) -> str:
+    settings = process_settings() if settings is None else settings
+    return "; ".join(f"{k} {v}" for k, v in settings.items())
 
 
 def _reading_line(what, got, want, sabs, ulps):
@@ -178,7 +255,8 @@ def recorded(fn):
     """Run ``fn()`` (the port's first call in a u24 = 0 test) and record,
     through the test (the program has no hook for it): the threads alive
     when it starts (Python's by name, and the process's native count),
-    and every ATen op it runs, forward and backward, with the key (data
+    the process settings then (``process_settings``), and every ATen op
+    it runs, forward and backward, with the key (data
     pointer, dtype, shape, strides) of each tensor input and output.
     While fn runs, the record neither copies nor reads a tensor: it keeps
     a reference to each op's outputs and digests them once fn has
@@ -209,7 +287,8 @@ def recorded(fn):
             return out
 
     record = {"threads": [t.name for t in threading.enumerate()],
-              "native_threads": len(os.listdir("/proc/self/task"))}
+              "native_threads": len(os.listdir("/proc/self/task")),
+              "settings": process_settings()}
     with Record():
         result = fn()
     record["ops"] = [(str(func), ins, [(key(t), digest(t)) for t in outs])
@@ -217,44 +296,84 @@ def recorded(fn):
     return result, record
 
 
+def _aligned_pairs(a: list, b: list):
+    """(i, j) pairs of ops that align between two records' op-name
+    streams, in order: the matching blocks of ``difflib.SequenceMatcher``,
+    so a prefix or a gap on either side (inputs built inside one call and
+    outside the other, an extra op) shifts no later op."""
+    import difflib
+
+    sm = difflib.SequenceMatcher(None, [f for f, _, _ in a],
+                                 [f for f, _, _ in b], autojunk=False)
+    for i, j, n in sm.get_matching_blocks():
+        for k in range(n):
+            yield i + k, j + k
+
+
+# The functions torch hands to MKL's vector math library on the CPU (float32
+# and float64 tensors; ATen/cpu/vml.h, IMPLEMENT_VML_MKL).  Their first call
+# in a process, split across threads, can return one thread's share at
+# about half of float32's precision (ROADMAP Queue C); the dense BCEs'
+# plain versions call none of them.
+MKL_VML_OPS = frozenset((
+    "acos", "asin", "atan", "cos", "erf", "erfc", "erfinv", "exp", "log",
+    "log10", "log2", "sin", "sqrt", "tan", "tanh", "trunc"))
+
+
+def mkl_vml_ops(record: dict) -> list:
+    """The ops of a record (``recorded``) that torch runs through MKL's
+    VML on the CPU, by name (in-place and out= forms included)."""
+    return sorted({f for f, _, _ in record["ops"]
+                   if f.split(".")[1].rstrip("_") in MKL_VML_OPS})
+
+
 def op_divergence(first: dict, again: dict) -> str:
     """Where the first call's record (``recorded``) and a recomputation's
-    part: the live threads, then the first op whose outputs, as the call
-    left them, differ, with the ops that wrote its inputs; its digests
-    name the tensor that moved."""
+    part: the live threads and the process settings, then, over the ops
+    that align by name (``_aligned_pairs``; the ops skipped to align them
+    are counted), the first op whose outputs, as the call left them,
+    differ, with the ops that wrote its inputs; its digests name the
+    tensor that moved."""
     lines = [f"threads at the first call: {first['threads']} "
              f"({first['native_threads']} native); at the recomputation: "
              f"{again['threads']} ({again['native_threads']} native)"]
+    s0, s1 = first.get("settings", {}), again.get("settings", {})
+    lines.append(f"settings at the first call: {_torch_settings(s0)}")
+    moved = [f"{k} {s1.get(k)}" for k in s1 if s1.get(k) != s0.get(k)]
+    lines.append("at the recomputation: "
+                 + ("; ".join(moved) if moved else "the same"))
     a, b = first["ops"], again["ops"]
-    for k, ((fa, ia, oa), (fb, _, ob)) in enumerate(zip(a, b)):
-        if fa != fb:
-            lines.append(f"op {k}: the first call ran {fa}, the "
-                         f"recomputation {fb}")
-            break
+    pairs = list(_aligned_pairs(a, b))
+    lines.append(f"{len(a)} ops in the first call, {len(b)} in the "
+                 f"recomputation; {len(pairs)} align, skipped "
+                 f"{len(a) - len(pairs)} and {len(b) - len(pairs)} to align")
+    for i, j in pairs:
+        (fa, ia, oa), (_, _, ob) = a[i], b[j]
         if [d for _, d in oa] != [d for _, d in ob]:
             writers = {}
-            for j, (_, _, outs) in enumerate(a[:k]):
-                writers.update({kk: j for kk, _ in outs})
+            for k, (_, _, outs) in enumerate(a[:i]):
+                writers.update({kk: k for kk, _ in outs})
             reads = ", ".join(
                 f"{kk} (op {writers[kk]})" if kk in writers else kk
                 for kk in ia)
             lines.append(
-                f"op {k} {fa}: outputs differ: first call "
-                f"{[f'{kk} {d}' for kk, d in oa]}, recomputation "
+                f"op {i} {fa} (recomputation's op {j}): outputs differ: "
+                f"first call {[f'{kk} {d}' for kk, d in oa]}, recomputation "
                 f"{[d for _, d in ob]}; it read {reads}")
             break
     else:
-        lines.append(f"all {len(a)} ops of the first call and {len(b)} of "
-                     f"the recomputation left equal bytes")
+        lines.append(f"all {len(pairs)} aligned ops left equal bytes")
     return "\n".join(lines)
 
 
-def diagnosis(recompute, names, exact, sabs, port_ulps, built: dict,
+def diagnosis(fresh_call, names, exact, sabs, port_ulps, built: dict,
               now: dict, cells=None, first_call=None) -> str:
     """The diagnosis of a failing port reading.
 
-    recompute: () -> the port's plain outputs from fresh copies of the
-        fixture's inputs, in the order of ``names``; their readings
+    fresh_call: () -> call: builds fresh copies of the fixture's inputs
+        and returns a call of the port on them, made as the first call
+        was (the same ops from the first), whose plain outputs come in the
+        order of ``names``; only the call is recorded, and its readings
         against the float64 oracle follow.
     built, now: digests of the inputs when the fixture (or the test) built
         them, and the arrays now; which changed.
@@ -266,10 +385,11 @@ def diagnosis(recompute, names, exact, sabs, port_ulps, built: dict,
         recomputation is recorded too and ``op_divergence`` of the two
         follows."""
     lines = []
+    call = fresh_call()
     if first_call is not None:
-        outs, again = recorded(recompute)
+        outs, again = recorded(call)
     else:
-        outs, again = recompute(), None
+        outs, again = call(), None
     for name, got, ex, s in zip(names, outs, exact, sabs):
         lines.append(_reading_line(f"recomputed port {name} vs float64", got,
                                    ex, s, port_ulps)[1])

@@ -1,12 +1,13 @@
-"""Host-side graph packing, numpy only: splits, type-binned sorting, degrees,
-the symmetric int8 strip layout, negative thresholds, dense P-P parts, the
+"""Host-side graph packing: splits, type-binned sorting, degrees, the
+symmetric int8 strip layout, negative thresholds, dense P-P parts, the
 chunk-aligned D-D and windowed P-P edge buffers of the chunked layout, and
 the relation-strided membership bitmaps.
 
-A copy of what the port's training paths need from tip_tpu/data/packing.py,
-tip_tpu/sampling/negative.py (bitmap layout) and the numpy branches of
-tip_tpu/native/__init__.py (edge sort, bincount, padded fill, bitmap
-build).  Every
+A copy of what the port's training paths need from tip_tpu/data/packing.py
+and tip_tpu/sampling/negative.py (bitmap layout).  The edge sort, the
+in-degree count, the padded fill and the bitmap build run in the port's
+native library (tip_tpu_torch/native, as the JAX package's do in
+tip_tpu/native); the rest is numpy.  Every
 output is bit-identical to the JAX package's on the same raw graph
 (tests/test_torch_packing.py).  Layout recap:
 
@@ -29,6 +30,8 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from tip_tpu_torch import native
 
 SYM_BLOCK = 128  # square block edge of the symmetric strip layout
 
@@ -110,7 +113,8 @@ def sort_typed_edges(edges: TypedEdges) -> TypedEdges:
     """Sort within each relation bin by (dst, src): the buffer is then
     globally sorted by the segment id ``type * n_nodes + dst``."""
     src, dst = edges.edge_index
-    order = np.lexsort((src, dst, edges.edge_type))
+    n_nodes = int(max(src.max(), dst.max())) + 1 if src.size else 1
+    order = native.sort_edges_order(edges.edge_type, dst, src, n_nodes)
     return TypedEdges(
         edges.edge_index[:, order].copy(), edges.edge_type[order].copy(),
         edges.range_list,
@@ -120,7 +124,7 @@ def sort_typed_edges(edges: TypedEdges) -> TypedEdges:
 def in_degree(edge_index: np.ndarray, n_nodes: int) -> np.ndarray:
     """Total in-degree per destination across ALL relations (the R-GCN's
     mean-aggregation denominator), int64."""
-    return np.bincount(edge_index[1], minlength=n_nodes).astype(np.int64)
+    return native.bincount_i32(edge_index[1], n_nodes)
 
 
 def encode_keys(edges: TypedEdges, n_nodes: int) -> np.ndarray:
@@ -166,15 +170,9 @@ def pad_typed_edges(edges: TypedEdges, n_nodes: int,
     padded_counts = np.maximum(1, -(-counts // chunk)) * chunk
     total = int(padded_counts.sum())
     new_ranges = _ranges_from_counts(padded_counts)
-    src = np.zeros(total, np.int32)
-    dst = np.full(total, n_nodes, np.int32)
-    valid = np.zeros(total, bool)
-    for t in range(edges.n_et):
-        s, e = (int(x) for x in edges.range_list[t])
-        o = int(new_ranges[t, 0])
-        src[o:o + e - s] = edges.edge_index[0, s:e]
-        dst[o:o + e - s] = edges.edge_index[1, s:e]
-        valid[o:o + e - s] = True
+    src, dst, valid = native.pad_typed_fill(
+        edges.edge_index[0], edges.edge_index[1], edges.range_list,
+        new_ranges[:, 0], total, n_nodes)
     chunk_type = np.repeat(np.arange(edges.n_et, dtype=np.int32),
                            padded_counts // chunk)
     return PaddedTypedEdges(src=src, dst=dst, chunk_type=chunk_type,
@@ -468,12 +466,7 @@ def bitmap_stride_bits(n_nodes: int) -> int:
 
 def build_key_bitmap(keys: np.ndarray, key_space: int) -> np.ndarray:
     """Pack bit positions into a uint32 bitmap [ceil(key_space / 32)]."""
-    keys = np.asarray(keys, np.int64)
-    bitmap = np.zeros((key_space + 31) // 32, np.uint32)
-    words = (keys >> 5).astype(np.int64)
-    bits = (keys & 31).astype(np.uint32)
-    np.bitwise_or.at(bitmap, words, np.uint32(1) << bits)
-    return bitmap
+    return native.build_bitmap(np.asarray(keys, np.int64), key_space)
 
 
 def build_typed_bitmap(

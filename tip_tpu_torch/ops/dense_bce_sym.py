@@ -76,9 +76,18 @@ def u24_field(seed: int, rel: torch.Tensor, rows: torch.Tensor,
     return mix32(key[:, None, None] ^ mix32(cell)[None]) >> 8
 
 
+# The plain versions of B1-B3 call no function that torch hands to MKL's
+# vector math library (VML) on the CPU: exp, log, sqrt, tanh, ... of a
+# float32 tensor there call MKL's vm*s (ATen/cpu/vml.h).  Split across the
+# intra-op threads, the first such exp of a process that has run an MKL
+# GEMM can return one thread's share at about half of float32's precision
+# (relative errors to 1.5e-4), a different value from run to run: the u24
+# = 0 tests' drift (ROADMAP Queue C).  softplus takes log1p(e^-|x|) from
+# F.softplus and B1's sigmoid takes expm1, whose CPU kernels are SLEEF's.
 def softplus(x: torch.Tensor) -> torch.Tensor:
-    # log(1 + e^x) without torch's large-x threshold, as jax.nn.softplus
-    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+    # log(1 + e^x) without torch's large-x threshold, as jax.nn.softplus:
+    # max(x, 0) + log1p(e^-|x|), the second term below any threshold
+    return torch.clamp(x, min=0) + torch.nn.functional.softplus(-x.abs())
 
 
 def _strip_off(nb: int, i: int) -> int:
@@ -136,7 +145,7 @@ def dense_bce_sym_plain(w, z, pages, q8, seed: int, grads: bool = False,
             total = total + torch.sum(sp * daw + (sp + logits) * cnt)
             if not grads:
                 continue
-            sg = 1.0 - torch.exp(-sp)
+            sg = -torch.expm1(-sp)  # 1 - exp(-sp), as the JAX kernel
             g = cnt - sg * (daw + cnt)
             hi = g @ zt  # [Rc, B, d]
             hj = g.transpose(1, 2) @ zi  # [Rc, s, d]
