@@ -39,6 +39,8 @@ Phases, each fatal on failure:
      bf16" on the same graph with one count past 127 (with_heavy_pair),
      which takes the bf16 pages (B2; unprofiled), "tip strips
      sampled" with sampled negatives on the strips (B10, B8; unprofiled),
+     "tip pages sampled" with sampled negatives on the float32 pages
+     (float32 matmuls pinned; B10, B8; unprofiled),
      and "tip-nn dense", TIP-cat with the NN decoder: the strips for the
      encoder, the chunk buffers for its sampled loss (B10, B9); after "tip
      dense", the resume phase (RESUME_EPOCHS uninterrupted against half of
@@ -68,22 +70,27 @@ Phases, each fatal on failure:
      (with_hub: ~4,500 edges, a run across 9 chunks), both timed;
   9. the chunked paths on BEYOND_DENSE: TIP-cat and TIP-cat with the NN
      decoder as in 5 (B10, B8 or B9, B4, B5; profiled; after TIP-cat the
-     backend A/B as in 5, z and the positives' scores agreeing) and DR-NN as in 6
-     (B10, B9, B4; profiled); then one TIP-cat step with and without remat
-     (the same loss and gradients, B4's forward and B5 launched again in
-     the backward, the peak memory both ways), a ``remat:`` line;
+     backend A/B as in 5, z and the positives' scores agreeing), DR-NN as
+     in 6 (B10, B9, B4; profiled) and DR-DF (B10, B8, B4; unprofiled); then
+     one TIP-cat step with and without remat (the same loss and gradients,
+     B4's forward and B5 launched again in the backward, the peak memory
+     both ways), a ``remat:`` line;
  10. sharded, on the Decagon-shaped graph with SHARDED_RANKS processes
      sharing this card (tip_tpu_torch/scripts/sharded.py's workers; the
      kernels are built before the ranks spawn): hold B11 against its plain
      version across the ranks (d = 32, 16, forward and backward) and time
      one ring step here; then train TIP-cat sharded (SHARDED_PATHS: the COO
      ring on the 1-D mesh, "tip sharded ring"; the dense P-P rows; the COO
-     ring on the 2 x 2 mesh), and relation-partitioned in the same spawn
+     ring on the 2 x 2 mesh; the COO ring on the 1-D mesh with remat, the
+     backward running the encoder's collectives and B11's ring steps
+     again, its per-rank peak bytes beside the plain run's), and
+     relation-partitioned in the same spawn
      (EP_PATHS: the strips on the 1-D mesh with the dense P-P rows, B1 on
      each rank's relation block; the strips on the 2 x 2 mesh with the COO
      ring, B1 and B11; the float32 pages with the COO ring, B2 and B11;
      the chunked layout with the NN decoder, B10 on global ids, B4 with
-     R = r_max, B9 on local rows), each rank probing z, the loss and the
+     R = r_max, B9 on local rows; the chunked layout with DistMult and the
+     COO ring, B10, B4, B8 and B11), each rank probing z, the loss and the
      gradients against the single-process ones first, counters at 0 just
      before the steps, each rank's launches exact, rank 0's unsharded eval
      (EP: on the rows gathered from every rank); a ``sharded:`` line each;
@@ -130,18 +137,21 @@ VARIANT_STEPS = 5  # the DR-NN paths (kernels B3, B9)
 OTHER_STEPS = 2  # DR-DF, PR-HMP-NN, PP-GAE
 # The sharded paths: SHARDED_RANKS processes on this one card (CUDA IPC
 # between them), the Decagon-shaped graph; path -> (ranks on the ring axis,
-# the ring's P-P form, steps)
+# the ring's P-P form, steps, remat); a remat path's plain twin is its name
+# without " remat"
 SHARDED_RANKS = 4
-SHARDED_PATHS = {"tip sharded ring": (4, "coo", 5),
-                 "tip sharded dense-pp": (4, "dense", 2),
-                 "tip sharded 2x2": (2, "coo", 2)}
+SHARDED_PATHS = {"tip sharded ring": (4, "coo", 5, False),
+                 "tip sharded dense-pp": (4, "dense", 2, False),
+                 "tip sharded 2x2": (2, "coo", 2, False),
+                 "tip sharded ring remat": (4, "coo", 2, True)}
 # The relation-partitioned runs (tip_tpu_torch/parallel/ep.py) in the same
 # spawn: path -> (ranks on the ring axis, the ring's P-P form, steps, the
 # D-D layout, the decoder)
 EP_PATHS = {"tip ep strips": (4, "dense", 2, "strips", "distmult"),
             "tip ep 2x2": (2, "coo", 2, "strips", "distmult"),
             "tip ep pages": (4, "coo", 2, "pages", "distmult"),
-            "tip-nn ep chunked": (4, "dense", 2, "chunked", "nn")}
+            "tip-nn ep chunked": (4, "dense", 2, "chunked", "nn"),
+            "tip ep chunked": (4, "coo", 2, "chunked", "distmult")}
 SHARDED_TIMEOUT_S = 600  # a spawn of the ranks, and each of their collectives
 BACKEND_STEPS = 3  # the backend A/B's training steps a route
 
@@ -1580,8 +1590,9 @@ def expected_launches(path: str, steps: int, eval_rank: bool = True,
     ``remat`` (TIP chunked, TIP-NN chunked) the backward runs the encoder
     again: B4's forward and B5 once more in each of two layers a step.
     TIP dense: B1 once a step.  TIP pages, on the float32 or the bf16 pages: B2 once a step.
-    TIP strips sampled: B10 once and B8 twice (the negatives' forward and
-    backward; the positives are scored over the full pages in PyTorch).
+    TIP strips sampled, and TIP pages sampled on the float32 pages: B10
+    once and B8 twice (the negatives' forward and backward; the positives
+    are scored over the full pages in PyTorch).
     TIP chunked: B10 once, B8 twice forward (positives, negatives) and
     twice backward, B4 and B5 once forward and once backward in each of two
     layers; the eval's encode adds a forward of each layer of B4 and B5.
@@ -1592,19 +1603,23 @@ def expected_launches(path: str, steps: int, eval_rank: bool = True,
     with B9 for B8.  DR-NN dense: B3 once a step (its fused pass); DR-NN
     pages: the same on the float32 pages.  DR-NN chunked: as TIP chunked
     with B9 for B8 and no P-P side (no B5).  DR-DF dense: B1 once a step;
-    DR-DF pages: B2 once a step.  PR-HMP-NN and PP-GAE run no kernel.
+    DR-DF pages: B2 once a step; DR-DF chunked: as TIP chunked without the
+    P-P side (no B5).  PR-HMP-NN and PP-GAE run no kernel.
     TIP sharded (each rank, on its quarter of the chunks): B10 once, B8 and
     B4 four times a step, as TIP chunked, and no B5; with the COO ring B11
     once a ring step in each of four ring SpMMs a step (two layers, forward
     and the backward's), n_ring launches each: 16 a step on the 1-D mesh
     of 4 ("tip sharded ring"), 8 on the 2 x 2 mesh's rings of 2; none over
-    the dense P-P rows ("tip sharded dense-pp").  Rank 0's unsharded eval
-    (windowed P-P) adds B4 2 and B5 2.  The EP runs (EP_PATHS, each rank on
-    its relations' block): on the strips B1 once a step, on the pages B2
-    once a step; chunked with the NN decoder B10 once, B9 four times and
-    B4 four times (R = r_max) a step; with the COO ring B11 as above; rank
-    0's eval B4 2 on the chunked layout and B5 2 where its P-P side is
-    windowed (the COO ring's)."""
+    the dense P-P rows ("tip sharded dense-pp").  With remat ("tip sharded
+    ring remat") the backward runs the whole encoder again, B4's forward in
+    each layer and the two layers' ring SpMMs: B4 6 and B11 24 a step on
+    the 1-D mesh of 4.  Rank 0's unsharded eval (windowed P-P) adds B4 2
+    and B5 2.  The EP runs (EP_PATHS, each rank on its relations' block):
+    on the strips B1 once a step, on the pages B2 once a step; chunked B10
+    once, B8 (DistMult) or B9 (the NN decoder) four times and B4 four times
+    (R = r_max) a step; with the COO ring B11 as above; rank 0's eval B4 2
+    on the chunked layout and B5 2 where its P-P side is windowed (the COO
+    ring's)."""
     ev, rm = 2 * eval_rank, 2 * steps * remat
     sharded = {"typed_neg_sampler": steps, "distmult_sddmm": 4 * steps,
                "typed_neighbor_sum": 4 * steps + ev, "gcn_spmm": ev}
@@ -1620,15 +1635,19 @@ def expected_launches(path: str, steps: int, eval_rank: bool = True,
             want.update(ring_spmm=4 * n_ring * steps, gcn_spmm=ev)
         return want
     if path in SHARDED_PATHS:
-        n_ring, pp, _ = SHARDED_PATHS[path]
-        return {**sharded, **({"ring_spmm": 4 * n_ring * steps}
-                              if pp == "coo" else {})}
+        n_ring, pp, _, remat = SHARDED_PATHS[path]
+        rm = 2 * steps * remat
+        return {**sharded, "typed_neighbor_sum": 4 * steps + ev + rm,
+                **({"ring_spmm": n_ring * (4 * steps + rm)}
+                   if pp == "coo" else {})}
     return {
         "tip dense": {"dense_bce_sym": steps},
         "tip pages": {"dense_bce": steps},
         "tip pages bf16": {"dense_bce": steps},
         "tip strips sampled": {"typed_neg_sampler": steps,
                                "distmult_sddmm": 2 * steps},
+        "tip pages sampled": {"typed_neg_sampler": steps,
+                              "distmult_sddmm": 2 * steps},
         "tip chunked": {"typed_neg_sampler": steps, "distmult_sddmm": 4 * steps,
                         "typed_neighbor_sum": 4 * steps + ev + rm,
                         "gcn_spmm": 4 * steps + ev + rm},
@@ -1642,6 +1661,9 @@ def expected_launches(path: str, steps: int, eval_rank: bool = True,
                           "typed_neighbor_sum": 4 * steps + ev},
         "dr-df dense": {"dense_bce_sym": steps},
         "dr-df pages": {"dense_bce": steps},
+        "dr-df chunked": {"typed_neg_sampler": steps,
+                          "distmult_sddmm": 4 * steps,
+                          "typed_neighbor_sum": 4 * steps + ev},
         "pr-hmp-nn flat": {},
         "pp-gae dense": {},
     }[path]
@@ -2253,9 +2275,12 @@ def run_sharded(data, dev) -> dict:
     """The sharded entry point's worker (tip_tpu_torch/scripts/sharded.py:
     train_rank) on SHARDED_RANKS processes sharing this card: TIP-cat at
     published widths on the Decagon-shaped graph, for each of the paths of
-    SHARDED_PATHS (mesh, P-P ring) and EP_PATHS (relation-partitioned: the
-    strips on the 1-D and the 2 x 2 mesh, the float32 pages, the chunked
-    layout with the NN decoder).  Each rank first probes: z, and the loss
+    SHARDED_PATHS (mesh, P-P ring, remat: the probe and the steps
+    recompute the encoder in the backward; the remat path's line prints
+    its ranks' peak bytes beside its plain twin's, ranks 1-3 the steps'
+    alone) and EP_PATHS (relation-partitioned: the strips on the 1-D and
+    the 2 x 2 mesh, the float32 pages, the chunked layout with the NN
+    decoder and with DistMult).  Each rank first probes: z, and the loss
     and gradients (EP: gathered and un-EP'd) under fixed draws or, on the
     fused routes, zeroed thresholds, against the single-process ones
     (sharded_references; float32 throughout, the COO ring on the chunked
@@ -2277,8 +2302,10 @@ def run_sharded(data, dev) -> dict:
     from tip_tpu_torch.scripts import sharded
     from tip_tpu_torch.scripts.decoder_ab import DECAGON_SHAPE
 
-    runs = tuple(sharded.ShardedRun(name, n_ring, pp, steps, probe=True)
-                 for name, (n_ring, pp, steps) in SHARDED_PATHS.items()) + tuple(
+    runs = tuple(sharded.ShardedRun(name, n_ring, pp, steps, probe=True,
+                                    remat=remat)
+                 for name, (n_ring, pp, steps, remat)
+                 in SHARDED_PATHS.items()) + tuple(
         sharded.ShardedRun(name, n_ring, pp, steps, probe=True, ep=True,
                            layout=layout, decoder=decoder)
         for name, (n_ring, pp, steps, layout, decoder) in EP_PATHS.items())
@@ -2289,7 +2316,7 @@ def run_sharded(data, dev) -> dict:
     out = sharded.spawn_ranks(sharded.train_rank, SHARDED_RANKS, job,
                               timeout_s=SHARDED_TIMEOUT_S)
     spawn_sec = time.time() - t0
-    launches = {}
+    launches, peaks = {}, {}
     for i, run in enumerate(runs):
         rs = [r[i] for r in out]
         z_ref, loss_ref, grads_ref = refs[run.name if run.ep else run.pp]
@@ -2351,17 +2378,24 @@ def run_sharded(data, dev) -> dict:
                       f"{run.name} rank {r['rank']} launched {name} "
                       f"{r['launches'][name]} times, expected {want.get(name, 0)}")
         launches[run.name] = dict(r0["launches"])
+        peaks[run.name] = [r["peak_bytes"] for r in rs]
+        twin = {}
+        if run.remat:  # rank 0's peak holds the unsharded eval, the others' not
+            plain = run.name[:-len(" remat")]
+            twin = {"plain_path": plain,
+                    "plain_peak_bytes_by_rank": peaks[plain]}
         step_ms = sorted(r0["step_ms"][1:]) or r0["step_ms"]
         print("sharded: " + json.dumps({
             "variant": "tip-cat" if run.decoder == "distmult" else "tip-cat-nn",
             "path": run.name, "ranks": SHARDED_RANKS,
             "mesh": [run.n_ring, SHARDED_RANKS // run.n_ring], "pp": run.pp,
             "ep": run.ep, "layout": run.layout, "r_max": r0["r_max"],
+            "remat": run.remat,
             "note": f"{SHARDED_RANKS} ranks time-sliced on one "
                     f"{torch.cuda.get_device_name(0)}, not a multi-GPU figure",
             "losses": losses, "step_ms_median": step_ms[len(step_ms) // 2],
             "step_ms_all": r0["step_ms"], "final": r0["final"],
-            "peak_bytes_by_rank": [r.get("peak_bytes") for r in rs],
+            "peak_bytes_by_rank": peaks[run.name], **twin,
             "device_by_rank": [r["device"] for r in rs],
             "ring_rank_by_rank": [r["ring_rank"] for r in rs],
             "launches_rank0": r0["launches"],
@@ -2889,6 +2923,9 @@ def main() -> int:
     launches["tip strips sampled"] = run_path(
         "tip strips sampled", data, dev, OTHER_STEPS, "bfloat16",
         negatives="sampled", profiled=False)
+    launches["tip pages sampled"] = run_path(
+        "tip pages sampled", data, dev, OTHER_STEPS, "float32",
+        negatives="sampled", matmul_precision="highest", profiled=False)
     launches["tip-nn dense"] = run_path("tip-nn dense", data, dev, TRAIN_STEPS,
                                         "bfloat16", decoder="nn")
     launches["dr-nn dense"] = run_variant("dr-nn", data, dev, VARIANT_STEPS,
@@ -2938,6 +2975,7 @@ def main() -> int:
                                           TRAIN_STEPS, None, decoder="nn")
     launches["dr-nn chunked"] = run_variant("dr-nn", big, dev, VARIANT_STEPS,
                                             profiled=True)
+    launches["dr-df chunked"] = run_variant("dr-df", big, dev, OTHER_STEPS)
     print("remat:", json.dumps(run_remat(big, dev)))
     del big
     torch.cuda.empty_cache()

@@ -322,13 +322,6 @@ def test_remat_matches_no_remat_and_recomputes_the_encoder(setup,
     assert counts[1] == ((2, 2), (4, 6))
 
 
-def test_remat_under_a_mesh_raises(setup):
-    _, jparams, _, graph, model = setup
-    params = convert.params_from_jax(_np(jparams))
-    with pytest.raises(NotImplementedError, match="remat under a mesh"):
-        model.encode(params, graph, mesh=object(), remat=True)
-
-
 def test_train_with_remat_matches_without(setup):
     tdata = setup[0]
     runs = [loop.train(ModelConfig(**WIDTHS),

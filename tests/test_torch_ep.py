@@ -21,7 +21,13 @@ and so are the tolerances of the EP tests ported from it:
     package's), z against the JAX package's own EP-sharded z: atol 5e-5,
     tests/test_torch_parallel.py's tolerance for bf16 operands;
   * the unsharded EP eval against the plain one: metrics atol 1e-6,
-    per-relation AUPRC 1e-5 (:534).
+    per-relation AUPRC 1e-5 (:534);
+  * remat under the mesh (the "remat" twins of the strips and the chunked
+    runs) against the same run without it: tests/test_torch_checkpoint.py's
+    remat bounds, loss rtol 1e-6 and gradients atol 1e-5; the strips twin
+    against the JAX package's remat sharded step: loss rtol 1e-4,
+    gradients atol 2e-2 of each leaf's largest magnitude (the bf16-operand
+    bound of chip_smoke.py:run_sharded).
 """
 
 import dataclasses
@@ -85,7 +91,12 @@ RUNS = (
     Run("chunked", n_ring=4, pp="coo", steps=8, probe=True, ep=True),
     Run("nn", n_ring=4, pp="dense", steps=8, probe=True, ep=True,
         decoder="nn"),
+    Run("strips remat", n_ring=4, pp="dense", steps=1, probe=True, ep=True,
+        layout="strips", remat=True),
+    Run("chunked remat", n_ring=4, pp="coo", steps=1, probe=True, ep=True,
+        remat=True),
 )
+REMAT_TWINS = {"strips remat": "strips", "chunked remat": "chunked"}
 BY_NAME = {r.name: r for r in RUNS}
 DTYPE = sharded.LAYOUT_DTYPE
 
@@ -270,13 +281,21 @@ def _single_process(tdata, run):
 
 @pytest.fixture(scope="module")
 def single(setup):
-    return {run.name: _single_process(setup[1], run) for run in RUNS}
+    """The single-process reference of each run (a remat twin's is its
+    plain run's)."""
+    return {run.name: _single_process(setup[1], run) for run in RUNS
+            if not run.remat}
 
 
-def _jax_ep_sharded_z(jdata, params, run):
-    """The JAX package's EP-sharded encode of ``run``'s layout and mesh."""
+def _jax_ep_sharded(jdata, params, run, zero_thresholds: bool = False):
+    """The JAX package's EP-sharded model of ``run``'s layout and mesh:
+    (model, mesh, axes, placed params, their specs, placed graph, the
+    partition); ``zero_thresholds`` zeroes the Poissonized thresholds."""
     jgraph, jgs = j_graph_arrays(jdata, dense_dtype=DTYPE[run.layout],
                                  pp_dense=run.pp == "dense", **PACK)
+    if zero_thresholds:
+        jgraph = {k: (jnp.zeros_like(v) if k in ("dd_neg_q", "dd_neg_q8")
+                      else v) for k, v in jgraph.items()}
     jmodel = JTIP.for_data(JModelConfig(**WIDTHS), jdata, jgs, backend="xla")
     mesh = (j_make_mesh(WORLD) if run.n_ring == WORLD
             else j_make_mesh2(run.n_ring, WORLD // run.n_ring))
@@ -292,11 +311,35 @@ def _jax_ep_sharded_z(jdata, params, run):
     smodel = dataclasses.replace(jmodel, gs=egs)
     epp = j_ep_params(jax.tree.map(jnp.asarray, params), part)
     pspecs = j_ep_param_specs(epp, axes)
-    egraph_p = j_place(egraph, mesh)
+    return (smodel, mesh, axes, j_place_params(epp, mesh, pspecs), pspecs,
+            j_place(egraph, mesh), part)
+
+
+def _jax_ep_sharded_z(jdata, params, run):
+    """The JAX package's EP-sharded encode of ``run``'s layout and mesh."""
+    smodel, mesh, axes, epp, pspecs, egraph, _ = _jax_ep_sharded(
+        jdata, params, run)
     return np.asarray(jax.jit(shard_map(
         lambda p, g: smodel.encode(p, g, axis_name=axes), mesh=mesh,
-        in_specs=(pspecs, mesh_graph_specs(egraph_p, mesh)), out_specs=P(),
-    ))(j_place_params(epp, mesh, pspecs), egraph_p))
+        in_specs=(pspecs, mesh_graph_specs(egraph, mesh)), out_specs=P(),
+    ))(epp, egraph))
+
+
+def _jax_ep_sharded_remat_loss(jdata, params, run):
+    """The JAX package's sharded step as its make_sharded_train_step's
+    ``local_grads`` runs it, with remat: ``jax.value_and_grad`` of
+    ``loss(p, g, k, remat=True, axis_name=axes)`` under shard_map, on the
+    thresholds zeroed (no negatives drawn).  Returns (loss, un-EP'd
+    gradients)."""
+    smodel, mesh, axes, epp, pspecs, egraph, part = _jax_ep_sharded(
+        jdata, params, run, zero_thresholds=True)
+    loss, grads = jax.jit(shard_map(
+        lambda p, g, k: jax.value_and_grad(lambda q: smodel.loss(
+            q, g, k, remat=True, axis_name=axes))(p),
+        mesh=mesh, in_specs=(pspecs, mesh_graph_specs(egraph, mesh), P()),
+        out_specs=(P(), pspecs),
+    ))(epp, egraph, jax.random.key(0))
+    return float(loss), j_unep_params(jax.tree.map(np.asarray, grads), part)
 
 
 def _check_grads(r, grads, atol):
@@ -432,6 +475,46 @@ def test_ep_training_step_runs(ranks, name):
     assert r0["probe_loss_after"] < r0["probe_loss"]
     assert all(r["losses"] == losses and r["digests"] == r0["digests"]
                for r in ranks[name])
+
+
+@pytest.mark.parametrize("twin,base", REMAT_TWINS.items())
+def test_ep_remat_under_the_mesh_matches_no_remat(ranks, single, twin, base):
+    """The EP probe with remat (the encoder recomputed in the backward, its
+    collectives too; the EP view taken outside it) against the same run's
+    without it on every rank, and against the single-process reference
+    under the plain run's bounds (test_sym_sharded_parity's on the strips,
+    test_ep_sampled_route_parity's on the chunked layout)."""
+    loss, grads, _, _ = single[base]
+    for r, b in zip(ranks[twin], ranks[base]):
+        assert r["remat"] and not b["remat"] and r["rank"] == b["rank"]
+        np.testing.assert_allclose(r["probe_loss"], b["probe_loss"],
+                                   rtol=1e-6)
+        _check_grads(r, jax.tree.leaves(b["probe_grads"]), 1e-5)
+        if r["layout"] == "strips":
+            assert abs(r["probe_loss"] - loss) < 2e-5
+        else:
+            np.testing.assert_allclose(r["probe_loss"], loss, rtol=1e-5)
+        _check_grads(r, grads, 1e-4)
+
+
+def test_ep_remat_sharded_step_matches_the_jax_package(setup, ranks, single):
+    """The strips twin's remat probe (zeroed thresholds: no draws) against
+    the JAX package's remat sharded step on its virtual CPU mesh, the same
+    parameters, partition and layout.  Measured at these shapes: loss
+    relative error 8.2e-8, gradients 3.3e-3 of the largest magnitude at
+    worst (encoder.pp.conv1.weight: the dense P-P rows round their
+    operands to bf16, and the two sides round partial sums taken in
+    another order)."""
+    loss, grads = _jax_ep_sharded_remat_loss(
+        setup[0], single["strips"][3], BY_NAME["strips remat"])
+    want = jax.tree.leaves(grads)
+    for r in ranks["strips remat"]:
+        np.testing.assert_allclose(r["probe_loss"], loss, rtol=1e-4)
+        got = jax.tree_util.tree_leaves_with_path(r["probe_grads"])
+        assert len(got) == len(want)
+        for (path, g), w in zip(got, want):
+            np.testing.assert_allclose(g, w, atol=2e-2 * np.abs(w).max(),
+                                       err_msg=f"rank {r['rank']} {path}")
 
 
 @pytest.mark.parametrize("name", [r.name for r in RUNS])

@@ -20,10 +20,15 @@ tests/test_parallel.py's.  Tolerances:
     gradients atol 1e-2 of each leaf's largest magnitude: the backward of
     the bf16 operand rounding rounds each rank's partial cotangent, where
     one device rounds their sum.  Measured at these shapes: 3.3e-3 of the
-    largest magnitude at worst (pp.conv1.weight), 5.0e-7 on the COO ring.
+    largest magnitude at worst (pp.conv1.weight), 5.0e-7 on the COO ring;
+  * remat under the mesh (the "remat" twins of the COO ring on the 1-D
+    and the 2x2 mesh and of the dense P-P rows) against the same run
+    without it: tests/test_torch_checkpoint.py's remat bounds, loss rtol
+    1e-6 and gradients atol 1e-5.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import jax
@@ -50,6 +55,7 @@ from tip_tpu_torch.parallel import Mesh, place_graph, shard_graph
 from tip_tpu_torch.parallel.sharded import graph_specs
 from tip_tpu_torch.scripts import sharded
 from tip_tpu_torch.train.model import TIP, fold_seed, make_graph_arrays
+from tests import torch_mesh_counts
 
 RAW = dict(n_drug=40, n_prot=70, n_et=5, pairs_per_et=60, seed=8)
 SPLIT = dict(split_rate=0.9, seed=8)
@@ -59,7 +65,14 @@ WIDTHS = dict(mode="cat", prot_drug_dim=6, n_embed=10, n_hid1=8, n_hid2=6,
 WORLD = 4
 RUNS = (sharded.ShardedRun("coo", n_ring=4, pp="coo", steps=8, probe=True),
         sharded.ShardedRun("2x2", n_ring=2, pp="coo", steps=1, probe=True),
-        sharded.ShardedRun("dense", n_ring=4, pp="dense", steps=1, probe=True))
+        sharded.ShardedRun("dense", n_ring=4, pp="dense", steps=1, probe=True),
+        sharded.ShardedRun("coo remat", n_ring=4, pp="coo", steps=2,
+                           probe=True, remat=True),
+        sharded.ShardedRun("dense remat", n_ring=4, pp="dense", steps=1,
+                           probe=True, remat=True),
+        sharded.ShardedRun("2x2 remat", n_ring=2, pp="coo", steps=1,
+                           probe=True, remat=True))
+REMAT_TWINS = {"coo remat": "coo", "dense remat": "dense", "2x2 remat": "2x2"}
 
 
 @pytest.fixture(scope="module")
@@ -74,13 +87,18 @@ def setup():
 
 @pytest.fixture(scope="module")
 def ranks(setup):
-    """{run name: [rank results]} of one spawn of four gloo ranks."""
+    """{run name: [rank results]} of one spawn of four gloo ranks, and
+    under "counts" each rank's calls of the plain versions with and
+    without remat (tests/torch_mesh_counts.py)."""
     *_, params = setup
     job = sharded.ShardedJob(runs=RUNS, cfg=ModelConfig(**WIDTHS), raw=RAW,
                              split=SPLIT, pack=PACK, device="cpu",
                              params=params)
-    out = sharded.spawn_ranks(sharded.train_rank, WORLD, job, timeout_s=180)
-    return {run.name: [r[i] for r in out] for i, run in enumerate(RUNS)}
+    out = sharded.spawn_ranks(torch_mesh_counts.train_and_count_rank, WORLD,
+                              job, timeout_s=180)
+    res = {run.name: [r[i] for r in out] for i, run in enumerate(RUNS)}
+    res["counts"] = [r[-1] for r in out]
+    return res
 
 
 def _jax_sharded_z(setup, n_ring: int, dense_pp: bool):
@@ -162,6 +180,42 @@ def test_sharded_coo_z_matches_single_device_z(ranks, single_device):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("twin,base", REMAT_TWINS.items())
+def test_remat_under_the_mesh_matches_no_remat(ranks, twin, base):
+    """The probe's loss and gradients with remat (the encoder recomputed
+    in the backward, its collectives and ring steps too) against the same
+    run's without it, on every rank, and the first step's loss;
+    test_sharded_loss_and_grads_match_single_device holds the twin against
+    the single-device reference under its own bounds."""
+    for r, b in zip(ranks[twin], ranks[base]):
+        assert r["remat"] and not b["remat"] and r["rank"] == b["rank"]
+        np.testing.assert_allclose(r["probe_loss"], b["probe_loss"],
+                                   rtol=1e-6)
+        got = jax.tree_util.tree_leaves_with_path(r["probe_grads"])
+        want = jax.tree.leaves(b["probe_grads"])
+        assert len(got) == len(want)
+        for (path, g), w in zip(got, want):
+            np.testing.assert_allclose(g, w, atol=1e-5,
+                                       err_msg=f"{twin} {path}")
+        np.testing.assert_allclose(r["losses"][0], b["losses"][0], rtol=1e-6)
+
+
+def test_remat_under_the_mesh_recomputes_the_encoder(ranks):
+    """On each of the four ranks (the 1-D COO ring): without remat the
+    forward calls B4's forward and the ring SpMM twice (two layers) and
+    sums over the ranks four times (the two R-GCN layers' aggregates, the
+    hierarchy's, the loss), and the backward adds the ring's backward twice
+    and the four sums' backwards; with remat the backward runs the whole
+    encoder again first, its collectives included: B4's forward and the
+    ring SpMM twice more and the encoder's three sums again."""
+    plain = ({"tns_fwd": 2, "ring_spmm": 2, "all_reduce": 4},
+             {"tns_fwd": 2, "ring_spmm": 4, "all_reduce": 8})
+    remat = ({"tns_fwd": 2, "ring_spmm": 2, "all_reduce": 4},
+             {"tns_fwd": 4, "ring_spmm": 6, "all_reduce": 11})
+    for counts in ranks["counts"]:
+        assert counts == {False: plain, True: remat}
+
+
 @pytest.mark.parametrize("run", [r.name for r in RUNS])
 def test_params_identical_on_every_rank_after_each_step(ranks, run):
     digests = [r["digests"] for r in ranks[run]]
@@ -208,6 +262,23 @@ def test_ring_layout_of_each_mesh(ranks):
     # (ring, edges) = (2, 2): rank r sits at (r // 2, r % 2)
     assert [r["ring_rank"] for r in ranks["2x2"]] == [0, 0, 1, 1]
     assert {r["dd_n_chunks"] % WORLD for r in ranks["coo"]} == {0}
+
+
+def test_cli_remat_trains(monkeypatch):
+    """``--cpu --synthetic --remat``: the Decagon-shaped graph is swapped
+    for this file's small one (the job the CLI hands the ranks carries the
+    shape); four ranks train two remat steps at published widths and
+    agree."""
+    monkeypatch.setattr(sharded, "DECAGON_SHAPE", RAW)
+    monkeypatch.setattr(sharded, "spawn_ranks", functools.partial(
+        sharded.spawn_ranks, timeout_s=180))
+    lines = sharded.main(["--cpu", "--synthetic", "--remat", "--steps", "2"])
+    assert [r["rank"] for r in lines] == list(range(WORLD))
+    for r in lines:
+        assert r["name"] == "tip sharded coo remat" and r["remat"]
+        assert len(r["losses"]) == 2 and np.isfinite(r["losses"]).all()
+        assert r["losses"] == lines[0]["losses"]
+    assert 0.0 <= lines[0]["final"]["auroc"] <= 1.0
 
 
 def test_failing_ranks_raise_and_stop(setup):

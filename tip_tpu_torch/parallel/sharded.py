@@ -160,18 +160,21 @@ def average_grads(params, mesh, specs=None) -> None:
             p.grad.div_(mesh.world)
 
 
-def make_sharded_train_step(model, opt, mesh, param_specs=None):
+def make_sharded_train_step(model, opt, mesh, remat: bool = False,
+                            param_specs=None):
     """step(params, graph, seed, u24=None) -> loss: the replicated loss of
     ``model`` (train/model.py:TIP) on this rank's graph view
     (:func:`place_graph`), its backward, the gradients averaged over the
     ranks (:func:`average_grads`; ``param_specs`` marks the EP leaves),
-    then ``opt`` (a torch optimizer over ``leaves(params)``).  Every rank
-    calls it with the same seed; ``u24`` is this rank's slice of the
-    sampler's draws."""
+    then ``opt`` (a torch optimizer over ``leaves(params)``).  ``remat``
+    recomputes the encoder in the backward, its collectives included
+    (TIP.encode).  Every rank calls it with the same seed; ``u24`` is this
+    rank's slice of the sampler's draws."""
 
     def step(params, graph, seed: int, u24=None):
         opt.zero_grad(set_to_none=True)
-        loss = model.loss(params, graph, seed, u24=u24, mesh=mesh)
+        loss = model.loss(params, graph, seed, u24=u24, mesh=mesh,
+                          remat=remat)
         loss.backward()
         average_grads(params, mesh, param_specs)
         opt.step()

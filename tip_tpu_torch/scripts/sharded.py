@@ -4,8 +4,8 @@ scripts/sharded_train_real.py's relation-partitioned dense stack).
 
     python -m tip_tpu_torch.scripts.sharded --ranks 4 [--mesh 2x2]
         [--pp coo|dense] [--ep] [--layout strips|pages|chunked]
-        [--decoder distmult|nn] [--steps N] [--cpu] [--synthetic]
-        [--data-dir DIR]
+        [--decoder distmult|nn] [--remat] [--steps N] [--cpu]
+        [--synthetic] [--data-dir DIR]
 
 Spawns ``--ranks`` processes (gloo, ``file://`` rendezvous in a temporary
 directory), each driving ``cuda:(rank % device_count)`` (or the CPU with
@@ -23,9 +23,11 @@ pages (``--layout pages``: B2), and its rows of ``att`` and of the
 decoder; ``--layout chunked`` (the default) bins its chunks over its
 local relations (B4 with R = r_max), samples by global relation (B10) and
 scores by local row (B8, or B9 with ``--decoder nn``).  Without ``--ep`` a
-mesh runs the chunked layout only.  Rank 0 then runs one unsharded eval
-(EP: on the parameters gathered from every rank).  Prints one JSON line
-per rank: losses, step ms, peak device bytes, the kernels' launch counts.
+mesh runs the chunked layout only.  ``--remat`` recomputes the encoder in
+the backward, its collectives and ring steps included (TIP.encode).  Rank
+0 then runs one unsharded eval (EP: on the parameters gathered from every
+rank).  Prints one JSON line per rank: losses, step ms, peak device bytes,
+the kernels' launch counts.
 ``--synthetic`` is the Decagon-shaped random graph
 (scripts/decoder_ab.py:DECAGON_SHAPE); otherwise the Decagon files are read
 from ``--data-dir`` (or ``$TIP_DATA_DIR``).
@@ -82,6 +84,7 @@ class ShardedRun:
     ep: bool = False  # relation-partitioned (parallel/ep.py)
     layout: str = "chunked"  # the D-D layout: strips | pages | chunked
     decoder: str = "distmult"  # TIP's decoder: distmult | nn
+    remat: bool = False  # recompute the encoder in the backward (probe too)
 
     def __post_init__(self) -> None:
         if self.layout not in LAYOUT_DTYPE:
@@ -308,7 +311,7 @@ def train_rank(rank: int, world: int, job: ShardedJob) -> list:
                "ring_rank": mesh.ring_rank, "n_ring": mesh.n_ring,
                "pp": run.pp, "dd_n_chunks": rgs.dd_n_chunks, "ep": run.ep,
                "layout": rgs.dd_layout, "decoder": cfg.decoder,
-               "r_max": rgs.ep_r_max}
+               "r_max": rgs.ep_r_max, "remat": run.remat}
 
         def fresh_params():
             nonlocal specs
@@ -335,7 +338,8 @@ def train_rank(rank: int, world: int, job: ShardedJob) -> list:
 
         def probe_loss(params):  # fixed draws, or no negatives at all
             return model.loss(params, probe_graph, seed=0,
-                              u24=u24 if sampled else None, mesh=mesh)
+                              u24=u24 if sampled else None, mesh=mesh,
+                              remat=run.remat)
 
         if run.probe:
             params = fresh_params()
@@ -365,7 +369,8 @@ def train_rank(rank: int, world: int, job: ShardedJob) -> list:
                 del folded  # 18 MB at Decagon shape: not resident in training
         params = fresh_params()
         opt = torch.optim.Adam(convert.leaves(params), lr=LR)
-        step = make_sharded_train_step(model, opt, mesh, specs)
+        step = make_sharded_train_step(model, opt, mesh, remat=run.remat,
+                                       param_specs=specs)
         _sync(dev)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
@@ -521,8 +526,8 @@ def spawn_ranks(fn, world: int, job, timeout_s: float = 900.0) -> list:
 def summary(res: dict) -> dict:
     """The JSON-able fields of a rank's run."""
     keep = ("name", "rank", "device", "ring_rank", "n_ring", "pp", "ep",
-            "layout", "decoder", "r_max", "losses", "step_ms", "peak_bytes",
-            "train_launches", "launches", "final", "dd_n_chunks")
+            "layout", "decoder", "r_max", "remat", "losses", "step_ms",
+            "peak_bytes", "train_launches", "launches", "final", "dd_n_chunks")
     return {k: res[k] for k in keep if k in res}
 
 
@@ -541,6 +546,8 @@ def main(argv=None) -> list:
                         help="the D-D layout (strips, pages: with --ep)")
     parser.add_argument("--decoder", default="distmult",
                         choices=["distmult", "nn"])
+    parser.add_argument("--remat", action="store_true",
+                        help="recompute the encoder in the backward")
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--cpu", action="store_true",
                         help="run the ranks on the CPU (the plain versions)")
@@ -562,9 +569,11 @@ def main(argv=None) -> list:
     if device == "cuda":  # build before spawning: ranks would race on _build/
         kernels.build(SHARDED_KERNELS)
     name = f"tip{'-nn' if args.decoder == 'nn' else ''} sharded " + (
-        f"ep {args.layout} {args.pp}" if args.ep else args.pp)
+        f"ep {args.layout} {args.pp}" if args.ep else args.pp) + (
+        " remat" if args.remat else "")
     run = ShardedRun(name=name, n_ring=n_ring, pp=args.pp, steps=args.steps,
-                     ep=args.ep, layout=args.layout, decoder=args.decoder)
+                     ep=args.ep, layout=args.layout, decoder=args.decoder,
+                     remat=args.remat)
     job = ShardedJob(runs=(run,), raw=DECAGON_SHAPE if args.synthetic else None,
                      data_dir=args.data_dir, device=device)
     ranks = spawn_ranks(train_rank, args.ranks, job)

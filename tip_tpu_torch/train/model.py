@@ -537,9 +537,13 @@ class TIP:
         """Drug embeddings z [n_drug, n_hid2] from the training graph (this
         rank's view of it under ``mesh``; z is replicated).  ``remat``
         keeps none of the encoder's intermediates for the backward, which
-        runs the encoder again (its kernels launch twice): memory for
-        compute, as ``jax.checkpoint`` in the JAX package.  Not under a
-        ``mesh``, whose recompute would repeat the collectives."""
+        runs the whole encoder again (its kernels launch twice), as
+        ``jax.checkpoint`` in the JAX package: memory for compute.  The
+        recompute does not stop early, so under ``mesh`` it repeats every
+        collective of the encoder (the R-GCN sums, the ring P-P GCN's
+        kernel B11 steps or row gather, the hierarchy's sum) on every rank
+        in the same order; the EP view of the parameters and the graph is
+        taken outside the recomputed region."""
         enc_params, gs = params["encoder"], self.gs
         if gs.ep_r_max:
             enc_params, graph, gs = self._ep_encoder_view(enc_params, graph,
@@ -553,13 +557,9 @@ class TIP:
 
         if not remat:
             return enc(enc_params)
-        if mesh is not None:
-            raise NotImplementedError(
-                "remat under a mesh: the recompute would run the encoder's "
-                "collectives again inside the backward; train sharded "
-                "without remat")
-        return torch.utils.checkpoint.checkpoint(enc, enc_params,
-                                                 use_reentrant=False)
+        with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+            return torch.utils.checkpoint.checkpoint(enc, enc_params,
+                                                     use_reentrant=False)
 
     def score(self, params, z, src, dst, et, sigmoid: bool = True):
         """Scores of (src, dst, relation) triples, flat (the eval's)."""
@@ -597,7 +597,7 @@ class TIP:
         is this rank's view, the seed is folded with the rank (``u24``:
         this rank's slice of the draws), and the sums are summed over the
         ranks before the division, so every rank returns the same loss.
-        ``remat``: see :meth:`encode`."""
+        ``remat``: see :meth:`encode`, with or without ``mesh``."""
         gs, cfg = self.gs, self.cfg
         ep = gs.ep_r_max > 0
         if mesh is not None:
