@@ -349,8 +349,10 @@ def test_cli_dr_nn_synthetic_cpu(tmp_path):
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
-    losses = [json.loads(x)["loss"] for x in lines if x.startswith("{")]
+    records = [json.loads(x) for x in lines if x.startswith("{")]
+    losses = [r["loss"] for r in records if "loss" in r]
     assert len(losses) == 2 and all(np.isfinite(losses))
+    assert records[-1]["spans"]["forward"]["count"] == 2
     assert lines[-1].startswith("On test set: auprc:")
     res = json.loads(out_json.read_text())
     assert res["variant"] == "dr-nn" and 0.0 <= res["final"]["auroc"] <= 1.0

@@ -28,6 +28,7 @@ from typing import Optional
 
 import numpy as np
 
+from tip_tpu_torch import trace
 from tip_tpu_torch.data.packing import TriGraphData, TypedEdges, build_trigraph
 
 _LAYOUT_VERSION = 3  # bump when TriGraphData layout changes
@@ -92,6 +93,7 @@ def _load(path: str) -> TriGraphData:
         )
 
 
+@trace.spanned("cache")
 def cached_trigraph(raw, split_rate: float = 0.9, seed: int = 1111,
                     cache_dir: Optional[str] = None) -> TriGraphData:
     """build_trigraph with a transparent npz cache; a cache file that does

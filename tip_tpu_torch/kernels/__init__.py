@@ -22,6 +22,8 @@ import subprocess
 import threading
 from dataclasses import dataclass
 
+from tip_tpu_torch import trace
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -168,10 +170,12 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        so = _lib_path(name)
-        if not os.path.exists(so) or os.path.getmtime(so) < _newest_source(name):
-            build([name])
-        lib = ctypes.CDLL(so)
+        with trace.span("kernel_load"):
+            so = _lib_path(name)
+            if (not os.path.exists(so)
+                    or os.path.getmtime(so) < _newest_source(name)):
+                build([name])
+            lib = ctypes.CDLL(so)
         _libs[name] = lib
         return lib
 

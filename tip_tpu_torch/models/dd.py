@@ -39,6 +39,7 @@ from typing import Optional
 
 import torch
 
+from tip_tpu_torch import trace
 from tip_tpu_torch.data.packing import TriGraphData
 from tip_tpu_torch.metrics import grouped_ranking_metrics, macro_average
 from tip_tpu_torch.nn import initializers as init
@@ -103,6 +104,7 @@ class DDConfig:
             raise ValueError(f"unknown negatives mode {self.negatives!r}")
 
 
+@trace.spanned("device_graph")
 def make_dd_graph_arrays(data: TriGraphData, device=None, chunk: int = 1024,
                          dense_dtype: Optional[str] = None,
                          decoder: str = "distmult", sampled: bool = False):
@@ -191,27 +193,32 @@ class DDModel:
                                                 device=dev)
         return params
 
+    @trace.spanned("encode")
     def encode(self, params, graph):
         """Drug embeddings z [n_drug, n_hid2] from the training graph."""
-        gs = self.gs
         x = params["embed"]
         if "drug_feat" in graph:
             x = graph["drug_feat"] @ x
         if "d_norm" in graph:
             x = x / graph["d_norm"][:, None]
+        with trace.span("rgcn"):
+            x = self._rgcn_pair(params, graph, x)
+        return torch.relu(x) if self.cfg.final_relu else x
+
+    def _rgcn_pair(self, params, graph, x):
+        """Both R-GCN layers on the layout's D-D buffers."""
+        gs = self.gs
         if gs.dd_layout == "chunked":
             dd = (graph["dd_src2d"], graph["dd_dst2d"], graph["dd_chunk_type"],
                   graph["dd_deg"], gs.n_drug, gs.n_et)
             kw = dict(kernel_dtype=self.cfg.kernel_dtype, backend=self.backend)
             x = torch.relu(rgcn_apply_padded(params["rgcn1"], x, *dd, **kw))
-            x = rgcn_apply_padded(params["rgcn2"], x, *dd, **kw)
-        elif gs.dd_layout == "pages":
-            x = dense_rgcn_pair_apply(params["rgcn1"], params["rgcn2"], x,
-                                      graph["dd_adj_t"], graph["dd_deg"])
-        else:
-            x = dense_rgcn_pair_apply_sym(params["rgcn1"], params["rgcn2"], x,
-                                          graph["dd_adj_sym"], graph["dd_deg"])
-        return torch.relu(x) if self.cfg.final_relu else x
+            return rgcn_apply_padded(params["rgcn2"], x, *dd, **kw)
+        if gs.dd_layout == "pages":
+            return dense_rgcn_pair_apply(params["rgcn1"], params["rgcn2"], x,
+                                         graph["dd_adj_t"], graph["dd_deg"])
+        return dense_rgcn_pair_apply_sym(params["rgcn1"], params["rgcn2"], x,
+                                         graph["dd_adj_sym"], graph["dd_deg"])
 
     def score(self, params, z, src, dst, et, sigmoid: bool = True):
         if self.cfg.decoder == "distmult":
@@ -231,8 +238,15 @@ class DDModel:
         negatives; ``u24`` (CPU only) replaces their random bits: the cell
         field of B1, B2 or B3 on the dense layouts, the sampler's draws on
         the chunked layout and with ``negatives="sampled"``."""
+        with trace.span("forward"):
+            z = self.encode(params, graph)
+            with trace.span("loss"):
+                total = self._loss_sum(params, graph, z, seed, u24)
+                return trace.backward_span(total / float(self.gs.dd_n_valid))
+
+    def _loss_sum(self, params, graph, z, seed: int, u24):
+        """The BCE sum over the train edges (:meth:`loss`)."""
         gs, cfg = self.gs, self.cfg
-        z = self.encode(params, graph)
         dec = params["decoder"]
         if gs.dd_layout != "chunked" and cfg.negatives != "sampled":
             xla = self.backend == "xla"
@@ -241,17 +255,15 @@ class DDModel:
                 pages = graph["dd_adj_u8" if gs.dd_layout == "strips_pages"
                               else "dd_adj_t"]
                 bce_nn = dense_bce_nn_sum_xla if xla else dense_bce_nn_sum
-                total = bce_nn(dec["w1_l2"], dec["w2_l2"], h1, h2, pages,
-                               graph["dd_neg_q"], seed, u24=u24)
-            elif gs.dd_layout == "strips":
+                return bce_nn(dec["w1_l2"], dec["w2_l2"], h1, h2, pages,
+                              graph["dd_neg_q"], seed, u24=u24)
+            if gs.dd_layout == "strips":
                 bce_sym = dense_bce_sym_sum_xla if xla else dense_bce_sym_sum
-                total = bce_sym(dec["weight"], z, graph["dd_adj_sym"],
-                                graph["dd_neg_q8"], seed, u24=u24)
-            else:
-                bce = dense_bce_sum_xla if xla else dense_bce_sum
-                total = bce(dec["weight"], z, graph["dd_adj_t"],
-                            graph["dd_neg_q"], seed, u24=u24)
-            return total / float(gs.dd_n_valid)
+                return bce_sym(dec["weight"], z, graph["dd_adj_sym"],
+                               graph["dd_neg_q8"], seed, u24=u24)
+            bce = dense_bce_sum_xla if xla else dense_bce_sum
+            return bce(dec["weight"], z, graph["dd_adj_t"],
+                       graph["dd_neg_q"], seed, u24=u24)
         ct = graph["dd_chunk_type"]
         neg_src2d, neg_dst2d = typed_negative_sampling_chunked(
             seed, ct, graph["dd_bitmap"], gs.n_drug, gs.n_et, gs.dd_chunk,
@@ -267,8 +279,7 @@ class DDModel:
             pos_sum = torch.sum(softplus(-pos) * valid)
         neg = self.score_padded(params, z, neg_src2d, neg_dst2d, ct,
                                 sigmoid=False)
-        total = pos_sum + torch.sum(softplus(neg) * valid)
-        return total / float(gs.dd_n_valid)
+        return pos_sum + torch.sum(softplus(neg) * valid)
 
     def sample_test_negatives(self, gen: torch.Generator, test):
         src, dst = typed_negative_sampling(gen, test["et"], test["bitmap"],
@@ -278,9 +289,14 @@ class DDModel:
     @torch.no_grad()
     def evaluate(self, params, graph, test, test_neg):
         """Per-relation + macro AUPRC/AUROC/AP on the test split."""
-        z = self.encode(params, graph)
-        pos = self.score(params, z, test["src"], test["dst"], test["et"])
-        neg = self.score(params, z, test_neg["src"], test_neg["dst"],
-                         test["et"])
-        per_rel = grouped_ranking_metrics(pos, neg, test["et"], self.gs.n_et)
-        return per_rel, macro_average(per_rel)
+        with trace.span("eval"):
+            z = self.encode(params, graph)
+            with trace.span("score"):
+                pos = self.score(params, z, test["src"], test["dst"],
+                                 test["et"])
+                neg = self.score(params, z, test_neg["src"], test_neg["dst"],
+                                 test["et"])
+            with trace.span("rank"):
+                per_rel = grouped_ranking_metrics(pos, neg, test["et"],
+                                                  self.gs.n_et)
+                return per_rel, macro_average(per_rel)

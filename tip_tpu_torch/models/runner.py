@@ -18,6 +18,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from tip_tpu_torch import trace
 from tip_tpu_torch.convert import leaves
 from tip_tpu_torch.data.packing import TriGraphData
 from tip_tpu_torch.models.dd import DDConfig, DDModel, make_dd_graph_arrays
@@ -78,7 +79,10 @@ def train_variant(model, graph, test, epochs: int = 100, lr: float = 0.01,
                   seed: int = 1111, log: Optional[Callable[[str], None]] = print,
                   eval_every: int = 0):
     """Adam full-graph loop (reference: model/ddm-nn.py:199-229) on the
-    model's device; returns (params, {"final", "history", "per_relation"})."""
+    model's device; returns (params, {"final", "history", "per_relation",
+    "spans"}): "spans" the loop's span totals (trace.totals), logged as one
+    JSON object before the test-set line."""
+    spans_before = trace.totals()
     set_matmul_precision()
     gen = torch.Generator().manual_seed(seed)
     params = model.init(gen)
@@ -108,11 +112,14 @@ def train_variant(model, graph, test, epochs: int = 100, lr: float = 0.01,
     per_rel, avg = model.evaluate(params, graph, test, test_neg)
     final = {k: float(v) for k, v in avg.items()}
     final["train_time_sec"] = time.time() - t_start
+    spans = trace.totals(since=spans_before)
     if log:
+        log(json.dumps({"spans": spans}))
         log("On test set: auprc:{auprc:.4f}   auroc:{auroc:.4f}   "
             "ap@50:{ap:.4f}".format(**final))
     return params, {
         "final": final,
         "history": history,
         "per_relation": {k: v.cpu().numpy() for k, v in per_rel.items()},
+        "spans": spans,
     }

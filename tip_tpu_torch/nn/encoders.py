@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from tip_tpu_torch import trace
 from tip_tpu_torch.config import ModelConfig
 from tip_tpu_torch.nn import initializers as init
 from tip_tpu_torch.nn.gcn import (
@@ -118,46 +119,56 @@ def fm_encoder_apply(params, graph, cfg: ModelConfig, gs, x_drug=None,
                          f"ep_shard_graph), not a replicated "
                          f"{gs.dd_layout!r} (parallel/sharded.py:shard_graph)")
     if mesh is not None and gs.pp_ring_shards > 0:
-        if "pp_a1r" in graph:
-            hp_local = ring_pp_encoder_apply_dense(params["pp"], graph, gs,
-                                                   mesh, x_prot)
-        else:
-            hp_local = ring_pp_encoder_apply(params["pp"], graph, gs, mesh,
-                                             x_prot, backend=backend)
-        hd = ring_hierarchy_apply(params["hier"], hp_local, graph,
-                                  graph["dp_deg"], gs.n_drug, mesh)
+        with trace.span("pp_gcn"):
+            if "pp_a1r" in graph:
+                hp_local = ring_pp_encoder_apply_dense(params["pp"], graph, gs,
+                                                       mesh, x_prot)
+            else:
+                hp_local = ring_pp_encoder_apply(params["pp"], graph, gs, mesh,
+                                                 x_prot, backend=backend)
+        with trace.span("hierarchy"):
+            hd = ring_hierarchy_apply(params["hier"], hp_local, graph,
+                                      graph["dp_deg"], gs.n_drug, mesh)
     else:
-        if gs.pp_layout == "dense":
-            hp = pp_encoder_apply_dense(params["pp"], x_prot, graph["pp_a1"],
-                                        graph["pp_dinv"])
-        elif gs.pp_layout == "windowed" and backend == "xla":
-            hp = pp_encoder_apply(params["pp"], x_prot, graph["pp_norm_index"],
-                                  graph["pp_norm_weight"], gs.n_prot)
-        elif gs.pp_layout == "windowed":
-            hp = pp_encoder_apply_windowed(params["pp"], x_prot, graph, gs,
-                                           cfg.kernel_dtype)
-        else:
-            raise ValueError("the graph ships no P-P side: add the ring "
-                             "(parallel/ring.py:add_ring_pp)")
-        hd = hierarchy_conv_apply(params["hier"], hp, graph["dp_src"],
-                                  graph["dp_dst"], graph["dp_deg"], gs.n_drug)
+        with trace.span("pp_gcn"):
+            hp = _pp_encoder(params["pp"], x_prot, graph, cfg, gs, backend)
+        with trace.span("hierarchy"):
+            hd = hierarchy_conv_apply(params["hier"], hp, graph["dp_src"],
+                                      graph["dp_dst"], graph["dp_deg"],
+                                      gs.n_drug)
     xd = params["embed"] if x_drug is None else x_drug @ params["embed"]
     if d_norm is not None:
         xd = xd / d_norm[:, None]
     x = torch.cat([xd, hd], dim=1) if cfg.mode == "cat" else xd + hd
-    if gs.dd_layout == "strips":
-        return dense_rgcn_pair_apply_sym(params["rgcn1"], params["rgcn2"], x,
-                                         graph["dd_adj_sym"], graph["dd_deg"],
+    with trace.span("rgcn"):
+        if gs.dd_layout == "strips":
+            return dense_rgcn_pair_apply_sym(params["rgcn1"], params["rgcn2"],
+                                             x, graph["dd_adj_sym"],
+                                             graph["dd_deg"], mesh=mesh)
+        if gs.dd_layout == "pages":
+            return dense_rgcn_pair_apply(params["rgcn1"], params["rgcn2"], x,
+                                         graph["dd_adj_t"], graph["dd_deg"],
                                          mesh=mesh)
-    if gs.dd_layout == "pages":
-        return dense_rgcn_pair_apply(params["rgcn1"], params["rgcn2"], x,
-                                     graph["dd_adj_t"], graph["dd_deg"],
-                                     mesh=mesh)
-    dd = (graph["dd_src2d"], graph["dd_dst2d"], graph["dd_chunk_type"],
-          graph["dd_deg"], gs.n_drug, gs.n_et)
-    kw = dict(kernel_dtype=cfg.kernel_dtype, mesh=mesh, backend=backend)
-    x = torch.relu(rgcn_apply_padded(params["rgcn1"], x, *dd, **kw))
-    return rgcn_apply_padded(params["rgcn2"], x, *dd, **kw)
+        dd = (graph["dd_src2d"], graph["dd_dst2d"], graph["dd_chunk_type"],
+              graph["dd_deg"], gs.n_drug, gs.n_et)
+        kw = dict(kernel_dtype=cfg.kernel_dtype, mesh=mesh, backend=backend)
+        x = torch.relu(rgcn_apply_padded(params["rgcn1"], x, *dd, **kw))
+        return rgcn_apply_padded(params["rgcn2"], x, *dd, **kw)
+
+
+def _pp_encoder(params, x_prot, graph, cfg: ModelConfig, gs, backend: str):
+    """The unsharded P-P GCN on the layout ``gs.pp_layout`` names."""
+    if gs.pp_layout == "dense":
+        return pp_encoder_apply_dense(params, x_prot, graph["pp_a1"],
+                                      graph["pp_dinv"])
+    if gs.pp_layout == "windowed" and backend == "xla":
+        return pp_encoder_apply(params, x_prot, graph["pp_norm_index"],
+                                graph["pp_norm_weight"], gs.n_prot)
+    if gs.pp_layout == "windowed":
+        return pp_encoder_apply_windowed(params, x_prot, graph, gs,
+                                         cfg.kernel_dtype)
+    raise ValueError("the graph ships no P-P side: add the ring "
+                     "(parallel/ring.py:add_ring_pp)")
 
 
 def hier_encoder_init(gen, source_dim: int, embed_dim: int, target_dim: int,

@@ -35,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from tip_tpu_torch import kernels
+from tip_tpu_torch import kernels, trace
 from tip_tpu_torch.ops.dense_bce_sym import softplus, u24_field
 
 KERNEL = "dense_bce"
@@ -166,6 +166,7 @@ class _DenseBce(torch.autograd.Function):
         return loss
 
     @staticmethod
+    @trace.spanned("dense_bce")
     def backward(ctx, g):
         dw, dz = ctx.saved_tensors
         return g * dw, g * dz, None, None, None, None, None

@@ -39,7 +39,7 @@ from typing import Optional
 
 import torch
 
-from tip_tpu_torch import kernels
+from tip_tpu_torch import kernels, trace
 from tip_tpu_torch.ops.dense_bce_sym import softplus, u24_field
 from tip_tpu_torch.ops.sddmm2 import contract_slabs
 
@@ -179,6 +179,7 @@ class _DenseBceNN(torch.autograd.Function):
         return loss
 
     @staticmethod
+    @trace.spanned("dense_bce_nn")
     def backward(ctx, g):
         dw1, dw2, dh1, dh2 = ctx.saved_tensors
         return (g * dw1, g * dw2, g * dh1, g * dh2, None, None, None, None,

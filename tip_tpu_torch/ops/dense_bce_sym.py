@@ -39,7 +39,7 @@ from typing import Optional
 
 import torch
 
-from tip_tpu_torch import kernels
+from tip_tpu_torch import kernels, trace
 from tip_tpu_torch.data.packing import SYM_BLOCK as B, nb_from_cols
 
 KERNEL = "dense_bce_sym"
@@ -241,6 +241,7 @@ class _DenseBceSym(torch.autograd.Function):
         return loss
 
     @staticmethod
+    @trace.spanned("dense_bce_sym")
     def backward(ctx, g):
         dw, dz = ctx.saved_tensors
         return g * dw, g * dz, None, None, None, None, None

@@ -31,7 +31,7 @@ import ctypes
 import torch
 import torch.distributed as dist
 
-from tip_tpu_torch import kernels
+from tip_tpu_torch import kernels, trace
 
 KERNEL = "ring_spmm"
 # bytes before the comm slots: the step counts from the left and the right
@@ -231,6 +231,7 @@ class _RingSpmm(torch.autograd.Function):
         return _ring(h_own.float(), src_l, dst_l, w, mesh)
 
     @staticmethod
+    @trace.spanned("ring_spmm")
     def backward(ctx, dout):
         # A_hat is symmetric: dh = A_hat^T dout = the same ring on dout
         dh = _ring(dout.float().contiguous(), *ctx.saved_tensors, ctx.mesh)

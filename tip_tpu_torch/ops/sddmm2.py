@@ -48,7 +48,7 @@ from __future__ import annotations
 
 import torch
 
-from tip_tpu_torch import kernels
+from tip_tpu_torch import kernels, trace
 from tip_tpu_torch.ops.matmul import bf16_round, compute_round, is_bf16
 
 KERNEL = "distmult_sddmm"
@@ -200,6 +200,7 @@ class _DistmultLogits(torch.autograd.Function):
         return distmult_logits_plain(zr, wf, src2d, dst2d, chunk_type)
 
     @staticmethod
+    @trace.spanned("distmult_logits")
     def backward(ctx, g):
         zr, wf, src2d, dst2d, chunk_type = ctx.saved_tensors
         bwd = distmult_bwd_cuda if zr.is_cuda else distmult_bwd_plain
@@ -428,6 +429,7 @@ class _NNLogits(torch.autograd.Function):
         return nn_logits_plain(*args)
 
     @staticmethod
+    @trace.spanned("nn_logits")
     def backward(ctx, g):
         args = ctx.saved_tensors
         bwd = nn_bwd_cuda if args[0].is_cuda else nn_bwd_plain

@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import torch
 
-from tip_tpu_torch import kernels
+from tip_tpu_torch import kernels, trace
 from tip_tpu_torch.ops.matmul import bf16_round, compute_round, is_bf16
 from tip_tpu_torch.ops.sddmm2 import (
     D,
@@ -241,6 +241,7 @@ class _TypedNeighborSum(torch.autograd.Function):
                         chunk_type, n_et)
 
     @staticmethod
+    @trace.spanned("typed_neighbor_sum")
     def backward(ctx, dpt):
         src2d, dst2d, chunk_type = ctx.saved_tensors
         dx = _tns_bwd(compute_round(dpt, ctx.compute_dtype).contiguous(), src2d,
@@ -333,6 +334,7 @@ class _GcnSpmm(torch.autograd.Function):
                      window, n_nodes, compute_dtype)
 
     @staticmethod
+    @trace.spanned("gcn_spmm")
     def backward(ctx, dout):
         # A_hat is symmetric: dx = A_hat^T dout = A_hat dout
         dx = _spmm(dout.float(), *ctx.saved_tensors, *ctx.static)
@@ -498,6 +500,7 @@ class _DistmultV1(torch.autograd.Function):
         return distmult_v1_fwd_plain(zr, wf, src2d, dst2d, chunk_type)
 
     @staticmethod
+    @trace.spanned("distmult_v1")
     def backward(ctx, g):
         args = ctx.saved_tensors
         bwd = distmult_v1_bwd_cuda if args[0].is_cuda else distmult_v1_bwd_plain
@@ -610,6 +613,7 @@ class _NNV1(torch.autograd.Function):
         return nn_v1_fwd_plain(*args)
 
     @staticmethod
+    @trace.spanned("nn_v1")
     def backward(ctx, g):
         args = ctx.saved_tensors
         bwd = nn_v1_bwd_cuda if args[0].is_cuda else nn_v1_bwd_plain

@@ -31,6 +31,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from tip_tpu_torch import trace
 from tip_tpu_torch.config import ModelConfig, TrainConfig
 from tip_tpu_torch.convert import (
     adam_from_optax_leaves,
@@ -169,7 +170,9 @@ def train(cfg: ModelConfig, tcfg: TrainConfig, data: TriGraphData,
     ``backend`` (train/model.py:resolve_backend): 'auto' and 'pallas' run
     the hand-written kernels on the card, 'xla' the JAX package's XLA
     branches (no kernel).  Returns (params, {"final", "history",
-    "per_relation"})."""
+    "per_relation", "spans"}): "spans" the run's span totals
+    (trace.totals), logged as one JSON object before the test-set line."""
+    spans_before = trace.totals()
     dev = resolve_device(device)
     set_matmul_precision()
     dense_dtype = preferred_dense_dtype(data, cfg.kernel_dtype,
@@ -263,6 +266,8 @@ def train(cfg: ModelConfig, tcfg: TrainConfig, data: TriGraphData,
     per_rel, avg = evaluate()
     final = {k: float(v) for k, v in avg.items()}
     final["train_time_sec"] = time.time() - t_start
+    spans = trace.totals(since=spans_before)
+    log(json.dumps({"spans": spans}))
     log("On test set: auprc:{auprc:.4f}   auroc:{auroc:.4f}   "
         "ap@50:{ap:.4f}".format(**final))
     if tcfg.checkpoint_dir:
@@ -271,4 +276,5 @@ def train(cfg: ModelConfig, tcfg: TrainConfig, data: TriGraphData,
         "final": final,
         "history": history,
         "per_relation": {k: v.cpu().numpy() for k, v in per_rel.items()},
+        "spans": spans,
     }

@@ -75,6 +75,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from tip_tpu_torch import trace
 from tip_tpu_torch.config import ModelConfig
 from tip_tpu_torch.data.packing import (
     PAGE_EXACT_MAX,
@@ -292,6 +293,7 @@ def chunk_arrays(data: TriGraphData, dd_chunk: int, device=None) -> dict:
     }
 
 
+@trace.spanned("device_graph")
 def make_graph_arrays(data: TriGraphData, device=None, dd_chunk: int = 1024,
                       pp_window: int = 1024, pp_chunk: int = 512,
                       dense_dtype: Optional[str] = None,
@@ -550,10 +552,11 @@ class TIP:
                                                           mesh)
 
         def enc(p):
-            return fm_encoder_apply(p, graph, self.cfg, gs,
-                                    x_drug=graph.get("drug_feat"),
-                                    d_norm=graph.get("d_norm"), mesh=mesh,
-                                    backend=self.backend)
+            with trace.span("encode"):
+                return fm_encoder_apply(p, graph, self.cfg, gs,
+                                        x_drug=graph.get("drug_feat"),
+                                        d_norm=graph.get("d_norm"), mesh=mesh,
+                                        backend=self.backend)
 
         if not remat:
             return enc(enc_params)
@@ -598,11 +601,20 @@ class TIP:
         this rank's slice of the draws), and the sums are summed over the
         ranks before the division, so every rank returns the same loss.
         ``remat``: see :meth:`encode`, with or without ``mesh``."""
+        with trace.span("forward"):
+            if mesh is not None:
+                seed = fold_seed(seed, mesh.rank)
+            z = self.encode(params, graph, mesh, remat=remat)
+            with trace.span("loss"):
+                total = self._loss_sum(params, graph, z, seed, u24, mesh)
+                if mesh is not None:
+                    total = psum(total)
+                return trace.backward_span(total / float(self.gs.dd_n_valid))
+
+    def _loss_sum(self, params, graph, z, seed: int, u24, mesh):
+        """This rank's BCE sum over its train edges (:meth:`loss`)."""
         gs, cfg = self.gs, self.cfg
         ep = gs.ep_r_max > 0
-        if mesh is not None:
-            seed = fold_seed(seed, mesh.rank)
-        z = self.encode(params, graph, mesh, remat=remat)
         if (gs.dd_layout != "chunked" and cfg.decoder == "distmult"
                 and cfg.negatives != "sampled" and (mesh is None) != ep):
             w = params["decoder"]["weight"]
@@ -611,15 +623,11 @@ class TIP:
             xla = self.backend == "xla"
             if gs.dd_layout == "strips":
                 bce = dense_bce_sym_sum_xla if xla else dense_bce_sym_sum
-                total = bce(w, z, graph["dd_adj_sym"], graph["dd_neg_q8"],
-                            seed, u24=u24)
-            else:
-                bce = dense_bce_sum_xla if xla else dense_bce_sum
-                total = bce(w, z, graph["dd_adj_t"], graph["dd_neg_q"], seed,
-                            u24=u24)
-            if mesh is not None:
-                total = psum(total)
-            return total / float(gs.dd_n_valid)
+                return bce(w, z, graph["dd_adj_sym"], graph["dd_neg_q8"],
+                           seed, u24=u24)
+            bce = dense_bce_sum_xla if xla else dense_bce_sum
+            return bce(w, z, graph["dd_adj_t"], graph["dd_neg_q"], seed,
+                       u24=u24)
         if cfg.negatives == "poisson":
             raise ValueError(POISSON_NEEDS_DENSE)
         dec_params, score_ct = params, graph["dd_chunk_type"]
@@ -646,10 +654,7 @@ class TIP:
                 kernel_dtype=cfg.kernel_dtype)
         neg = self.score_padded(dec_params, z, neg_src2d, neg_dst2d, score_ct,
                                 sigmoid=False)
-        total = pos_sum + torch.sum(softplus(neg) * valid)
-        if mesh is not None:
-            total = psum(total)
-        return total / float(gs.dd_n_valid)
+        return pos_sum + torch.sum(softplus(neg) * valid)
 
     def sample_test_negatives(self, gen: torch.Generator, test):
         src, dst = typed_negative_sampling(gen, test["et"], test["bitmap"],
@@ -662,12 +667,17 @@ class TIP:
         encoder runs on the train graph and test edges are only scored.  An
         EP graph is evaluated whole: its params in the [n_dev, r_max, ...]
         layout (parallel/ep.py:gather_params), no mesh."""
-        z = self.encode(params, graph)
-        if self.gs.ep_r_max:
-            params = dict(params, decoder=self._ep_decoder_view(
-                params["decoder"], graph, None))
-        pos = self.score(params, z, test["src"], test["dst"], test["et"])
-        neg = self.score(params, z, test_neg["src"], test_neg["dst"],
-                         test["et"])
-        per_rel = grouped_ranking_metrics(pos, neg, test["et"], self.gs.n_et)
-        return per_rel, macro_average(per_rel)
+        with trace.span("eval"):
+            z = self.encode(params, graph)
+            if self.gs.ep_r_max:
+                params = dict(params, decoder=self._ep_decoder_view(
+                    params["decoder"], graph, None))
+            with trace.span("score"):
+                pos = self.score(params, z, test["src"], test["dst"],
+                                 test["et"])
+                neg = self.score(params, z, test_neg["src"], test_neg["dst"],
+                                 test["et"])
+            with trace.span("rank"):
+                per_rel = grouped_ranking_metrics(pos, neg, test["et"],
+                                                  self.gs.n_et)
+                return per_rel, macro_average(per_rel)
