@@ -24,7 +24,8 @@ Phases, each fatal on failure:
      packing library (tip_tpu_torch/native) and through its plain numpy
      versions, bit-equal, a ``native:`` line with the seconds of each
      (run_native_packing); pack it in both layouts, and hold each
-     kernel against its plain PyTorch version (KERNEL_CHECKS: B1 on the
+     kernel against its plain PyTorch version (KERNEL_CHECKS: B12 on the
+     dense P-P (A+I) at both GCN widths, forward and backward; B1 on the
      dense strips, B2 on the full float32 and bf16 pages and B3 on DR-NN's
      uint8, bf16 and float32 pages, the dense paths' shapes, B2 and B3
      also on float32 pages holding counts past 256; B4-B10 on the
@@ -56,8 +57,8 @@ Phases, each fatal on failure:
      train_variant) on the same graph, each at the default widths, counters
      as in 5: DR-NN on the strips and uint8 pages (B3; profiled), DR-NN
      with float32 matmuls pinned ("dr-nn pages": B3 on the float32 pages),
-     then DR-DF (B1), PR-HMP-NN and PP-GAE (no kernel), and DR-DF with
-     float32 matmuls pinned ("dr-df pages", B2);
+     then DR-DF (B1), PR-HMP-NN (no kernel) and PP-GAE (B12), and DR-DF
+     with float32 matmuls pinned ("dr-df pages", B2);
   7. the decoder A/B entry point (tip_tpu_torch/scripts/decoder_ab.py) on
      the same graph in float32, counters as in 5: v1 (B6, B7) against v2
      (B8, B9) against a plain gather, the sampler (B10), the positives' BCE;
@@ -105,6 +106,7 @@ from __future__ import annotations
 import faulthandler
 import hashlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -117,6 +119,7 @@ sys.path.insert(0, ROOT)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_TF32_FLOP_PER_S = 495e12  # dense, on the tensor cores
+PEAK_BF16_FLOP_PER_S = 989e12  # dense, on the tensor cores
 
 # The Decagon shape (645 drugs, 19,081 proteins, 1,097 relations) is the
 # decoder A/B's DECAGON_SHAPE (tip_tpu_torch/scripts/decoder_ab.py).
@@ -830,6 +833,118 @@ def check_gcn_spmm(graph, gs, data, dev, timed: bool = True) -> dict:
     return rep
 
 
+def check_pp_aggregate(graph, gs, data, dev, timed: bool = True) -> dict:
+    """Kernel B12 against its plain version on the Decagon-shaped P-P (A+I)
+    (``graph["pp_a1"]``) at both GCN widths (d = 32 and 16): the forward
+    on a bf16 x, and the backward's product on a float32 gradient of
+    spread exponents (three bf16 terms), float32 out and bf16 out (the
+    latter the bf16 rounding of the former, bit for bit).  Bound: |kernel
+    - plain| <= 4 sqrt(r) 2^-24 sum_k |a_ik x_kc| for every element, r the
+    most nonzeros of a row (40.2 at r = 101): the kernel sums r (forward) or
+    3 r (backward) exact products in float32, the plain version's float32
+    GEMM r rounded ones, and their roundings add up as a random walk
+    (readings 0.72 forward, 10.98 backward).  A backward that dropped the
+    split's lo term (a 16-bit gradient) errs by up to 2^-16 of a term,
+    some 256 units on a row of few terms: the check runs the kernel on
+    hi + mid of the gradient, which is what such a kernel computes, and
+    wants that above the bound.  One NaN in x gives the plain version's NaNs (its column, through 0 * NaN); two runs are
+    bit-equal.  Timed: both widths each way; the plain version and the
+    library route it replaced (the int8 -> float32 upcast, then torch.mm),
+    and torch.mm alone on a resident float32 copy."""
+    import torch
+
+    from tip_tpu_torch.config import ModelConfig
+    from tip_tpu_torch.ops import pp_aggregate as ppa
+
+    a1 = graph["pp_a1"]
+    n = a1.shape[0]
+    r = int(a1.sum(1, dtype=torch.int64).max())
+    cfg = ModelConfig.tip_cat()
+    gen = torch.Generator().manual_seed(23)
+    bound = 4 * math.sqrt(r)
+    rep, worst, worst_ulps = {"n": n, "row_nnz_max": r}, 0.0, 0.0
+    ins = {}
+    for d in (cfg.pp_hid1, cfg.pp_hid2):
+        x = torch.randn(n, d, generator=gen).to(torch.bfloat16).to(dev)
+        g = (torch.randn(n, d, generator=gen) * torch.exp2(torch.randint(
+            -8, 9, (n, d), generator=gen).float())).to(dev)
+        ins[d] = (x, g)
+        for what, inp in (("fwd", x), ("bwd", g)):
+            k = ppa.pp_aggregate_cuda(a1, inp)
+            p = ppa.pp_aggregate_plain(a1, inp)
+            scale = ppa.pp_aggregate_plain(a1, inp.float().abs()).double()
+
+            def ulps_of(got):  # units of 2^-24 sum|terms|
+                return float(((got.double() - p.double()).abs()
+                              / (scale * 2.0**-24)).max())
+
+            ulps = ulps_of(k)
+            check(ulps <= bound, f"B12 d={d} {what}: {ulps} units of 2^-24 "
+                  f"sum|terms|, bound {bound}")
+            if what == "bwd":
+                hi, mid, _ = ppa.split3_plain(inp)
+                two = ulps_of(ppa.pp_aggregate_cuda(a1, hi + mid))
+                check(two > bound, f"B12 d={d}: a two-term split reads "
+                      f"{two} units, within the bound {bound}")
+                rep[f"d{d}_bwd_two_term_ulps"] = two
+            e, m = max_err(k, p)
+            rep[f"d{d}_{what}_max_abs_err"] = e
+            rep[f"d{d}_{what}_ulps_of_sum"] = ulps
+            worst, worst_ulps = max(worst, e), max(worst_ulps, ulps)
+            check(torch.equal(k, ppa.pp_aggregate_cuda(a1, inp)),
+                  f"B12 d={d} {what} differs between two runs")
+            if what == "bwd":
+                kb = ppa.pp_aggregate_cuda(a1, inp, out_dtype=torch.bfloat16)
+                check(torch.equal(kb, k.to(torch.bfloat16)),
+                      f"B12 d={d}: the bf16 output is not the float32 "
+                      "output's rounding")
+        xn = x.clone()
+        xn[n // 2, 3] = float("nan")
+        kn = torch.isnan(ppa.pp_aggregate_cuda(a1, xn))
+        check(bool(kn[:, 3].any()) and torch.equal(
+            kn, torch.isnan(ppa.pp_aggregate_plain(a1, xn))),
+            f"B12 d={d}: a NaN in x did not reach out as in the plain version")
+    rep.update(max_abs_err=worst, ulps_of_sum=worst_ulps, ulps_bound=bound)
+    if not timed:
+        return rep
+
+    d, d2 = cfg.pp_hid1, cfg.pp_hid2
+    (x, g), (x2, g2) = ins[d], ins[d2]
+    rep["d"] = d
+    rep["ks"] = ppa.k_splits(n, d, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    rep["ms"] = cuda_ms(lambda: ppa.pp_aggregate_cuda(a1, x), reps=50,
+                        primed=True)
+    rep[f"d{d2}_ms"] = cuda_ms(lambda: ppa.pp_aggregate_cuda(a1, x2),
+                               reps=50, primed=True)
+    for dd, gg in ((d, g), (d2, g2)):
+        rep[f"bwd_d{dd}_ms"] = cuda_ms(lambda: ppa.pp_aggregate_cuda(
+            a1, gg, out_dtype=torch.bfloat16), reps=50, primed=True)
+    rep["step_ms"] = (rep["ms"] + rep[f"d{d2}_ms"] + rep[f"bwd_d{d}_ms"]
+                      + rep[f"bwd_d{d2}_ms"])  # the four products a step
+    rep["plain_ms"] = cuda_ms(lambda: ppa.pp_aggregate_plain(a1, x), reps=5,
+                              warmup=1)
+    want = ppa.pp_aggregate_plain(a1, x)
+    rep["library_ms"] = library_call(lambda: a1.float() @ x.float(), want,
+                                     1e-5, "B12")
+    a1f = a1.float()
+    xf = x.float()
+    rep["library_mm_ms"] = library_call(lambda: a1f @ xf, want, 1e-5,
+                                        "B12 mm alone")
+    del a1f, want
+    for tag, dd, terms in (("", d, 1), ("bwd_", d, 3)):
+        # A, x (bf16 / float32), out (float32 / the backward's bf16)
+        nb = n * n + n * dd * (2 if terms == 1 else 4) + n * dd * (
+            4 if terms == 1 else 2)
+        t_bytes = nb / PEAK_BYTES_PER_S
+        t_ops = terms * 2.0 * n * n * dd / PEAK_BF16_FLOP_PER_S
+        rep[f"{tag}bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        rep[f"{tag}bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    rep["roofline_pct"] = 100 * rep["bound_ms"] / rep["ms"]
+    rep["bwd_roofline_pct"] = 100 * rep["bwd_bound_ms"] / rep[f"bwd_d{d}_ms"]
+    return rep
+
+
 def check_distmult_sddmm(graph, gs, data, dev, timed: bool = True) -> dict:
     """Kernel B8 forward (logits) and backward (dz, dw) against the plain
     version at d = 16: the forward with its z table where the wrapper puts
@@ -1433,6 +1548,7 @@ KERNEL_CHECKS = {
     "nn_sddmm": ("chunked", check_nn_sddmm),
     "distmult_sddmm_v1": ("chunked", check_distmult_sddmm_v1),
     "nn_sddmm_v1": ("chunked", check_nn_sddmm_v1),
+    "pp_aggregate": ("dense", check_pp_aggregate),
 }
 
 
@@ -1604,7 +1720,7 @@ def expected_launches(path: str, steps: int, eval_rank: bool = True,
     pages: the same on the float32 pages.  DR-NN chunked: as TIP chunked
     with B9 for B8 and no P-P side (no B5).  DR-DF dense: B1 once a step;
     DR-DF pages: B2 once a step; DR-DF chunked: as TIP chunked without the
-    P-P side (no B5).  PR-HMP-NN and PP-GAE run no kernel.
+    P-P side (no B5).  PR-HMP-NN runs no kernel.
     TIP sharded (each rank, on its quarter of the chunks): B10 once, B8 and
     B4 four times a step, as TIP chunked, and no B5; with the COO ring B11
     once a ring step in each of four ring SpMMs a step (two layers, forward
@@ -1619,8 +1735,12 @@ def expected_launches(path: str, steps: int, eval_rank: bool = True,
     once, B8 (DistMult) or B9 (the NN decoder) four times and B4 four times
     (R = r_max) a step; with the COO ring B11 as above; rank 0's eval B4 2
     on the chunked layout and B5 2 where its P-P side is windowed (the COO
-    ring's)."""
+    ring's), B12 2 where it is dense (the dense rows' runs).
+    B12 wherever the P-P side is the dense (A+I) of one process (every TIP
+    path on the strips or the pages, and PP-GAE): 2 launches forward and 2
+    backward a step, the eval's encode 2."""
     ev, rm = 2 * eval_rank, 2 * steps * remat
+    pp = {"pp_aggregate": 4 * steps + ev}
     sharded = {"typed_neg_sampler": steps, "distmult_sddmm": 4 * steps,
                "typed_neighbor_sum": 4 * steps + ev, "gcn_spmm": ev}
     if path in EP_PATHS:
@@ -1633,6 +1753,8 @@ def expected_launches(path: str, steps: int, eval_rank: bool = True,
                     "typed_neighbor_sum": 4 * steps + ev})
         if pp == "coo":
             want.update(ring_spmm=4 * n_ring * steps, gcn_spmm=ev)
+        elif ev:
+            want["pp_aggregate"] = ev
         return want
     if path in SHARDED_PATHS:
         n_ring, pp, _, remat = SHARDED_PATHS[path]
@@ -1641,17 +1763,18 @@ def expected_launches(path: str, steps: int, eval_rank: bool = True,
                 **({"ring_spmm": n_ring * (4 * steps + rm)}
                    if pp == "coo" else {})}
     return {
-        "tip dense": {"dense_bce_sym": steps},
-        "tip pages": {"dense_bce": steps},
-        "tip pages bf16": {"dense_bce": steps},
+        "tip dense": {"dense_bce_sym": steps, **pp},
+        "tip pages": {"dense_bce": steps, **pp},
+        "tip pages bf16": {"dense_bce": steps, **pp},
         "tip strips sampled": {"typed_neg_sampler": steps,
-                               "distmult_sddmm": 2 * steps},
+                               "distmult_sddmm": 2 * steps, **pp},
         "tip pages sampled": {"typed_neg_sampler": steps,
-                              "distmult_sddmm": 2 * steps},
+                              "distmult_sddmm": 2 * steps, **pp},
         "tip chunked": {"typed_neg_sampler": steps, "distmult_sddmm": 4 * steps,
                         "typed_neighbor_sum": 4 * steps + ev + rm,
                         "gcn_spmm": 4 * steps + ev + rm},
-        "tip-nn dense": {"typed_neg_sampler": steps, "nn_sddmm": 4 * steps},
+        "tip-nn dense": {"typed_neg_sampler": steps, "nn_sddmm": 4 * steps,
+                         **pp},
         "tip-nn chunked": {"typed_neg_sampler": steps, "nn_sddmm": 4 * steps,
                            "typed_neighbor_sum": 4 * steps + ev + rm,
                            "gcn_spmm": 4 * steps + ev + rm},
@@ -1665,7 +1788,7 @@ def expected_launches(path: str, steps: int, eval_rank: bool = True,
                           "distmult_sddmm": 4 * steps,
                           "typed_neighbor_sum": 4 * steps + ev},
         "pr-hmp-nn flat": {},
-        "pp-gae dense": {},
+        "pp-gae dense": pp,
     }[path]
 
 
@@ -2828,6 +2951,7 @@ KERNEL_PATH = {
     "distmult_sddmm_v1": "decoder ab",
     "nn_sddmm_v1": "decoder ab",
     "ring_spmm": "tip sharded ring",
+    "pp_aggregate": "tip dense",
 }
 PATH_CHECKS = {"tip dense": "decagon_dense", "tip pages": "decagon_dense",
                "dr-nn dense": "decagon_dense", "tip chunked": "main",

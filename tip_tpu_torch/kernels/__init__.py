@@ -7,10 +7,12 @@ compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 with ``ctypes``, and never imported at module import: a machine without
 ``nvcc`` or a GPU imports this package and runs the plain PyTorch versions.
 
-``KERNELS`` lists every kernel with the TPU kernel it replaces.  Each CUDA
-wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel
-(:func:`launch` does so for it), so a run can show that its main path went
-through the kernels (``reset_launch_counts`` before, ``LAUNCHES`` after).
+``KERNELS`` lists every kernel with the TPU kernel it replaces (B12,
+``pp_aggregate``, replaces no ``pl.pallas_call``: the XLA dot of the dense
+P-P GCN).  Each CUDA wrapper adds one to ``LAUNCHES[name]`` where it
+launches its kernel (:func:`launch` does so for it), so a run can show
+that its main path went through the kernels (``reset_launch_counts``
+before, ``LAUNCHES`` after).
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ SMEM_BYTES = 227 * 1024  # shared memory one block can use on Hopper
 class KernelSpec:
     name: str
     source: str  # path in the repository
-    replaces: str  # file:line of the TPU kernel's pl.pallas_call
+    replaces: str  # file:line of the TPU kernel's pl.pallas_call, or of
+    # the XLA op a kernel replaces where the JAX package has no kernel
     route: str = "cuda"
 
 
@@ -95,6 +98,11 @@ KERNELS = {
         name="ring_spmm",
         source="tip_tpu_torch/csrc/ring_spmm.cu",
         replaces="tip_tpu/ops/pallas_ring.py:124",
+    ),
+    "pp_aggregate": KernelSpec(
+        name="pp_aggregate",
+        source="tip_tpu_torch/csrc/pp_aggregate.cu",
+        replaces="tip_tpu/nn/gcn.py:70",
     ),
 }
 

@@ -11,9 +11,9 @@ set to ``float32`` or ``highest`` asks for exact float32 matmuls, as it does
 of the JAX package's CLI: DR-DF and DR-NN then take the float32 pages.
 ``--report PATH`` writes the named per-relation metrics of the D-D variants
 (analysis/report.py:write_report; names from ``--data-dir``).
-``--backend {auto,xla,pallas}`` routes DR-DF's and DR-NN's sparse ops as
-the JAX package's flag does ('auto' is 'pallas', the kernels, on every
-device; 'xla' launches none).  ``main`` returns the result of
+``--backend {auto,xla,pallas}`` routes DR-DF's and DR-NN's sparse ops and
+PP-GAE's dense P-P GCN as the JAX package's flag does ('auto' is 'pallas',
+the kernels, on every device; 'xla' launches none).  ``main`` returns the result of
 ``train_variant``.
 """
 

@@ -5,8 +5,9 @@ relu -> GCN(32, 16), score(u, v) = sigmoid(z_u . z_v), BCE against one
 untyped uniform negative per positive.  The encoder runs over the dense
 int8 (A+I) where it fits and has no duplicate edges (the ``dense``
 layout), else over the COO cached normalization (``coo``); ``pp_layout``
-decides, for the graph and the model alike.  Plain PyTorch: no kernel runs
-on this path.
+decides, for the graph and the model alike.  The dense encode runs kernel
+B12 (ops/pp_aggregate.py) under ``backend="pallas"``, the float32 product
+of the upcast (A+I) under ``"xla"``; the COO encode is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from tip_tpu_torch.nn.encoders import (
 )
 from tip_tpu_torch.sampling import bitmap_tensor, typed_negative_sampling
 from tip_tpu_torch.ops.dense_bce_sym import softplus
-from tip_tpu_torch.train.model import resolve_device
+from tip_tpu_torch.train.model import resolve_backend, resolve_device
 
 
 @dataclass(frozen=True)
@@ -85,13 +86,16 @@ class PPModel:
     n_prot: int
     layout: str  # pp_layout of the graph
     device: torch.device
+    backend: str = "pallas"  # train/model.py:resolve_backend
 
     @staticmethod
-    def for_data(cfg: PPConfig, data: TriGraphData, device=None) -> "PPModel":
+    def for_data(cfg: PPConfig, data: TriGraphData, device=None,
+                 backend: str = "auto") -> "PPModel":
         if data.n_prot * data.n_prot >= 2**31:
             raise ValueError("protein pair key space exceeds int32")
         return PPModel(cfg=cfg, n_prot=data.n_prot, layout=pp_layout(data),
-                       device=resolve_device(device))
+                       device=resolve_device(device),
+                       backend=resolve_backend(backend))
 
     def init(self, gen: torch.Generator) -> dict:
         return {"encoder": pp_encoder_init(gen, self.n_prot, self.cfg.hid1,
@@ -100,7 +104,8 @@ class PPModel:
     def encode(self, params, graph):
         if self.layout == "dense":
             return pp_encoder_apply_dense(params["encoder"], None,
-                                          graph["pp_a1"], graph["pp_dinv"])
+                                          graph["pp_a1"], graph["pp_dinv"],
+                                          self.backend)
         return pp_encoder_apply(params["encoder"], None, graph["pp_norm_index"],
                                 graph["pp_norm_weight"], self.n_prot)
 

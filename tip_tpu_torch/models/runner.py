@@ -44,8 +44,9 @@ def build_variant(variant: str, data: TriGraphData, device=None,
     ``device`` (default ``cuda``; raises without a GPU unless 'cpu').
     ``backend`` (train/model.py:resolve_backend) routes DR-DF's and DR-NN's
     sparse ops: 'pallas' (the default 'auto') through the kernels, 'xla'
-    through the JAX package's XLA branches; PR-HMP-NN and PP-GAE run no
-    kernel either way.
+    through the JAX package's XLA branches; PP-GAE's dense encode likewise
+    (kernel B12, or the float32 product of the upcast (A+I)); PR-HMP-NN
+    runs no kernel either way.
 
     ``dims`` overrides DDConfig's dimension fields (n_embed, n_hid1, n_hid2,
     num_base) for dr-df / dr-nn.  Their graph takes the layout
@@ -65,13 +66,14 @@ def build_variant(variant: str, data: TriGraphData, device=None,
             sampled=cfg.negatives == "sampled")
         return (DDModel.for_data(cfg, gs, dev, backend=backend), graph,
                 make_test_arrays(data, dev))
-    resolve_backend(backend)  # validated; the flat models have one route
+    resolve_backend(backend)  # validated; PR-HMP-NN has one route
     if variant == "pr-hmp-nn":
         graph, test = make_pd_graph_arrays(data, dev)
         return PDModel.for_data(PDConfig(), data, dev), graph, test
     if variant == "pp-gae":
         graph, test = make_pp_graph_arrays(data, dev)
-        return PPModel.for_data(PPConfig(), data, dev), graph, test
+        return (PPModel.for_data(PPConfig(), data, dev, backend=backend),
+                graph, test)
     raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
 
 

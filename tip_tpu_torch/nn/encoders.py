@@ -1,12 +1,13 @@
 """Encoders (port of tip_tpu/nn/encoders.py:36-100, 100-218 and 226-242).
 
-P-P: two GCN layers, dense over the int8 (A+I) where the graph ships it,
-else windowed over the P-P edge buffers (kernel B5, the JAX package's
-``backend="pallas"`` branch) or, with ``backend="xla"``, over the COO
-cached normalization (:func:`pp_encoder_apply`, plain ``index_add_``, the
-JAX package's XLA branch; PP-GAE's too, where its dense (A+I) cannot be
-built); P->D: the mean hierarchy conv; the drug embedding joined by
-concatenation (TIP-cat) or sum (TIP-add); D-D: both R-GCN layers from one
+P-P: two GCN layers, dense over the int8 (A+I) where the graph ships it
+(kernel B12, ops/pp_aggregate.py; with ``backend="xla"`` the float32
+product of its upcast), else windowed over the P-P edge buffers (kernel
+B5, the JAX package's ``backend="pallas"`` branch) or, with
+``backend="xla"``, over the COO cached normalization
+(:func:`pp_encoder_apply`, plain ``index_add_``, the JAX package's XLA
+branch; PP-GAE's too, where its dense (A+I) cannot be built); P->D: the
+mean hierarchy conv; the drug embedding joined by concatenation (TIP-cat) or sum (TIP-add); D-D: both R-GCN layers from one
 M-first contraction over the symmetric strips or the full count pages
 where the graph ships them, else two chunked layers (kernel B4, or the
 segment sum of the XLA branch).  Under a mesh (parallel/mesh.py) with
@@ -41,7 +42,6 @@ from tip_tpu_torch.nn.rgcn import (
     rgcn_apply_padded,
     rgcn_init,
 )
-from tip_tpu_torch.ops.matmul import bf16_round
 from tip_tpu_torch.parallel.ring import (
     ring_hierarchy_apply,
     ring_pp_encoder_apply,
@@ -65,11 +65,16 @@ def pp_encoder_apply(params, x_prot, norm_index, norm_weight, n_prot: int):
     return gcn_conv_apply(params["conv2"], h, norm_index, norm_weight, n_prot)
 
 
-def pp_encoder_apply_dense(params, x_prot, a1, dinv):
-    """Two dense GCN layers; the int8 (A+I) is upcast once for both."""
-    a1f = bf16_round(a1)
-    h = torch.relu(gcn_conv_apply_dense(params["conv1"], x_prot, a1f, dinv))
-    return gcn_conv_apply_dense(params["conv2"], h, a1f, dinv)
+def pp_encoder_apply_dense(params, x_prot, a1, dinv,
+                           backend: str = "pallas"):
+    """Two dense GCN layers over the resident int8 (A+I) (kernel B12 on the
+    card: no upcast copy); ``backend="xla"`` upcasts it once for both and
+    takes the plain float32 products."""
+    if backend == "xla":
+        a1 = a1.float()
+    h = torch.relu(gcn_conv_apply_dense(params["conv1"], x_prot, a1, dinv,
+                                        backend))
+    return gcn_conv_apply_dense(params["conv2"], h, a1, dinv, backend)
 
 
 def pp_encoder_apply_windowed(params, x_prot, graph, gs,
@@ -160,7 +165,7 @@ def _pp_encoder(params, x_prot, graph, cfg: ModelConfig, gs, backend: str):
     """The unsharded P-P GCN on the layout ``gs.pp_layout`` names."""
     if gs.pp_layout == "dense":
         return pp_encoder_apply_dense(params, x_prot, graph["pp_a1"],
-                                      graph["pp_dinv"])
+                                      graph["pp_dinv"], backend)
     if gs.pp_layout == "windowed" and backend == "xla":
         return pp_encoder_apply(params, x_prot, graph["pp_norm_index"],
                                 graph["pp_norm_weight"], gs.n_prot)

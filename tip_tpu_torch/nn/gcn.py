@@ -6,12 +6,13 @@ segment sum over the cached normalized edge list (``index_add_``; the JAX
 package runs it in XLA).  Dense: out = dinv * ((A+I) @ (dinv * (x W)))
 + b, the cached D^-1/2 (A+I) D^-1/2 normalization with the
 non-representable edge weights factored out of the streamed operand
-(data/packing.py:dense_pp_parts); the product takes bf16-rounded operands
-and accumulates in float32 (ops/matmul.py), as the JAX path does on both
-the TPU and the CPU.  Windowed: out = A_hat @ (x W) + b over the
-pre-windowed edge buffers, kernel B5 (ops/typed_segment.py).  ``x=None``
-is the identity-feature fast path: layer 1's weight acts as an embedding
-table.
+(data/packing.py:dense_pp_parts); the product reads the resident int8
+(A+I) with the bf16-rounded operand and accumulates in float32
+(ops/pp_aggregate.py: kernel B12 on the card, no float32 copy of the
+matrix), as the JAX path does on both the TPU and the CPU.  Windowed:
+out = A_hat @ (x W) + b over the pre-windowed edge buffers, kernel B5
+(ops/typed_segment.py).  ``x=None`` is the identity-feature fast path:
+layer 1's weight acts as an embedding table.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from tip_tpu_torch.nn import initializers as init
-from tip_tpu_torch.ops.matmul import bf16_round
+from tip_tpu_torch.ops.pp_aggregate import pp_aggregate
 from tip_tpu_torch.ops.segment import weighted_gather_sum
 from tip_tpu_torch.ops.typed_segment import gcn_spmm_padded
 
@@ -44,14 +45,14 @@ def gcn_conv_apply(params, x, norm_index, norm_weight, n_nodes: int):
     return out
 
 
-def gcn_conv_apply_dense(params, x, a1, dinv):
-    """x [N, in] or None; a1: the (A+I) matrix [N, N] as int8, or its exact
-    float32 upcast (a caller applying several layers upcasts once); dinv
-    [N] float32."""
+def gcn_conv_apply_dense(params, x, a1, dinv, backend: str = "pallas"):
+    """x [N, in] or None; a1: the symmetric (A+I) matrix [N, N] as int8
+    (kernel B12 on the card), or under ``backend="xla"``, which launches no
+    kernel and takes the float32 product, that or its exact float32 upcast
+    (a caller applying both layers upcasts once); dinv [N] float32."""
     h = params["weight"] if x is None else x @ params["weight"]
-    # a float32 a1 holds 0/1 already: only the small operand is rounded
-    a = a1 if a1.dtype == torch.float32 else bf16_round(a1)
-    agg = a @ bf16_round(h * dinv[:, None])
+    hb = (h * dinv[:, None]).to(torch.bfloat16)
+    agg = a1.float() @ hb.float() if backend == "xla" else pp_aggregate(a1, hb)
     out = agg * dinv[:, None]
     if "bias" in params:
         out = out + params["bias"]
