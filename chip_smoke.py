@@ -29,7 +29,11 @@ Phases, each fatal on failure:
      dense strips, B2 on the full float32 and bf16 pages and B3 on DR-NN's
      uint8, bf16 and float32 pages, the dense paths' shapes, B2 and B3
      also on float32 pages holding counts past 256; B4-B10 on the
-     chunked buffers, B6 and B7 also against B8 and B9);
+     chunked buffers, B6 and B7 also against B8 and B9); then Decagon's
+     graph (make_decagon_graph_arrays: the uint8 pages): B14 at d = 64 and
+     32 forward (bf16 and exact operand) and backward, each with a planted
+     fault above its bound, B13 on the uint8 pages, fused and value-only,
+     and on bf16-rounded operands past its tolerance;
   5. the dense TIP paths: train TIP-cat at full width for a few Adam steps
      on the Decagon-shaped graph through tip_tpu_torch.train.loop.train,
      then the final eval, with every kernel launch counter set to 0 just
@@ -57,8 +61,9 @@ Phases, each fatal on failure:
      train_variant) on the same graph, each at the default widths, counters
      as in 5: DR-NN on the strips and uint8 pages (B3; profiled), DR-NN
      with float32 matmuls pinned ("dr-nn pages": B3 on the float32 pages),
-     then DR-DF (B1), PR-HMP-NN (no kernel) and PP-GAE (B12), and DR-DF
-     with float32 matmuls pinned ("dr-df pages", B2);
+     then DR-DF (B1), PR-HMP-NN (no kernel) and PP-GAE (B12), DR-DF
+     with float32 matmuls pinned ("dr-df pages", B2), and Decagon
+     ("decagon dense": B14, B13, B12; profiled);
   7. the decoder A/B entry point (tip_tpu_torch/scripts/decoder_ab.py) on
      the same graph in float32, counters as in 5: v1 (B6, B7) against v2
      (B8, B9) against a plain gather, the sampler (B10), the positives' BCE;
@@ -945,6 +950,217 @@ def check_pp_aggregate(graph, gs, data, dev, timed: bool = True) -> dict:
     return rep
 
 
+# B14's forward bound, in units of 2^-24 sum |terms| of an element (both
+# forwards: bf16 operand and exact), between the kernel's readings (0.47
+# to 0.48 on an NVIDIA H100 80GB HBM3) and the least planted fault's (13.6,
+# the exact forward on a two-term operand)
+B14_FWD_UNITS = 2.5
+
+
+def check_rel_aggregate(graph, gs, data, dev, timed: bool = True) -> dict:
+    """Kernel B14 against its plain version on the Decagon-shaped uint8
+    pages (R = 1097, n = 645) at both of Decagon's widths (d = 64, 32): the
+    forward on a random operand Y [R, n, d], rounded to bf16 on both sides
+    and exact (float32, the pinned-float32 route); the backward on a
+    float32 gradient of spread exponents (three exact bf16 terms).  Error
+    in units of 2^-24 sum |terms| of each element, bounds set from the
+    readings: the forward sums R (n + 1) exact products in float32 in
+    another order than the plain version, and its errors largely cancel
+    over R relations (readings 0.47 to 0.48 both ways: bound
+    B14_FWD_UNITS = 2.5); the backward sums n + 1 products an element, each
+    relation alone, bound 4 sqrt(n + 1) = 101.7 (readings 32.9 to 33.8, as
+    the roundings of a random walk).  Planted, each must read above its
+    bound: the exact forward against the bf16 plain version (a kernel that
+    skipped the stated rounding; 2,398 to 2,810); the exact forward and the
+    backward on hi + mid of the operand's three-term split (what a kernel
+    that dropped the lo term computes, a 16-bit operand against the stated
+    float32 one; 13.6 to 16.4 and 499 to 506).  Two runs are
+    bit-equal.  Timed: both widths each way (the four passes of a step),
+    the exact forward, the plain version, and the library route: the
+    pages upcast to float32, then torch.bmm."""
+    import torch
+
+    from tip_tpu_torch.ops import pp_aggregate as ppa
+    from tip_tpu_torch.ops import rel_aggregate as b14
+
+    pages, s = graph["dd_adj_u8"], graph["dd_rel_s"]
+    r, n, _ = pages.shape
+    bwd_units = 4 * math.sqrt(n + 1)
+    gen = torch.Generator().manual_seed(29)
+    rep = {"n": n, "n_et": r, "fwd_units_bound": B14_FWD_UNITS,
+           "bwd_units_bound": bwd_units}
+    worst, ins = 0.0, {}
+
+    def units(got, want, scale):
+        return float(((got.double() - want.double()).abs()
+                      / (scale.double() * 2.0**-24).clamp_min(1e-300)).max())
+
+    def two_terms(x):  # hi + mid of the exact three-term split
+        hi, mid, _ = ppa.split3_plain(x)
+        return hi + mid
+
+    for d in (64, 32):
+        y = torch.randn(r, n, d, generator=gen).to(dev)
+        g = (torch.randn(n, d, generator=gen) * torch.exp2(torch.randint(
+            -8, 9, (n, d), generator=gen).float())).to(dev)
+        ins[d] = (y, g)
+        for what, exact in (("fwd", False), ("exact", True)):
+            k = b14.rel_aggregate_cuda(pages, s, y=y, exact=exact)
+            p = b14.rel_aggregate_plain(pages, s, y, rounded=not exact)
+            scale = b14.rel_aggregate_plain(pages, s, y.abs(),
+                                            rounded=not exact)
+            u = units(k, p, scale)
+            check(u <= B14_FWD_UNITS,
+                  f"B14 d={d} {what}: {u} units, bound {B14_FWD_UNITS}")
+            rep[f"d{d}_{what}_units"] = u
+            check(torch.equal(k, b14.rel_aggregate_cuda(pages, s, y=y,
+                                                        exact=exact)),
+                  f"B14 d={d} {what} differs between two runs")
+            worst = max(worst, max_err(k, p)[0])
+            if exact:
+                pr = b14.rel_aggregate_plain(pages, s, y)
+                unrounded = units(k, pr, b14.rel_aggregate_plain(
+                    pages, s, y.abs()))
+                check(unrounded > B14_FWD_UNITS,
+                      f"B14 d={d}: the exact forward reads {unrounded} units "
+                      f"of the bf16 version, within {B14_FWD_UNITS}")
+                rep[f"d{d}_exact_vs_bf16_units"] = unrounded
+                two = units(b14.rel_aggregate_cuda(
+                    pages, s, y=two_terms(y), exact=True), p, scale)
+                check(two > B14_FWD_UNITS, f"B14 d={d}: a two-term exact "
+                      f"forward reads {two} units, within {B14_FWD_UNITS}")
+                rep[f"d{d}_exact_two_term_units"] = two
+            del k, p, scale
+        kb = b14.rel_aggregate_cuda(pages, s, g=g)
+        pb = b14.rel_aggregate_t_plain(pages, s, g)
+        scale = b14.rel_aggregate_t_plain(pages, s, g.abs())
+        u = units(kb, pb, scale)
+        check(u <= bwd_units, f"B14 d={d} bwd: {u} units, bound "
+              f"{bwd_units}")
+        rep[f"d{d}_bwd_units"] = u
+        worst = max(worst, max_err(kb, pb)[0])
+        two = units(b14.rel_aggregate_cuda(pages, s, g=two_terms(g)), pb,
+                    scale)
+        check(two > bwd_units, f"B14 d={d}: a two-term backward reads "
+              f"{two} units, within the bound {bwd_units}")
+        rep[f"d{d}_bwd_two_term_units"] = two
+        del kb, pb, scale
+    rep["max_abs_err"] = worst
+    if not timed:
+        return rep
+    (y, g), (y2, g2) = ins[64], ins[32]
+    rep["rc"] = b14.relation_chunk(n, r, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    rep["ms"] = cuda_ms(lambda: b14.rel_aggregate_cuda(pages, s, y=y),
+                        reps=20, primed=True)
+    rep["d32_ms"] = cuda_ms(lambda: b14.rel_aggregate_cuda(pages, s, y=y2),
+                            reps=20, primed=True)
+    rep["bwd_d64_ms"] = cuda_ms(lambda: b14.rel_aggregate_cuda(pages, s, g=g),
+                                reps=20, primed=True)
+    rep["bwd_d32_ms"] = cuda_ms(lambda: b14.rel_aggregate_cuda(
+        pages, s, g=g2), reps=20, primed=True)
+    rep["step_ms"] = (rep["ms"] + rep["d32_ms"] + rep["bwd_d64_ms"]
+                      + rep["bwd_d32_ms"])
+    rep["exact_d64_ms"] = cuda_ms(lambda: b14.rel_aggregate_cuda(
+        pages, s, y=y, exact=True), reps=20, primed=True)
+    rep["breakdown"] = kernel_breakdown(
+        lambda: b14.rel_aggregate_cuda(pages, s, y=y), reps=5)
+    rep["plain_ms"] = cuda_ms(lambda: b14.rel_aggregate_plain(pages, s, y),
+                              reps=3, warmup=1)
+    want = b14.rel_aggregate_plain(pages, s, y, rounded=False)
+
+    def library():
+        sy = s[:, :, None] * y
+        return (s[:, :, None] * (torch.bmm(pages.float(), sy) + sy)).sum(0)
+
+    rep["library_ms"] = library_call(library, want, 1e-5, "B14")
+    for tag, d, terms in (("", 64, 1), ("bwd_", 64, 3), ("exact_", 64, 3)):
+        big, small = 4 * r * n * d, 4 * n * d
+        t_bytes = (r * n * n + 4 * r * n + big + small) / PEAK_BYTES_PER_S
+        t_ops = terms * 2.0 * r * n * n * d / PEAK_BF16_FLOP_PER_S
+        rep[f"{tag}bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        rep[f"{tag}bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    rep["roofline_pct"] = 100 * rep["bound_ms"] / rep["ms"]
+    rep["bwd_roofline_pct"] = 100 * rep["bwd_bound_ms"] / rep["bwd_d64_ms"]
+    rep["exact_roofline_pct"] = (100 * rep["exact_bound_ms"]
+                                 / rep["exact_d64_ms"])
+    return rep
+
+
+def check_dense_bce_dedicom(graph, gs, data, dev, timed: bool = True) -> dict:
+    """Kernel B13 against its plain version on the Decagon-shaped uint8
+    pages (d = 32, the thresholds of the train graph): the loss and dz, dd,
+    dR within 1e-5 of the plain version (float32 sums in other orders;
+    relative, of each gradient's largest element).  The kernel on bf16-rounded operands reads past that tolerance (its dots
+    are float32-exact, and the check can tell).  One NaN in z gives a NaN
+    loss; two runs are bit-equal.  Timed: fused and value-only, the plain
+    version."""
+    import torch
+
+    from tip_tpu_torch.ops import dense_bce_dedicom as b13
+
+    pages, q = graph["dd_adj_u8"], graph["dd_neg_q"]
+    r, n, _ = pages.shape
+    d = 32
+    gen = torch.Generator().manual_seed(31)
+    z = (torch.randn(n, d, generator=gen) * 0.5).to(dev)
+    dvec = torch.randn(r, d, generator=gen).to(dev)
+    rmat = (torch.randn(d, d, generator=gen) / math.sqrt(d)).to(dev)
+    seed, tol = 0x1234ABCD, 1e-5
+
+    def gaps(got, want):
+        return [abs(float(got[0]) - float(want[0])) / abs(float(want[0]))] + [
+            float((a.double() - b.double()).abs().max()
+                  / b.double().abs().max()) for a, b in zip(got[1:], want[1:])]
+
+    rep = {"n": n, "n_et": r, "d": d, "tol": tol}
+    want = b13.dense_bce_dedicom_plain(dvec, rmat, z, pages, q, seed, True)
+    got = b13.dense_bce_dedicom_cuda(dvec, rmat, z, pages, q, seed, True)
+    gp = gaps(got, want)
+    check(max(gp) <= tol, f"B13 uint8: gaps {gp}, tolerance {tol}")
+    rep["uint8_gaps"] = gp
+    worst = max(max_err(a, b)[0] for a, b in zip(got, want))
+    again = b13.dense_bce_dedicom_cuda(dvec, rmat, z, pages, q, seed, True)
+    got = b13.dense_bce_dedicom_cuda(dvec, rmat, z, pages, q, seed, True)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "B13 differs between two runs")
+    rnd = [t.to(torch.bfloat16).float() for t in (dvec, rmat, z)]
+    planted = gaps(b13.dense_bce_dedicom_cuda(*rnd, pages, q, seed, True),
+                   want)
+    check(max(planted) > tol, f"B13 on bf16 operands reads {planted}, "
+          f"within {tol}")
+    rep["bf16_operands_gaps"] = planted
+    zn = z.clone()
+    zn[n // 2, 3] = float("nan")
+    check(math.isnan(float(b13.dense_bce_dedicom_cuda(dvec, rmat, zn, pages,
+                                                       q, seed))),
+          "B13: a NaN in z did not reach the loss")
+    rep["max_abs_err"] = worst
+    if not timed:
+        return rep
+    rep["ms"] = cuda_ms(lambda: b13.dense_bce_dedicom_cuda(
+        dvec, rmat, z, pages, q, seed, True), reps=10, primed=True)
+    rep["value_ms"] = cuda_ms(lambda: b13.dense_bce_dedicom_cuda(
+        dvec, rmat, z, pages, q, seed), reps=10, primed=True)
+    rep["breakdown"] = kernel_breakdown(lambda: b13.dense_bce_dedicom_cuda(
+        dvec, rmat, z, pages, q, seed, True), reps=3)
+    rep["plain_ms"] = cuda_ms(lambda: b13.dense_bce_dedicom_plain(
+        dvec, rmat, z, pages, q, seed, True), reps=3, warmup=1)
+    cells = r * n * n
+    args = n * d + r * d + d * d
+    nb = cells + 4 * r * 3 + 4 * args + 4 * (1 + args)
+    t_bytes = nb / PEAK_BYTES_PER_S
+    t_tensor = 3 * (6.0 * d * cells + 8.0 * r * n * d * d) / PEAK_TF32_FLOP_PER_S
+    t_simt = 20.0 * cells / PEAK_F32_FLOP_PER_S
+    t = max(t_bytes, t_tensor, t_simt)
+    rep["bound_ms"] = 1e3 * t
+    rep["bound_by"] = ("bytes" if t == t_bytes else "tensor cores (3xTF32)"
+                       if t == t_tensor else "SIMT elementwise")
+    rep["roofline_pct"] = 100 * rep["bound_ms"] / rep["ms"]
+    rep["library_ms"] = None  # no single PyTorch call computes it
+    return rep
+
+
 def check_distmult_sddmm(graph, gs, data, dev, timed: bool = True) -> dict:
     """Kernel B8 forward (logits) and backward (dz, dw) against the plain
     version at d = 16: the forward with its z table where the wrapper puts
@@ -1549,6 +1765,8 @@ KERNEL_CHECKS = {
     "distmult_sddmm_v1": ("chunked", check_distmult_sddmm_v1),
     "nn_sddmm_v1": ("chunked", check_nn_sddmm_v1),
     "pp_aggregate": ("dense", check_pp_aggregate),
+    "rel_aggregate": ("decagon", check_rel_aggregate),
+    "dense_bce_dedicom": ("decagon", check_dense_bce_dedicom),
 }
 
 
@@ -1738,7 +1956,10 @@ def expected_launches(path: str, steps: int, eval_rank: bool = True,
     ring's), B12 2 where it is dense (the dense rows' runs).
     B12 wherever the P-P side is the dense (A+I) of one process (every TIP
     path on the strips or the pages, and PP-GAE): 2 launches forward and 2
-    backward a step, the eval's encode 2."""
+    backward a step, the eval's encode 2 (Decagon's d = 64 layer is two
+    column blocks of 32: the same counts).  Decagon on the strips' uint8
+    pages: B14 once a layer forward and backward (4 a step, the eval's 2),
+    B13 once a step."""
     ev, rm = 2 * eval_rank, 2 * steps * remat
     pp = {"pp_aggregate": 4 * steps + ev}
     sharded = {"typed_neg_sampler": steps, "distmult_sddmm": 4 * steps,
@@ -1789,6 +2010,8 @@ def expected_launches(path: str, steps: int, eval_rank: bool = True,
                           "typed_neighbor_sum": 4 * steps + ev},
         "pr-hmp-nn flat": {},
         "pp-gae dense": pp,
+        "decagon dense": {"rel_aggregate": 4 * steps + ev,
+                          "dense_bce_dedicom": steps, **pp},
     }[path]
 
 
@@ -1929,6 +2152,11 @@ def run_variant(variant: str, data, dev, steps: int,
                   and "dd_adj_u8" not in graph,
                   f"{variant} pages: not the float32 pages alone")
         n_rel = data.n_et
+    elif variant == "decagon":
+        check(model.gs.dd_layout == "strips_pages" and "dd_adj_u8" in graph
+              and "dd_adj_sym" not in graph,
+              "decagon: not the uint8 pages alone")
+        layout, n_rel = "dense", data.n_et
     else:
         layout = "flat" if variant == "pr-hmp-nn" else model.layout
         n_rel = data.n_et if variant == "pr-hmp-nn" else 1
@@ -2952,8 +3180,11 @@ KERNEL_PATH = {
     "nn_sddmm_v1": "decoder ab",
     "ring_spmm": "tip sharded ring",
     "pp_aggregate": "tip dense",
+    "rel_aggregate": "decagon dense",
+    "dense_bce_dedicom": "decagon dense",
 }
 PATH_CHECKS = {"tip dense": "decagon_dense", "tip pages": "decagon_dense",
+               "decagon dense": "decagon_trigraph",
                "dr-nn dense": "decagon_dense", "tip chunked": "main",
                "tip-nn dense": "decagon_chunked",
                "decoder ab": "decagon_chunked",
@@ -2968,6 +3199,7 @@ def main() -> int:
         return 1
     from tip_tpu_torch import kernels, native
     from tip_tpu_torch.data import build_trigraph, synthetic_trigraph
+    from tip_tpu_torch.models.decagon import make_decagon_graph_arrays
     from tip_tpu_torch.ops.matmul import set_matmul_precision
     from tip_tpu_torch.scripts.decoder_ab import DECAGON_SHAPE
     from tip_tpu_torch.train.model import make_graph_arrays
@@ -3023,6 +3255,12 @@ def main() -> int:
                                                  data, dev)
         del graph
         torch.cuda.empty_cache()
+    # Decagon's uint8 pages: B14 and B13
+    graph, gs = make_decagon_graph_arrays(data, dev)
+    checks["decagon_trigraph"] = run_checks("decagon", "decagon", graph, gs,
+                                            data, dev)
+    del graph
+    torch.cuda.empty_cache()
     mark("decagon graph, kernel checks")
 
     launches = {"tip dense": run_path("tip dense", data, dev, TRAIN_STEPS,
@@ -3059,6 +3297,8 @@ def main() -> int:
     for variant in ("dr-df", "pr-hmp-nn", "pp-gae"):
         run_variant(variant, data, dev, OTHER_STEPS)
     run_variant("dr-df", data, dev, OTHER_STEPS, matmul_precision="highest")
+    launches["decagon dense"] = run_variant("decagon", data, dev,
+                                            VARIANT_STEPS, profiled=True)
     mark("dense paths, variants")
     launches["decoder ab"] = run_decoder_ab(data, dev)
     mark("decoder ab")

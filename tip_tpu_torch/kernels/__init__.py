@@ -9,8 +9,9 @@ with ``ctypes``, and never imported at module import: a machine without
 
 ``KERNELS`` lists every kernel with the TPU kernel it replaces (B12,
 ``pp_aggregate``, replaces no ``pl.pallas_call``: the XLA dot of the dense
-P-P GCN).  Each CUDA wrapper adds one to ``LAUNCHES[name]`` where it
-launches its kernel (:func:`launch` does so for it), so a run can show
+P-P GCN; B13 and B14, Decagon's DEDICOM loss and relation convolution,
+replace nothing: the JAX package has no Decagon model).  Each CUDA wrapper
+adds one to ``LAUNCHES[name]`` where it launches its kernel (:func:`launch` does so for it), so a run can show
 that its main path went through the kernels (``reset_launch_counts``
 before, ``LAUNCHES`` after).
 """
@@ -103,6 +104,16 @@ KERNELS = {
         name="pp_aggregate",
         source="tip_tpu_torch/csrc/pp_aggregate.cu",
         replaces="tip_tpu/nn/gcn.py:70",
+    ),
+    "dense_bce_dedicom": KernelSpec(
+        name="dense_bce_dedicom",
+        source="tip_tpu_torch/csrc/dense_bce_dedicom.cu",
+        replaces="none (no Decagon model in the JAX package)",
+    ),
+    "rel_aggregate": KernelSpec(
+        name="rel_aggregate",
+        source="tip_tpu_torch/csrc/rel_aggregate.cu",
+        replaces="none (no Decagon model in the JAX package)",
     ),
 }
 

@@ -1,14 +1,16 @@
 """CLI entry: ``python -m tip_tpu_torch.models --variant dr-df [...]``.
 
 Trains and evaluates one of the reference's experiment variants (DR-DF,
-DR-NN, PR-HMP-NN, PP-GAE) on the GPU (``cuda``) unless ``--cpu`` is given;
-without a GPU and without ``--cpu`` it stops with an error.  ``--synthetic``
+DR-NN, PR-HMP-NN, PP-GAE), or Decagon (``--variant decagon``), on the GPU
+(``cuda``) unless ``--cpu`` is given; without a GPU and without ``--cpu``
+it stops with an error.  ``--synthetic``
 trains on a small random tri-graph; otherwise the Decagon files are read
 from ``--data-dir`` (or ``$TIP_DATA_DIR``), ``--et-band LOW,HIGH`` keeps the
 relations whose symmetric nnz lies in (LOW, HIGH), and the packed graph
 comes from the npz cache (data/cache.py).  ``$JAX_DEFAULT_MATMUL_PRECISION``
 set to ``float32`` or ``highest`` asks for exact float32 matmuls, as it does
-of the JAX package's CLI: DR-DF and DR-NN then take the float32 pages.
+of the JAX package's CLI: DR-DF and DR-NN then take the float32 pages,
+and Decagon keeps its D-D convolution's operand float32 (kernel B14).
 ``--report PATH`` writes the named per-relation metrics of the D-D variants
 (analysis/report.py:write_report; names from ``--data-dir``).
 ``--backend {auto,xla,pallas}`` routes DR-DF's and DR-NN's sparse ops and
@@ -52,7 +54,8 @@ def main(argv=None) -> dict:
              "mono features; 'sqrt' is its commented alternative (line 29) "
              "that trains")
     dims = parser.add_argument_group(
-        "dims", "DDConfig dimension overrides (dr-df / dr-nn only)")
+        "dims", "dimension overrides: DDConfig's (dr-df / dr-nn), "
+        "DecagonConfig's --n-hid1, --n-hid2 (decagon)")
     for flag in ("n-embed", "n-hid1", "n-hid2", "num-base"):
         dims.add_argument(f"--{flag}", type=int, default=None)
     parser.add_argument("--synthetic", action="store_true",
@@ -91,6 +94,8 @@ def main(argv=None) -> dict:
     dim_over = {name: getattr(args, name)
                 for name in ("n_embed", "n_hid1", "n_hid2", "num_base")
                 if getattr(args, name) is not None}
+    if args.variant == "decagon" and set(dim_over) - {"n_hid1", "n_hid2"}:
+        parser.error("decagon takes --n-hid1 and --n-hid2 only")
     model, graph, test = build_variant(
         args.variant, data, device, kernel_dtype=args.kernel_dtype,
         matmul_precision=os.environ.get("JAX_DEFAULT_MATMUL_PRECISION",

@@ -1,7 +1,8 @@
 """One training runner for the non-TIP model families (port of
 tip_tpu/models/runner.py): ``python -m tip_tpu_torch.models --variant
 {dr-df,dr-nn,pr-hmp-nn,pp-gae}`` reproduces the reference's four-variant
-table.
+table; ``--variant decagon`` trains Decagon (models/decagon.py), which the
+JAX package does not have.
 
 The loop is train/loop.py's: ``torch.optim.Adam`` with optax's eps
 placement, each epoch's negatives keyed by ``step_seed(seed, epoch)``, a
@@ -22,6 +23,11 @@ from tip_tpu_torch import trace
 from tip_tpu_torch.convert import leaves
 from tip_tpu_torch.data.packing import TriGraphData
 from tip_tpu_torch.models.dd import DDConfig, DDModel, make_dd_graph_arrays
+from tip_tpu_torch.models.decagon import (
+    DecagonConfig,
+    DecagonModel,
+    make_decagon_graph_arrays,
+)
 from tip_tpu_torch.models.pd import PDConfig, PDModel, make_pd_graph_arrays
 from tip_tpu_torch.models.pp import PPConfig, PPModel, make_pp_graph_arrays
 from tip_tpu_torch.ops.matmul import set_matmul_precision
@@ -33,7 +39,7 @@ from tip_tpu_torch.train.model import (
     resolve_device,
 )
 
-VARIANTS = ("dr-df", "dr-nn", "pr-hmp-nn", "pp-gae")
+VARIANTS = ("dr-df", "dr-nn", "pr-hmp-nn", "pp-gae", "decagon")
 
 
 def build_variant(variant: str, data: TriGraphData, device=None,
@@ -54,8 +60,27 @@ def build_variant(variant: str, data: TriGraphData, device=None,
     ``matmul_precision`` (the JAX package's
     ``jax_default_matmul_precision``): the strips within the dense budget,
     the float32 pages where float32 matmuls are pinned or a count passes
-    256, the chunked buffers beyond the budget."""
+    256, the chunked buffers beyond the budget.
+
+    decagon: ``dims`` overrides DecagonConfig's n_hid1, n_hid2; the D-D
+    side takes the strips' uint8 pages ('strips_pages', kernels B14 and
+    B13) within the dense budget, where float32 matmuls are pinned too
+    (B14's operand then float32); beyond the budget it raises (no chunked
+    route)."""
     dev = resolve_device(device)
+    if variant == "decagon":
+        dense_dtype = preferred_dense_dtype(data, kernel_dtype,
+                                            matmul_precision)
+        if dense_dtype is None:
+            raise ValueError("Decagon runs on the dense D-D layouts; this "
+                             "graph is past the dense budget (the chunked "
+                             "layout has no Decagon route)")
+        graph, gs = make_decagon_graph_arrays(data, dev)
+        return (DecagonModel.for_data(
+            DecagonConfig(**(dims or {})), gs, dev, backend=backend,
+            rel_precision="float32" if dense_dtype == "float32"
+            else "bfloat16"),
+                graph, make_test_arrays(data, dev))
     if variant in ("dr-df", "dr-nn"):
         cfg = DDConfig(decoder="distmult" if variant == "dr-df" else "nn",
                        kernel_dtype=kernel_dtype, **(dims or {}))
