@@ -1094,7 +1094,8 @@ def check_dense_bce_dedicom(graph, gs, data, dev, timed: bool = True) -> dict:
     relative, of each gradient's largest element).  The kernel on bf16-rounded operands reads past that tolerance (its dots
     are float32-exact, and the check can tell).  One NaN in z gives a NaN
     loss; two runs are bit-equal.  Timed: fused and value-only, the plain
-    version."""
+    version; beside the launch-by-launch breakdown the tile kernel's
+    launch (grid, threads, dynamic shared memory)."""
     import torch
 
     from tip_tpu_torch.ops import dense_bce_dedicom as b13
@@ -1142,6 +1143,7 @@ def check_dense_bce_dedicom(graph, gs, data, dev, timed: bool = True) -> dict:
         dvec, rmat, z, pages, q, seed, True), reps=10, primed=True)
     rep["value_ms"] = cuda_ms(lambda: b13.dense_bce_dedicom_cuda(
         dvec, rmat, z, pages, q, seed), reps=10, primed=True)
+    rep["launch"] = b13.launch_config(n, r, d)
     rep["breakdown"] = kernel_breakdown(lambda: b13.dense_bce_dedicom_cuda(
         dvec, rmat, z, pages, q, seed, True), reps=3)
     rep["plain_ms"] = cuda_ms(lambda: b13.dense_bce_dedicom_plain(

@@ -247,9 +247,9 @@ def b13_oracle(dvec, rmat, z, pages, q, seed):
     return loss.detach(), z.grad, dvec.grad, rmat.grad
 
 
-def b13_inputs(r, n, d, seed):
+def b13_inputs(r, n, d, seed, p=0.1):
     g = torch.Generator().manual_seed(seed)
-    pages = random_pages(r, n, seed)
+    pages = random_pages(r, n, seed, p)
     z = torch.randn(n, d, generator=g) * 0.5
     dvec = torch.randn(r, d, generator=g)
     rmat = torch.randn(d, d, generator=g) / math.sqrt(d)
@@ -290,6 +290,16 @@ def test_bf16_operands_in_b13_fail_its_tolerance():
     rnd = [t.to(torch.bfloat16).float() for t in (dvec, rmat, z)]
     got = b13.dense_bce_dedicom_plain(*rnd, pages, q, SEED, grads=True)
     assert max(b13_gaps(got, want)) > 100 * B13_TOL
+
+
+def test_b13_scratch_at_decagon_shape_is_no_larger():
+    """The fused launch's partials at Decagon's shape (645 drugs, 1,097
+    relations, d = 32) stay within the 24,158,772 floats of the mma.sync
+    kernel: they live at the step's peak."""
+    size = b13.scratch_floats(645, 1097, 32)
+    assert set(size) == {"loss_part", "dd_part", "dz_part", "dr_part"}
+    assert sum(size.values()) <= 24_158_772
+    assert size["loss_part"] == 36 * 69  # one a block: 6 x 6 tiles, 69 chunks
 
 
 def test_b13_padded_width():
@@ -381,13 +391,19 @@ def test_on_the_card_b14_at_every_width(n, d):
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("n", [50, 300])
+@pytest.mark.parametrize("r", [1, 5, b13.RC + 1])
+@pytest.mark.parametrize("n", [2, 50, 63, 64, 65, 129, 300, 645])
 @pytest.mark.parametrize("d", [1, 8, 13, 16, 24, 32])
-def test_on_the_card_b13_at_every_width(n, d):
+def test_on_the_card_b13_at_every_width(n, d, r):
     """The loss and the three gradients within B13_TOL of the float64
-    oracle and of the plain version on the card."""
+    oracle and of the plain version on the card: n on both sides of the
+    tile's warpgroup (64 rows), its logit block (32 columns) and its edge
+    (128), one relation and one more than a block's chunk (n = 2: the
+    smallest plane with an edge, denser pages so that every case has
+    one)."""
     dev = card_device()
-    dvec, rmat, z, pages, q = (t.to(dev) for t in b13_inputs(5, n, d, n + d))
+    dvec, rmat, z, pages, q = (t.to(dev) for t in b13_inputs(
+        r, n, d, n + d, p=0.6 if n < 8 else 0.1))
     got = b13.dense_bce_dedicom_cuda(dvec, rmat, z, pages, q, SEED,
                                      grads=True)
     want = b13_oracle(dvec, rmat, z, pages, q, SEED)
@@ -395,6 +411,29 @@ def test_on_the_card_b13_at_every_width(n, d):
     plain = b13.dense_bce_dedicom_plain(dvec, rmat, z, pages, q, SEED,
                                         grads=True)
     assert max(b13_gaps(got, plain)) < B13_TOL
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("n,d", [(65, 16), (645, 32)])
+def test_on_the_card_b13_reruns_are_bit_equal(n, d):
+    """Fixed-order partial sums: two fused launches give the same bits."""
+    dev = card_device()
+    args = [t.to(dev) for t in b13_inputs(b13.RC + 1, n, d, 7)]
+    one = b13.dense_bce_dedicom_cuda(*args, SEED, grads=True)
+    two = b13.dense_bce_dedicom_cuda(*args, SEED, grads=True)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("n,d", [(65, 8), (129, 16), (645, 32)])
+def test_on_the_card_b13_value_only_loss_is_the_fused_loss(n, d):
+    """The value-only launch adds the same cells in the same order as the
+    fused one: the two losses are bit-equal."""
+    dev = card_device()
+    args = [t.to(dev) for t in b13_inputs(b13.RC + 1, n, d, 9)]
+    fused = b13.dense_bce_dedicom_cuda(*args, SEED, grads=True)[0]
+    value = b13.dense_bce_dedicom_cuda(*args, SEED, grads=False)
+    assert torch.equal(fused, value)
 
 
 @pytest.mark.card

@@ -18,7 +18,8 @@ The field and the thresholds are those of kernel B2 (ops/dense_bce.py):
 the counter hash ``u24_field(seed, t, i, j)`` over the [n, n] plane and
 ``poisson_neg_thresholds``.  The JAX package has no Decagon model, so B13
 replaces no ``pl.pallas_call``; its dots are float32-exact (3xTF32 on the
-tensor cores, csrc/dense_bce_dedicom.cu).
+tensor cores: mma.sync beside the cell math, warpgroup MMA for the
+gradients' products; csrc/dense_bce_dedicom.cu).
 
 CPU tensors take :func:`dense_bce_dedicom_plain`; CUDA tensors launch the
 kernel or raise (``plain`` takes the plain version on any device).
@@ -127,6 +128,34 @@ def padded_width(d: int) -> int:
                      "whole z rows of a tile in shared memory")
 
 
+def scratch_floats(n: int, n_et: int, d: int) -> dict:
+    """Float32 scratch a fused launch allocates for its partials, by part
+    (the C entry point's sizes): 128 x 128 tiles, RC relations a block."""
+    nb = -(-n // 128)
+    n_chunks = -(-n_et // RC)
+    return {"loss_part": nb * nb * n_chunks,
+            "dd_part": nb * nb * n_et * d,
+            "dz_part": n_chunks * nb * nb * 2 * 128 * d,
+            "dr_part": nb * nb * n_chunks * d * d}
+
+
+def launch_config(n: int, n_et: int, d: int, grads: bool = True) -> dict:
+    """The tile kernel's grid, threads a block and dynamic shared memory
+    for an [n_et, n, n] launch at width d (padded as the wrapper pads),
+    from the built library (CUDA only)."""
+    import ctypes
+
+    fn = kernels.load(KERNEL).tip_dense_bce_dedicom_config
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    err = fn(n, n_et, padded_width(d), RC, int(grads), ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"{KERNEL}: no configuration for width {d}")
+    return {"blocks": [out[0], out[1]], "threads": out[2],
+            "smem_bytes": out[3]}
+
+
 def dense_bce_dedicom_cuda(dvec, rmat, z, pages, q, seed: int,
                            grads: bool = False):
     """Launch csrc/dense_bce_dedicom.cu on CUDA tensors, at any width up to
@@ -147,15 +176,14 @@ def dense_bce_dedicom_cuda(dvec, rmat, z, pages, q, seed: int,
         loss, gz, gd, gr = out
         return loss, gz[:, :d], gd[:, :d], gr[:d, :d]
     n_et, n, d = _check_cuda_args(dvec, rmat, z, pages, q)
-    nb = -(-n // 128)
-    n_chunks = -(-n_et // RC)
+    size = scratch_floats(n, n_et, d)
     f32 = dict(dtype=torch.float32, device=pages.device)
-    loss_part = torch.empty(nb * nb * n_chunks, **f32)
+    loss_part = torch.empty(size["loss_part"], **f32)
     loss = torch.empty((), **f32)
     if grads:
-        dd_part = torch.empty(nb * nb * n_et * d, **f32)
-        dz_part = torch.empty(n_chunks * nb * nb * 2 * 128 * d, **f32)
-        dr_part = torch.empty(nb * nb * n_chunks * d * d, **f32)
+        dd_part = torch.empty(size["dd_part"], **f32)
+        dz_part = torch.empty(size["dz_part"], **f32)
+        dr_part = torch.empty(size["dr_part"], **f32)
         dz = torch.empty((n, d), **f32)
         dd = torch.empty((n_et, d), **f32)
         dr = torch.empty((d, d), **f32)
