@@ -81,7 +81,7 @@ def rel_gap(a, b):
                                           ("bfloat16", "coo")])
 def test_port_against_the_plain_reference(data, precision, pp, monkeypatch):
     if pp == "coo":  # a P-P side past the dense budget: float32 COO edges
-        monkeypatch.setattr("tip_tpu_torch.models.decagon.dense_pp_feasible",
+        monkeypatch.setattr("tip_tpu_torch.data.packing.dense_pp_feasible",
                             lambda n: False)
     model, graph, params = build(data, precision)
     assert model.gs.dd_layout == "strips_pages"

@@ -432,6 +432,20 @@ def dense_pp_parts(pp_norm_index: np.ndarray, n_nodes: int):
     return a1.astype(np.int8), dinv.astype(np.float32)
 
 
+def dense_pp_fits(pp_norm_index: np.ndarray, n_nodes: int) -> bool:
+    """Whether the P-P side ships dense (:func:`dense_pp_parts`): the int8
+    (A+I) fits (:func:`dense_pp_feasible`) and the normalized edge list
+    holds no duplicate, which a 0/1 matrix cannot.  Keys that rise
+    strictly (the (dst, src) order of :func:`gcn_normalize`) show that
+    without a sort."""
+    if not dense_pp_feasible(n_nodes):
+        return False
+    src, dst = pp_norm_index
+    keys = dst.astype(np.int64) * n_nodes + src
+    return bool(np.all(keys[1:] > keys[:-1])) or (
+        np.unique(keys).size == keys.size)
+
+
 def gcn_normalize(
     edge_index: np.ndarray, n_nodes: int, add_self_loops: bool = True
 ) -> Tuple[np.ndarray, np.ndarray]:

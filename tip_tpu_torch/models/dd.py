@@ -26,10 +26,8 @@ the chunked loss, except that DR-DF scores its positives over the full
 pages, as the JAX package does; DR-NN's strips then ship no pages, and the
 layout is ``strips``.
 
-``backend`` (train/model.py:resolve_backend): 'pallas' runs the kernels
-named above on CUDA tensors (their plain versions on CPU tensors); 'xla'
-the JAX package's XLA branches, which launch none.  As in the JAX
-package, ``DDModel`` has no sharded (EP) route.
+``backend``: train/model.py:resolve_backend.  As in the JAX package,
+``DDModel`` has no sharded (EP) route.
 """
 
 from __future__ import annotations
@@ -41,42 +39,19 @@ import torch
 
 from tip_tpu_torch import trace
 from tip_tpu_torch.data.packing import TriGraphData
-from tip_tpu_torch.metrics import grouped_ranking_metrics, macro_average
 from tip_tpu_torch.nn import initializers as init
-from tip_tpu_torch.nn.decoders import (
-    distmult_apply,
-    distmult_apply_padded,
-    distmult_dense_pos_bce_sum,
-    distmult_init,
-    nn_decoder_apply,
-    nn_decoder_apply_padded,
-    nn_decoder_init,
-    nn_hiddens,
-)
-from tip_tpu_torch.nn.rgcn import (
-    dense_rgcn_pair_apply,
-    dense_rgcn_pair_apply_sym,
-    rgcn_apply_padded,
-    rgcn_init,
-)
-from tip_tpu_torch.ops.dense_bce import dense_bce_sum, dense_bce_sum_xla
+from tip_tpu_torch.nn.decoders import nn_hiddens
+from tip_tpu_torch.nn.rgcn import rgcn_init, rgcn_pair_on_layout
 from tip_tpu_torch.ops.dense_bce_nn import dense_bce_nn_sum, dense_bce_nn_sum_xla
-from tip_tpu_torch.ops.dense_bce_sym import (
-    dense_bce_sym_sum,
-    dense_bce_sym_sum_xla,
-    softplus,
-)
-from tip_tpu_torch.sampling import (
-    typed_negative_sampling,
-    typed_negative_sampling_chunked,
-)
 from tip_tpu_torch.train.model import (
+    DDFamily,
     GraphStatic,
     check_negatives,
-    chunk_arrays,
-    dense_dd_arrays,
+    dd_loss_sum,
+    pack_dd,
     resolve_backend,
     resolve_device,
+    to_device,
 )
 
 LAYOUTS = {"distmult": ("strips", "pages", "chunked"),
@@ -108,54 +83,18 @@ class DDConfig:
 def make_dd_graph_arrays(data: TriGraphData, device=None, chunk: int = 1024,
                          dense_dtype: Optional[str] = None,
                          decoder: str = "distmult", sampled: bool = False):
-    """Pack the D-D training graph for ``decoder`` into tensors on
-    ``device`` + static metadata.  ``dense_dtype="bfloat16"`` (which
-    ``preferred_dense_dtype`` picks within the dense budget) ships the
-    strips layout of the decoder, or the bf16 pages where the strips
-    cannot be built; "float32" the float32 pages; None the chunked buffers
-    with relation bins padded to ``chunk``.  ``sampled`` packs a dense
-    layout for ``negatives="sampled"`` (the chunk buffers beside it)."""
-    if decoder not in LAYOUTS:
-        raise ValueError(f"unknown decoder {decoder!r}")
-    if dense_dtype not in (None, "bfloat16", "float32"):
-        raise ValueError(f"dense_dtype {dense_dtype!r}: None, 'bfloat16' or "
-                         "'float32'")
-
-    def t(x):
-        return torch.from_numpy(x).to(device)
-
-    graph = {"dd_deg": t(data.dd_train_deg)}
-    layout = "chunked"
-    if dense_dtype is not None:
-        layout, dd = dense_dd_arrays(data, dense_dtype, device, sampled,
-                                     decoder)
-        graph.update(dd)
-    if layout == "chunked" or sampled:
-        graph.update(chunk_arrays(data, chunk, device))
-    if data.drug_feat is not None:
-        graph["drug_feat"] = t(data.drug_feat)
-    if data.d_norm is not None:
-        graph["d_norm"] = t(data.d_norm)
-    gs = GraphStatic(
-        n_drug=data.n_drug, n_prot=data.n_prot, n_et=data.n_et,
-        dd_n_valid=data.dd_train.n_edges,
-        drug_feat_dim=0 if data.drug_feat is None else data.drug_feat.shape[1],
-        dd_chunk=chunk, pp_window=0, pp_n_windows=0,
-        dd_n_chunks=graph["dd_src2d"].shape[0] if "dd_src2d" in graph else 0,
-        dd_layout=layout, dd_sampled=sampled and layout != "chunked",
-        dd_decoder=decoder, pp_layout="none",
-    )
-    return graph, gs
+    """The D-D training graph for ``decoder`` on ``device`` + static
+    metadata: train/model.py:pack_dd's D-D side by ``dense_dtype`` (which
+    ``preferred_dense_dtype`` picks) and ``sampled``, relation bins padded
+    to ``chunk``, and no P-P side."""
+    return pack_dd({"dd_deg": to_device(data.dd_train_deg, device)}, data,
+                   device, chunk, dense_dtype, sampled, decoder, pp_window=0,
+                   pp_layout="none")
 
 
 @dataclass(frozen=True)
-class DDModel:
-    """Static model description; parameters live in explicit dicts."""
-
+class DDModel(DDFamily):
     cfg: DDConfig
-    gs: GraphStatic
-    device: torch.device
-    backend: str = "pallas"
 
     @staticmethod
     def for_data(cfg: DDConfig, gs: GraphStatic, device=None,
@@ -176,22 +115,15 @@ class DDModel:
 
     def init(self, gen: torch.Generator) -> dict:
         cfg, gs, dev = self.cfg, self.gs, self.device
-        params = {
+        return {
             "embed": init.normal(gen, (gs.drug_feat_dim or gs.n_drug,
                                        cfg.n_embed), device=dev),
             "rgcn1": rgcn_init(gen, cfg.n_embed, cfg.n_hid1, gs.n_et,
                                cfg.num_base, after_relu=False, device=dev),
             "rgcn2": rgcn_init(gen, cfg.n_hid1, cfg.n_hid2, gs.n_et,
                                cfg.num_base, after_relu=True, device=dev),
+            "decoder": self.decoder_init(gen),
         }
-        if cfg.decoder == "distmult":
-            params["decoder"] = distmult_init(gen, cfg.n_hid2, gs.n_et,
-                                              device=dev)
-        else:
-            params["decoder"] = nn_decoder_init(gen, cfg.n_hid2, gs.n_et,
-                                                cfg.nn_decoder_l1_dim,
-                                                device=dev)
-        return params
 
     @trace.spanned("encode")
     def encode(self, params, graph):
@@ -202,101 +134,25 @@ class DDModel:
         if "d_norm" in graph:
             x = x / graph["d_norm"][:, None]
         with trace.span("rgcn"):
-            x = self._rgcn_pair(params, graph, x)
+            x = rgcn_pair_on_layout(params["rgcn1"], params["rgcn2"], x,
+                                    graph, self.gs, self.cfg.kernel_dtype,
+                                    self.backend)
         return torch.relu(x) if self.cfg.final_relu else x
 
-    def _rgcn_pair(self, params, graph, x):
-        """Both R-GCN layers on the layout's D-D buffers."""
-        gs = self.gs
-        if gs.dd_layout == "chunked":
-            dd = (graph["dd_src2d"], graph["dd_dst2d"], graph["dd_chunk_type"],
-                  graph["dd_deg"], gs.n_drug, gs.n_et)
-            kw = dict(kernel_dtype=self.cfg.kernel_dtype, backend=self.backend)
-            x = torch.relu(rgcn_apply_padded(params["rgcn1"], x, *dd, **kw))
-            return rgcn_apply_padded(params["rgcn2"], x, *dd, **kw)
-        if gs.dd_layout == "pages":
-            return dense_rgcn_pair_apply(params["rgcn1"], params["rgcn2"], x,
-                                         graph["dd_adj_t"], graph["dd_deg"])
-        return dense_rgcn_pair_apply_sym(params["rgcn1"], params["rgcn2"], x,
-                                         graph["dd_adj_sym"], graph["dd_deg"])
-
-    def score(self, params, z, src, dst, et, sigmoid: bool = True):
-        if self.cfg.decoder == "distmult":
-            return distmult_apply(params["decoder"], z, src, dst, et, sigmoid)
-        return nn_decoder_apply(params["decoder"], z, src, dst, et, sigmoid)
-
-    def score_padded(self, params, z, src2d, dst2d, chunk_type,
-                     sigmoid: bool = True):
-        """Flat scores [n_chunks * chunk] of a chunk-aligned buffer."""
-        apply = (distmult_apply_padded if self.cfg.decoder == "distmult"
-                 else nn_decoder_apply_padded)
-        return apply(params["decoder"], z, src2d, dst2d, chunk_type, sigmoid,
-                     kernel_dtype=self.cfg.kernel_dtype, backend=self.backend)
-
-    def loss(self, params, graph, seed: int, u24=None):
-        """Mean BCE over the train edges.  ``seed`` (uint32) keys the
-        negatives; ``u24`` (CPU only) replaces their random bits: the cell
-        field of B1, B2 or B3 on the dense layouts, the sampler's draws on
-        the chunked layout and with ``negatives="sampled"``."""
-        with trace.span("forward"):
-            z = self.encode(params, graph)
-            with trace.span("loss"):
-                total = self._loss_sum(params, graph, z, seed, u24)
-                return trace.backward_span(total / float(self.gs.dd_n_valid))
-
     def _loss_sum(self, params, graph, z, seed: int, u24):
-        """The BCE sum over the train edges (:meth:`loss`)."""
+        """The BCE sum over the train edges: DR-NN's fused dense BCE
+        (kernel B3, ``u24`` its cell field) on the dense layouts with
+        ``negatives`` auto or poisson, else TIP's routes
+        (train/model.py:dd_loss_sum)."""
         gs, cfg = self.gs, self.cfg
-        dec = params["decoder"]
-        if gs.dd_layout != "chunked" and cfg.negatives != "sampled":
-            xla = self.backend == "xla"
-            if cfg.decoder == "nn":
-                h1, h2 = nn_hiddens(dec, z)
-                pages = graph["dd_adj_u8" if gs.dd_layout == "strips_pages"
-                              else "dd_adj_t"]
-                bce_nn = dense_bce_nn_sum_xla if xla else dense_bce_nn_sum
-                return bce_nn(dec["w1_l2"], dec["w2_l2"], h1, h2, pages,
-                              graph["dd_neg_q"], seed, u24=u24)
-            if gs.dd_layout == "strips":
-                bce_sym = dense_bce_sym_sum_xla if xla else dense_bce_sym_sum
-                return bce_sym(dec["weight"], z, graph["dd_adj_sym"],
-                               graph["dd_neg_q8"], seed, u24=u24)
-            bce = dense_bce_sum_xla if xla else dense_bce_sum
-            return bce(dec["weight"], z, graph["dd_adj_t"],
-                       graph["dd_neg_q"], seed, u24=u24)
-        ct = graph["dd_chunk_type"]
-        neg_src2d, neg_dst2d = typed_negative_sampling_chunked(
-            seed, ct, graph["dd_bitmap"], gs.n_drug, gs.n_et, gs.dd_chunk,
-            u24=u24, backend=self.backend)
-        valid = graph["dd_valid"]
-        if gs.dd_layout != "chunked" and cfg.decoder == "distmult":
-            pos_sum = distmult_dense_pos_bce_sum(
-                dec["weight"], z, graph["dd_adj_t"],
-                kernel_dtype=cfg.kernel_dtype)
-        else:
-            pos = self.score_padded(params, z, graph["dd_src2d"],
-                                    graph["dd_dst2d"], ct, sigmoid=False)
-            pos_sum = torch.sum(softplus(-pos) * valid)
-        neg = self.score_padded(params, z, neg_src2d, neg_dst2d, ct,
-                                sigmoid=False)
-        return pos_sum + torch.sum(softplus(neg) * valid)
-
-    def sample_test_negatives(self, gen: torch.Generator, test):
-        src, dst = typed_negative_sampling(gen, test["et"], test["bitmap"],
-                                           self.gs.n_drug)
-        return {"src": src, "dst": dst}
-
-    @torch.no_grad()
-    def evaluate(self, params, graph, test, test_neg):
-        """Per-relation + macro AUPRC/AUROC/AP on the test split."""
-        with trace.span("eval"):
-            z = self.encode(params, graph)
-            with trace.span("score"):
-                pos = self.score(params, z, test["src"], test["dst"],
-                                 test["et"])
-                neg = self.score(params, z, test_neg["src"], test_neg["dst"],
-                                 test["et"])
-            with trace.span("rank"):
-                per_rel = grouped_ranking_metrics(pos, neg, test["et"],
-                                                  self.gs.n_et)
-                return per_rel, macro_average(per_rel)
+        if (cfg.decoder == "nn" and gs.dd_layout != "chunked"
+                and cfg.negatives != "sampled"):
+            dec = params["decoder"]
+            h1, h2 = nn_hiddens(dec, z)
+            pages = graph["dd_adj_u8" if gs.dd_layout == "strips_pages"
+                          else "dd_adj_t"]
+            bce_nn = (dense_bce_nn_sum_xla if self.backend == "xla"
+                      else dense_bce_nn_sum)
+            return bce_nn(dec["w1_l2"], dec["w2_l2"], h1, h2, pages,
+                          graph["dd_neg_q"], seed, u24=u24)
+        return dd_loss_sum(self, params, graph, z, seed, u24)

@@ -42,23 +42,21 @@ import numpy as np
 import torch
 
 from tip_tpu_torch import trace
-from tip_tpu_torch.data.packing import (
-    TriGraphData,
-    dense_pp_feasible,
-    dense_pp_parts,
-)
-from tip_tpu_torch.metrics import grouped_ranking_metrics, macro_average
+from tip_tpu_torch.data.packing import TriGraphData, dense_pp_fits
 from tip_tpu_torch.nn import initializers as init
 from tip_tpu_torch.nn.gcn import gcn_conv_apply, gcn_conv_apply_dense
 from tip_tpu_torch.ops.dense_bce_dedicom import dense_bce_dedicom_sum
 from tip_tpu_torch.ops.rel_aggregate import rel_aggregate
 from tip_tpu_torch.ops.segment import weighted_gather_sum
-from tip_tpu_torch.sampling import typed_negative_sampling
 from tip_tpu_torch.train.model import (
+    DDFamily,
     GraphStatic,
     dense_dd_arrays,
+    graph_static,
+    pp_arrays,
     resolve_backend,
     resolve_device,
+    to_device,
 )
 
 PRECISIONS = ("bfloat16", "float32")  # of the D-D contraction's operand
@@ -105,9 +103,9 @@ def make_decagon_graph_arrays(data: TriGraphData, device=None):
     ``dd_adj_u8``, which B14 and B13 read at either precision (no route
     reads the strips: they are not shipped).  Beside them: the relations'
     thresholds ``dd_neg_q`` and scales ``dd_rel_s``, the P-P side dense
-    (int8 (A+I) and D^-1/2, kernel B12) where feasible, else its
-    normalized COO edges, and the drug-protein edges with their
-    weights."""
+    (int8 (A+I) and D^-1/2, kernel B12) where data/packing.py:dense_pp_fits
+    allows, else its normalized COO edges, and the drug-protein edges with
+    their weights."""
     if data.drug_feat is not None:
         raise ValueError("Decagon's drug inputs are one-hot; pack without "
                          "drug features")
@@ -116,43 +114,23 @@ def make_decagon_graph_arrays(data: TriGraphData, device=None):
         raise ValueError(f"the D-D pages packed as {layout!r} (a count past "
                          "127, or asymmetric pages); Decagon reads uint8 "
                          "pages")
-
-    def t(x):
-        return torch.from_numpy(x).to(device)
-
     graph = {k: v.to(device) for k, v in dd.items() if k != "dd_adj_sym"}
-    graph["dd_rel_s"] = t(relation_scales(data.dd_train, data.n_drug))
     graph.update(
-        dp_prot=t(data.dp_edge_index[0].astype("int64")),
-        dp_drug=t(data.dp_edge_index[1].astype("int64")),
-        dp_w=t(dp_weights(data.dp_edge_index, data.n_drug, data.n_prot)))
-    a1 = None
-    if dense_pp_feasible(data.n_prot):
-        try:
-            a1, dinv = dense_pp_parts(data.pp_norm_index, data.n_prot)
-        except ValueError:  # duplicate P-P edges: 0/1 cannot hold them
-            pass
-    if a1 is not None:
-        graph.update(pp_a1=t(a1), pp_dinv=t(dinv))
-    else:
-        graph.update(pp_norm_index=t(data.pp_norm_index.astype("int64")),
-                     pp_norm_weight=t(data.pp_norm_weight))
-    gs = GraphStatic(
-        n_drug=data.n_drug, n_prot=data.n_prot, n_et=data.n_et,
-        dd_n_valid=data.dd_train.n_edges, dd_chunk=0, pp_window=0,
-        dd_layout=layout, dd_decoder="dedicom",
-        pp_layout="dense" if a1 is not None else "coo")
-    return graph, gs
+        dd_rel_s=to_device(relation_scales(data.dd_train, data.n_drug), device),
+        dp_prot=to_device(data.dp_edge_index[0].astype("int64"), device),
+        dp_drug=to_device(data.dp_edge_index[1].astype("int64"), device),
+        dp_w=to_device(dp_weights(data.dp_edge_index, data.n_drug,
+                                  data.n_prot), device))
+    dense_pp = dense_pp_fits(data.pp_norm_index, data.n_prot)
+    graph.update(pp_arrays(data, device, dense_pp))
+    return graph, graph_static(data, graph, dd_chunk=0, pp_window=0,
+                               dd_layout=layout, dd_decoder="dedicom",
+                               pp_layout="dense" if dense_pp else "coo")
 
 
 @dataclass(frozen=True)
-class DecagonModel:
-    """Static model description; parameters live in explicit dicts."""
-
+class DecagonModel(DDFamily):
     cfg: DecagonConfig
-    gs: GraphStatic
-    device: torch.device
-    backend: str = "pallas"
     rel_precision: str = "bfloat16"  # "float32" where float32 matmuls are pinned
 
     @staticmethod
@@ -239,36 +217,12 @@ class DecagonModel:
                            -1)
         return torch.sigmoid(logits) if sigmoid else logits
 
-    def loss(self, params, graph, seed: int, u24=None):
-        """Mean BCE over the D-D train edges and the Poissonized negatives
-        of the full pages (kernel B13).  ``u24`` (CPU only) replaces the
-        cells' random bits."""
-        with trace.span("forward"):
-            z = self.encode(params, graph)
-            with trace.span("loss"):
-                dvec, rmat = self._dec(params)
-                with trace.span("dedicom_bce"):
-                    total = dense_bce_dedicom_sum(
-                        dvec, rmat, z, graph["dd_adj_u8"], graph["dd_neg_q"],
-                        seed, u24=u24, plain=self.backend == "xla")
-                return trace.backward_span(total / float(self.gs.dd_n_valid))
-
-    def sample_test_negatives(self, gen: torch.Generator, test):
-        src, dst = typed_negative_sampling(gen, test["et"], test["bitmap"],
-                                           self.gs.n_drug)
-        return {"src": src, "dst": dst}
-
-    @torch.no_grad()
-    def evaluate(self, params, graph, test, test_neg):
-        """Per-relation + macro AUPRC/AUROC/AP on the test split."""
-        with trace.span("eval"):
-            z = self.encode(params, graph)
-            with trace.span("score"):
-                pos = self.score(params, z, test["src"], test["dst"],
-                                 test["et"])
-                neg = self.score(params, z, test_neg["src"], test_neg["dst"],
-                                 test["et"])
-            with trace.span("rank"):
-                per_rel = grouped_ranking_metrics(pos, neg, test["et"],
-                                                  self.gs.n_et)
-                return per_rel, macro_average(per_rel)
+    def _loss_sum(self, params, graph, z, seed: int, u24):
+        """The BCE sum over the D-D train edges and the Poissonized
+        negatives of the full pages (kernel B13).  ``u24`` (CPU only)
+        replaces the cells' random bits."""
+        dvec, rmat = self._dec(params)
+        with trace.span("dedicom_bce"):
+            return dense_bce_dedicom_sum(
+                dvec, rmat, z, graph["dd_adj_u8"], graph["dd_neg_q"], seed,
+                u24=u24, plain=self.backend == "xla")

@@ -17,11 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tip_tpu_torch.data.packing import (
-    TriGraphData,
-    dense_pp_feasible,
-    dense_pp_parts,
-)
+from tip_tpu_torch.data.packing import TriGraphData, dense_pp_fits
 from tip_tpu_torch.metrics import grouped_ranking_metrics, macro_average
 from tip_tpu_torch.models.pd import pair_bitmap
 from tip_tpu_torch.nn.encoders import (
@@ -31,7 +27,11 @@ from tip_tpu_torch.nn.encoders import (
 )
 from tip_tpu_torch.sampling import bitmap_tensor, typed_negative_sampling
 from tip_tpu_torch.ops.dense_bce_sym import softplus
-from tip_tpu_torch.train.model import resolve_backend, resolve_device
+from tip_tpu_torch.train.model import (
+    pp_arrays,
+    resolve_backend,
+    resolve_device,
+)
 
 
 @dataclass(frozen=True)
@@ -41,14 +41,10 @@ class PPConfig:
 
 
 def pp_layout(data: TriGraphData) -> str:
-    """'dense' where the [n, n] int8 (A+I) fits and the normalized edge
-    list has no duplicate (a 0/1 matrix cannot hold one), else 'coo'."""
-    n = data.n_prot
-    if not dense_pp_feasible(n):
-        return "coo"
-    src, dst = data.pp_norm_index.astype(np.int64)
-    keys = dst * n + src
-    return "dense" if np.unique(keys).size == keys.size else "coo"
+    """'dense' where data/packing.py:dense_pp_fits lets the P-P side ship
+    the int8 (A+I) (train/model.py:pp_arrays), else 'coo'."""
+    return ("dense" if dense_pp_fits(data.pp_norm_index, data.n_prot)
+            else "coo")
 
 
 def make_pp_graph_arrays(data: TriGraphData, device=None):
@@ -64,14 +60,7 @@ def make_pp_graph_arrays(data: TriGraphData, device=None):
         "train_dst": t(data.pp_train[1]),
         "pair_bitmap": bitmap_tensor(pair_bitmap(data.pp_train, n), device),
     }
-    if pp_layout(data) == "dense":
-        a1, dinv = dense_pp_parts(data.pp_norm_index, n)
-        graph["pp_a1"] = torch.from_numpy(a1).to(device)
-        graph["pp_dinv"] = torch.from_numpy(dinv).to(device)
-    else:
-        graph["pp_norm_index"] = t(data.pp_norm_index)
-        graph["pp_norm_weight"] = torch.from_numpy(data.pp_norm_weight).to(
-            device)
+    graph.update(pp_arrays(data, device, pp_layout(data) == "dense"))
     test = {
         "src": t(data.pp_test[0]),
         "dst": t(data.pp_test[1]),

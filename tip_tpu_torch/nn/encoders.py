@@ -36,12 +36,7 @@ from tip_tpu_torch.nn.gcn import (
     gcn_conv_init,
 )
 from tip_tpu_torch.nn.hierarchy import hierarchy_conv_apply, hierarchy_conv_init
-from tip_tpu_torch.nn.rgcn import (
-    dense_rgcn_pair_apply,
-    dense_rgcn_pair_apply_sym,
-    rgcn_apply_padded,
-    rgcn_init,
-)
+from tip_tpu_torch.nn.rgcn import rgcn_init, rgcn_pair_on_layout
 from tip_tpu_torch.parallel.ring import (
     ring_hierarchy_apply,
     ring_pp_encoder_apply,
@@ -146,19 +141,8 @@ def fm_encoder_apply(params, graph, cfg: ModelConfig, gs, x_drug=None,
         xd = xd / d_norm[:, None]
     x = torch.cat([xd, hd], dim=1) if cfg.mode == "cat" else xd + hd
     with trace.span("rgcn"):
-        if gs.dd_layout == "strips":
-            return dense_rgcn_pair_apply_sym(params["rgcn1"], params["rgcn2"],
-                                             x, graph["dd_adj_sym"],
-                                             graph["dd_deg"], mesh=mesh)
-        if gs.dd_layout == "pages":
-            return dense_rgcn_pair_apply(params["rgcn1"], params["rgcn2"], x,
-                                         graph["dd_adj_t"], graph["dd_deg"],
-                                         mesh=mesh)
-        dd = (graph["dd_src2d"], graph["dd_dst2d"], graph["dd_chunk_type"],
-              graph["dd_deg"], gs.n_drug, gs.n_et)
-        kw = dict(kernel_dtype=cfg.kernel_dtype, mesh=mesh, backend=backend)
-        x = torch.relu(rgcn_apply_padded(params["rgcn1"], x, *dd, **kw))
-        return rgcn_apply_padded(params["rgcn2"], x, *dd, **kw)
+        return rgcn_pair_on_layout(params["rgcn1"], params["rgcn2"], x, graph,
+                                   gs, cfg.kernel_dtype, backend, mesh)
 
 
 def _pp_encoder(params, x_prot, graph, cfg: ModelConfig, gs, backend: str):

@@ -188,3 +188,23 @@ def rgcn_apply_padded(params, x, src2d, dst2d, chunk_type, degree,
     if "bias" in params:
         out = out + params["bias"]
     return out
+
+
+def rgcn_pair_on_layout(params1, params2, x, graph: dict, gs,
+                        kernel_dtype: str = "float32",
+                        backend: str = "pallas", mesh=None):
+    """Both R-GCN layers (a ReLU between them) over the D-D buffers of
+    the layout ``gs.dd_layout`` names: the full pages, the chunked
+    buffers, else the symmetric strips ('strips', 'strips_pages')."""
+    if gs.dd_layout == "pages":
+        return dense_rgcn_pair_apply(params1, params2, x, graph["dd_adj_t"],
+                                     graph["dd_deg"], mesh=mesh)
+    if gs.dd_layout != "chunked":
+        return dense_rgcn_pair_apply_sym(params1, params2, x,
+                                         graph["dd_adj_sym"], graph["dd_deg"],
+                                         mesh=mesh)
+    dd = (graph["dd_src2d"], graph["dd_dst2d"], graph["dd_chunk_type"],
+          graph["dd_deg"], gs.n_drug, gs.n_et)
+    kw = dict(kernel_dtype=kernel_dtype, mesh=mesh, backend=backend)
+    x = torch.relu(rgcn_apply_padded(params1, x, *dd, **kw))
+    return rgcn_apply_padded(params2, x, *dd, **kw)

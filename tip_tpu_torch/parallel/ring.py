@@ -28,7 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tip_tpu_torch.data.packing import dense_pp_feasible, dense_pp_parts
+from tip_tpu_torch.data.packing import dense_pp_fits, dense_pp_parts
 from tip_tpu_torch.ops.matmul import bf16_round
 from tip_tpu_torch.ops.segment import mean_from_sum, segment_sum_sorted
 from tip_tpu_torch.parallel.collectives import (
@@ -118,7 +118,7 @@ def build_ring_pp(norm_index: np.ndarray, norm_weight: np.ndarray,
     )
 
 
-def add_ring_pp(graph: dict, data, gs, n_shards: int, dense_pp=None):
+def add_ring_pp(graph: dict, data, gs, n_shards: int, dense_pp: bool = True):
     """Replace the replicated P-P and P->D buffers of a host graph dict
     by ring-sharded ones.
 
@@ -130,8 +130,8 @@ def add_ring_pp(graph: dict, data, gs, n_shards: int, dense_pp=None):
     ring rank its slice.  ``dense_pp`` ships the row-sharded int8 (A+I)
     ``pp_a1r`` [n_shards * n_local, n_prot] (zero pad rows) and the
     replicated ``pp_dinv``, so the sharded encoder runs the dense row-block
-    GEMM (:func:`ring_pp_encoder_apply_dense`); None = where feasible
-    (data/packing.py:dense_pp_feasible) and free of duplicate edges."""
+    GEMM (:func:`ring_pp_encoder_apply_dense`), where
+    data/packing.py:dense_pp_fits lets the P-P side ship dense."""
     ring = build_ring_pp(data.pp_norm_index, data.pp_norm_weight,
                          data.dp_edge_index, gs.n_prot, n_shards)
     g = {k: v for k, v in graph.items() if k not in _REPLACED_BY_RING}
@@ -141,19 +141,13 @@ def add_ring_pp(graph: dict, data, gs, n_shards: int, dense_pp=None):
     g["dpr_srcl"] = torch.from_numpy(ring.dp_src_local)
     g["dpr_dst"] = torch.from_numpy(ring.dp_dst)
     g["dpr_w"] = torch.from_numpy(ring.dp_weight)
-    if dense_pp is None:
-        dense_pp = dense_pp_feasible(gs.n_prot)
-    if dense_pp:
-        try:
-            a1, dinv = dense_pp_parts(data.pp_norm_index, gs.n_prot)
-        except ValueError:  # duplicate P-P edges: 0/1 cannot hold them
-            a1 = None
-        if a1 is not None:
-            pad = n_shards * ring.n_local - a1.shape[0]
-            if pad:
-                a1 = np.pad(a1, ((0, pad), (0, 0)))  # zero rows: inert
-            g["pp_a1r"] = torch.from_numpy(a1)
-            g["pp_dinv"] = torch.from_numpy(dinv)
+    if dense_pp and dense_pp_fits(data.pp_norm_index, gs.n_prot):
+        a1, dinv = dense_pp_parts(data.pp_norm_index, gs.n_prot)
+        pad = n_shards * ring.n_local - a1.shape[0]
+        if pad:
+            a1 = np.pad(a1, ((0, pad), (0, 0)))  # zero rows: inert
+        g["pp_a1r"] = torch.from_numpy(a1)
+        g["pp_dinv"] = torch.from_numpy(dinv)
     return g, dataclasses.replace(gs, pp_ring_shards=n_shards,
                                   pp_layout="none")
 

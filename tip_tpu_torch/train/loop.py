@@ -144,6 +144,54 @@ def step_seed(seed: int, epoch: int) -> int:
     return int(np.random.SeedSequence([seed, epoch]).generate_state(1)[0])
 
 
+def start_run(model, test: dict, seed: int, lr: float):
+    """(params, test negatives, Adam) of a run: the params with grads, then
+    the test negatives, from one generator seeded with ``seed``; Adam over
+    the params' leaves (optax's eps placement)."""
+    gen = torch.Generator().manual_seed(seed)
+    params = model.init(gen)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    test_neg = model.sample_test_negatives(gen, test)
+    opt = torch.optim.Adam(leaves(params), lr=lr, betas=(0.9, 0.999),
+                           eps=1e-8)
+    return params, test_neg, opt
+
+
+def train_step(model, opt, params, graph, seed: int, **loss_kw):
+    """One full-graph step: zero the grads, the model's loss at ``seed``
+    (``loss_kw`` reach it as keywords: TIP's ``remat``), its backward and
+    Adam's step.  Returns the loss, detached, still on the device."""
+    opt.zero_grad(set_to_none=True)
+    loss = model.loss(params, graph, seed, **loss_kw)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def finish_run(evaluate: Callable, history: list, t_start: float,
+               spans_before: dict,
+               log: Optional[Callable[[str], None]]) -> dict:
+    """A run's final ``evaluate()`` as both loops return it: {"final"
+    (with ``train_time_sec`` since ``t_start``), "history",
+    "per_relation" (on the host), "spans" (the totals since
+    ``spans_before``)}; ``log`` gets the spans line, then the test set's."""
+    per_rel, avg = evaluate()
+    final = {k: float(v) for k, v in avg.items()}
+    final["train_time_sec"] = time.time() - t_start
+    spans = trace.totals(since=spans_before)
+    if log:
+        log(json.dumps({"spans": spans}))
+        log("On test set: auprc:{auprc:.4f}   auroc:{auroc:.4f}   "
+            "ap@50:{ap:.4f}".format(**final))
+    return {
+        "final": final,
+        "history": history,
+        "per_relation": {k: v.cpu().numpy() for k, v in per_rel.items()},
+        "spans": spans,
+    }
+
+
 def train(cfg: ModelConfig, tcfg: TrainConfig, data: TriGraphData,
           log: Callable[[str], None] = print, device=None,
           matmul_precision: str = "default", resume: Optional[str] = None,
@@ -167,11 +215,8 @@ def train(cfg: ModelConfig, tcfg: TrainConfig, data: TriGraphData,
     ``profile_dir``: a torch.profiler trace of epochs 2-4 (CPU, and CUDA
     on the card), written there as the Chrome trace :data:`TRACE_FILE`
     (stopped at the loop's end where the run has fewer epochs).
-    ``backend`` (train/model.py:resolve_backend): 'auto' and 'pallas' run
-    the hand-written kernels on the card, 'xla' the JAX package's XLA
-    branches (no kernel).  Returns (params, {"final", "history",
-    "per_relation", "spans"}): "spans" the run's span totals
-    (trace.totals), logged as one JSON object before the test-set line."""
+    ``backend``: train/model.py:resolve_backend.  Returns (params,
+    :func:`finish_run`'s dict)."""
     spans_before = trace.totals()
     dev = resolve_device(device)
     set_matmul_precision()
@@ -183,13 +228,7 @@ def train(cfg: ModelConfig, tcfg: TrainConfig, data: TriGraphData,
     model = TIP.for_data(cfg, data, gs, dev, backend=backend)
     test = make_test_arrays(data, dev)
 
-    gen = torch.Generator().manual_seed(tcfg.seed)
-    params = model.init(gen)
-    for p in leaves(params):
-        p.requires_grad_(True)
-    test_neg = model.sample_test_negatives(gen, test)
-    opt = torch.optim.Adam(leaves(params), lr=tcfg.lr, betas=(0.9, 0.999),
-                           eps=1e-8)
+    params, test_neg, opt = start_run(model, test, tcfg.seed, tcfg.lr)
     state = TrainState(params=params, opt=opt)
     if resume:
         ck = latest_checkpoint(resume)
@@ -234,12 +273,8 @@ def train(cfg: ModelConfig, tcfg: TrainConfig, data: TriGraphData,
                 prof = torch.profiler.profile(activities=activities)
                 prof.start()
             t0 = time.time()
-            opt.zero_grad(set_to_none=True)
-            loss = model.loss(params, graph, step_seed(tcfg.seed, epoch),
-                              remat=tcfg.remat)
-            loss.backward()
-            opt.step()
-            loss = loss.detach()
+            loss = train_step(model, opt, params, graph,
+                              step_seed(tcfg.seed, epoch), remat=tcfg.remat)
             sync = tcfg.sync_every <= 1 or (epoch + 1) % tcfg.sync_every == 0
             if sync:
                 loss = float(loss)  # waits for the device: honest step time
@@ -263,18 +298,7 @@ def train(cfg: ModelConfig, tcfg: TrainConfig, data: TriGraphData,
     finally:
         stop_profile()
 
-    per_rel, avg = evaluate()
-    final = {k: float(v) for k, v in avg.items()}
-    final["train_time_sec"] = time.time() - t_start
-    spans = trace.totals(since=spans_before)
-    log(json.dumps({"spans": spans}))
-    log("On test set: auprc:{auprc:.4f}   auroc:{auroc:.4f}   "
-        "ap@50:{ap:.4f}".format(**final))
+    res = finish_run(evaluate, history, t_start, spans_before, log)
     if tcfg.checkpoint_dir:
         save_checkpoint(os.path.join(tcfg.checkpoint_dir, "final"), state)
-    return params, {
-        "final": final,
-        "history": history,
-        "per_relation": {k: v.cpu().numpy() for k, v in per_rel.items()},
-        "spans": spans,
-    }
+    return params, res

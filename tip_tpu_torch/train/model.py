@@ -22,19 +22,15 @@ layouts ``make_graph_arrays`` ships on one device:
     negatives with the DistMult SDDMM (kernel B8); the encoder's R-GCN
     runs on kernel B4.
 
-Sampled negatives (``negatives="sampled"``) on the strips or the pages
-draw and score their negatives as the chunked layout does (B10, B8) and
-score the positives over the full pages (plain PyTorch);
-``make_graph_arrays(..., sampled=True)`` ships the chunk buffers, the
-bitmap and the pages beside the strips.  The NN decoder
-(``decoder="nn"``) takes that sampled route on every layout, as the JAX
-package's TIP does (its fused dense BCEs are DistMult-only): B10 draws,
-the NN-decoder SDDMM (kernel B9) scores the positives over the chunk
-buffers and the negatives over the draws; ``make_graph_arrays(...,
-decoder="nn")`` ships the encoder's layout, the chunk buffers and the
-bitmap, and nothing else of the D-D side.  The
-P-P side is dense (``pp_a1``, ``pp_dinv``) where ``pp_dense`` ships it,
-else windowed (``ppw_*``, kernel B5).  Parameters are nested dicts of
+The loss routes are :func:`dd_loss_sum`'s, which DR-DF/DR-NN
+(models/dd.py) share: sampled negatives (``negatives="sampled"``) on the
+strips or the pages take the chunked layout's route (B10, B8) with the
+positives over the full pages, and the NN decoder takes it on every
+layout (B10, B9), as the JAX package's TIP does.  The P-P side is dense
+(``pp_a1``, ``pp_dinv``) where ``pp_dense`` ships it, else windowed
+(``ppw_*``, kernel B5).  :class:`DDFamily` holds the rest TIP shares
+with models/dd.py and models/decagon.py: the loss frame, the evaluation,
+the test negatives and the decoder.  Parameters are nested dicts of
 tensors in the JAX package's layout; every method is a plain function of
 (params, graph).
 
@@ -69,7 +65,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -82,7 +78,7 @@ from tip_tpu_torch.data.packing import (
     TriGraphData,
     bitmap_stride_bits,
     cast_dense_adj,
-    dense_pp_feasible,
+    dense_pp_fits,
     dense_pp_parts,
     dense_relation_adj,
     max_multiplicity,
@@ -158,14 +154,17 @@ class GraphStatic:
     pp_n_windows: int = 0
     # 'strips' (kernel B1) | 'pages' (full pages, B2; B3 for DR-NN)
     # | 'chunked' (B4, B8 or B9, B10) | 'strips_pages' (strips for the
-    # encoder, uint8 full pages for DR-NN's loss, B3; models/dd.py only)
+    # encoder, uint8 full pages for DR-NN's loss, B3; models/dd.py; Decagon
+    # ships the uint8 pages alone, models/decagon.py)
     dd_layout: str = "strips"
     # strips or pages packed for sampled negatives (dense_dd_arrays)
     dd_sampled: bool = False
     # the decoder whose loss the D-D side was packed for
     dd_decoder: str = "distmult"
-    # 'dense' (pp_a1, pp_dinv) | 'windowed' (ppw_*, B5) | 'none' (no P-P
-    # side: models/dd.py, or a sharded graph whose P-P side is the ring)
+    # 'dense' (pp_a1, pp_dinv) | 'windowed' (ppw_*, B5, with the COO
+    # edges of backend="xla") | 'coo' (pp_norm_*: models/decagon.py) |
+    # 'none' (no P-P side: models/dd.py, or a sharded graph whose P-P side
+    # is the ring)
     pp_layout: str = "dense"
     # > 0: the protein rows ring-sharded over the mesh's ring axis
     # (parallel/ring.py:add_ring_pp)
@@ -208,6 +207,10 @@ def preferred_dense_dtype(data: TriGraphData, kernel_dtype: str = "float32",
     return None
 
 
+def to_device(x: np.ndarray, device=None) -> torch.Tensor:
+    return torch.from_numpy(x).to(device)
+
+
 def pages_tensor(da, dtype: str, device=None) -> torch.Tensor:
     """The count pages [R, n, n] (dense_relation_adj) as a tensor of page
     dtype ``dtype`` on ``device``, cast exactly (cast_dense_adj)."""
@@ -235,14 +238,10 @@ def dense_dd_arrays(data: TriGraphData, dense_dtype: str, device=None,
     the strips too), the NN decoder over the chunk buffers, which the
     caller ships (:func:`chunk_arrays`)."""
     da = dense_relation_adj(data.dd_train, data.n_drug)
-
-    def t(x):
-        return torch.from_numpy(x).to(device)
-
     out, layout = {}, "pages"
     if dense_dtype == "bfloat16":
         try:
-            out["dd_adj_sym"] = t(sym_strip_pack(da))
+            out["dd_adj_sym"] = to_device(sym_strip_pack(da), device)
             layout = "strips"
         except ValueError:  # asymmetric pages or counts past int8
             pass
@@ -250,13 +249,13 @@ def dense_dd_arrays(data: TriGraphData, dense_dtype: str, device=None,
         out["dd_adj_t"] = pages_tensor(da, dense_dtype, device)
     if not sampled:
         if layout == "strips" and decoder == "distmult":
-            out["dd_neg_q8"] = t(poisson_neg_thresholds_sym(data.dd_train,
-                                                            data.n_drug))
+            out["dd_neg_q8"] = to_device(poisson_neg_thresholds_sym(
+                data.dd_train, data.n_drug), device)
         else:
-            out["dd_neg_q"] = t(poisson_neg_thresholds(data.dd_train,
-                                                       data.n_drug))
+            out["dd_neg_q"] = to_device(poisson_neg_thresholds(
+                data.dd_train, data.n_drug), device)
         if decoder == "nn" and layout == "strips":
-            out["dd_adj_u8"] = t(cast_dense_adj(da, "uint8"))
+            out["dd_adj_u8"] = to_device(cast_dense_adj(da, "uint8"), device)
             layout = "strips_pages"
     return layout, out
 
@@ -280,17 +279,68 @@ def chunk_arrays(data: TriGraphData, dd_chunk: int, device=None) -> dict:
     layout, and the sampled-negative route beside the strips or pages."""
     padded = pad_typed_edges(data.dd_train, data.n_drug, chunk=dd_chunk)
     n_chunks = padded.chunk_type.shape[0]
-
-    def t(x):
-        return torch.from_numpy(x).to(device)
-
     return {
-        "dd_src2d": t(padded.src.reshape(n_chunks, dd_chunk)),
-        "dd_dst2d": t(padded.dst.reshape(n_chunks, dd_chunk)),
-        "dd_valid": t(padded.valid.astype("float32")),
-        "dd_chunk_type": t(padded.chunk_type),
+        "dd_src2d": to_device(padded.src.reshape(n_chunks, dd_chunk), device),
+        "dd_dst2d": to_device(padded.dst.reshape(n_chunks, dd_chunk), device),
+        "dd_valid": to_device(padded.valid.astype("float32"), device),
+        "dd_chunk_type": to_device(padded.chunk_type, device),
         "dd_bitmap": bitmap_tensor(data.dd_train_bitmap, device),
     }
+
+
+def pp_arrays(data: TriGraphData, device, dense: bool) -> dict:
+    """The P-P side on ``device``: with ``dense`` (which
+    data/packing.py:dense_pp_fits decides) the int8 (A+I) and D^-1/2 of
+    data/packing.py:dense_pp_parts, else the normalized COO edges."""
+    if dense:
+        a1, dinv = dense_pp_parts(data.pp_norm_index, data.n_prot)
+        return {"pp_a1": to_device(a1, device),
+                "pp_dinv": to_device(dinv, device)}
+    return {
+        "pp_norm_index": to_device(data.pp_norm_index.astype("int64"), device),
+        "pp_norm_weight": to_device(data.pp_norm_weight, device)}
+
+
+def graph_static(data: TriGraphData, graph: dict, **layout) -> GraphStatic:
+    """The GraphStatic of ``data`` packed into ``graph``; ``layout``: the
+    fields its packer chose."""
+    return GraphStatic(
+        n_drug=data.n_drug, n_prot=data.n_prot, n_et=data.n_et,
+        dd_n_valid=data.dd_train.n_edges,
+        drug_feat_dim=0 if data.drug_feat is None else data.drug_feat.shape[1],
+        dd_n_chunks=graph["dd_src2d"].shape[0] if "dd_src2d" in graph else 0,
+        **layout)
+
+
+def pack_dd(graph: dict, data: TriGraphData, device, dd_chunk: int,
+            dense_dtype: Optional[str], sampled: bool, decoder: str,
+            **layout):
+    """(graph, GraphStatic): ``graph`` (which holds ``dd_deg``) plus the
+    D-D side of the training graph and the drug inputs on ``device``;
+    ``layout``: the other sides' GraphStatic fields.  The D-D side is the dense layout of
+    ``dense_dtype`` for ``decoder`` (:func:`dense_dd_arrays`), or with None
+    the chunked buffers, relation bins padded to ``dd_chunk``
+    (:func:`chunk_arrays`), which ``sampled`` ships beside a dense one."""
+    if dense_dtype not in (None, "bfloat16", "float32"):
+        raise ValueError(f"dense_dtype {dense_dtype!r}: None, 'bfloat16' or "
+                         "'float32'")
+    if decoder not in ("distmult", "nn"):
+        raise ValueError(f"unknown decoder {decoder!r}")
+    dd_layout = "chunked"
+    if dense_dtype is not None:
+        dd_layout, dd = dense_dd_arrays(data, dense_dtype, device, sampled,
+                                        decoder)
+        graph.update(dd)
+    if dd_layout == "chunked" or sampled:
+        graph.update(chunk_arrays(data, dd_chunk, device))
+    if data.drug_feat is not None:
+        graph["drug_feat"] = to_device(data.drug_feat, device)
+    if data.d_norm is not None:
+        graph["d_norm"] = to_device(data.d_norm, device)
+    return graph, graph_static(
+        data, graph, dd_chunk=dd_chunk, dd_layout=dd_layout,
+        dd_sampled=sampled and dd_layout != "chunked", dd_decoder=decoder,
+        **layout)
 
 
 @trace.spanned("device_graph")
@@ -301,81 +351,35 @@ def make_graph_arrays(data: TriGraphData, device=None, dd_chunk: int = 1024,
                       decoder: str = "distmult"):
     """Pack the training graph into tensors on ``device`` + static metadata.
 
-    ``dense_dtype="bfloat16"`` ships the D-D symmetric strips, or, where
-    they cannot be built (an asymmetric page, a count past int8), the full
-    bf16 pages as the JAX package falls back; "float32" ships the full
-    float32 pages (:func:`dense_dd_arrays`); None ships the chunked D-D
-    buffers (relation bins padded to ``dd_chunk``) and the train bitmap.
-    ``sampled`` packs the strips or pages for ``negatives="sampled"``: the
-    chunk buffers and the bitmap beside them, and no Poissonized
-    thresholds.  ``decoder="nn"`` packs for TIP's NN decoder, which takes
-    the sampled route on every layout: the encoder's strips or pages, the
-    chunk buffers and the bitmap, nothing more (``sampled`` is implied).
-    ``pp_dense`` (default: ``dense_dtype is not None``) ships
-    the dense int8 (A+I) P-P parts where feasible and free of duplicates,
-    else the P-P edges windowed by ``pp_window`` and padded to
-    ``pp_chunk`` (kernel B5) and the COO edges (``backend="xla"``)."""
-    if dense_dtype not in (None, "bfloat16", "float32"):
-        raise ValueError(f"dense_dtype {dense_dtype!r}: None, 'bfloat16' or "
-                         "'float32'")
-    if decoder not in ("distmult", "nn"):
-        raise ValueError(f"unknown decoder {decoder!r}")
-    sampled = sampled or decoder == "nn"
-
-    def t(x):
-        return torch.from_numpy(x).to(device)
-
-    graph = {
-        "dd_deg": t(data.dd_train_deg),
-        "dp_src": t(data.dp_edge_index[0].astype("int64")),
-        "dp_dst": t(data.dp_edge_index[1].astype("int64")),
-        "dp_deg": t(data.dp_drug_deg),
-    }
-    layout = "chunked"
-    if dense_dtype is not None:
-        layout, dd = dense_dd_arrays(data, dense_dtype, device, sampled,
-                                     decoder)
-        graph.update(dd)
-    if layout == "chunked" or sampled:
-        graph.update(chunk_arrays(data, dd_chunk, device))
+    The D-D side by ``dense_dtype`` and ``sampled`` (:func:`pack_dd`).
+    ``decoder="nn"`` packs for TIP's NN decoder, which takes the sampled
+    route on every layout: the encoder's strips or pages, the chunk
+    buffers and the bitmap, nothing more (``sampled`` is implied).
+    ``pp_dense`` (default: ``dense_dtype is not None``) ships the dense
+    int8 (A+I) P-P parts where data/packing.py:dense_pp_fits allows, else
+    the P-P edges windowed by ``pp_window`` and padded to ``pp_chunk``
+    (kernel B5) and the COO edges (``backend="xla"``)."""
     if pp_dense is None:
         pp_dense = dense_dtype is not None
-    a1 = None
-    if pp_dense and dense_pp_feasible(data.n_prot):
-        try:
-            a1, dinv = dense_pp_parts(data.pp_norm_index, data.n_prot)
-        except ValueError:  # duplicate P-P edges: 0/1 cannot hold them
-            pass
-    if a1 is not None:
-        graph["pp_a1"] = t(a1)
-        graph["pp_dinv"] = t(dinv)
-    wpp = pad_windowed_edges(data.pp_norm_index, data.pp_norm_weight,
-                             data.n_prot, window=pp_window, chunk=pp_chunk)
-    if a1 is None:
+    pp_dense = pp_dense and dense_pp_fits(data.pp_norm_index, data.n_prot)
+    graph, gs = pack_dd(
+        {"dd_deg": to_device(data.dd_train_deg, device),
+         "dp_src": to_device(data.dp_edge_index[0].astype("int64"), device),
+         "dp_dst": to_device(data.dp_edge_index[1].astype("int64"), device),
+         "dp_deg": to_device(data.dp_drug_deg, device)},
+        data, device, dd_chunk, dense_dtype, sampled or decoder == "nn",
+        decoder, pp_window=pp_window, pp_n_windows=-(-data.n_prot // pp_window),
+        pp_layout="dense" if pp_dense else "windowed")
+    if not pp_dense:  # the windowed buffers of kernel B5 beside the COO edges
+        wpp = pad_windowed_edges(data.pp_norm_index, data.pp_norm_weight,
+                                 data.n_prot, window=pp_window, chunk=pp_chunk)
         npp = wpp.chunk_window.shape[0]
         graph.update(
-            ppw_src=t(wpp.src.reshape(npp, pp_chunk)),
-            ppw_dstl=t(wpp.dst_local.reshape(npp, pp_chunk)),
-            ppw_w=t(wpp.weight.reshape(npp, pp_chunk)),
-            ppw_chunk_window=t(wpp.chunk_window),
-            # the COO edges of backend="xla" (nn/encoders.py)
-            pp_norm_index=t(data.pp_norm_index.astype("int64")),
-            pp_norm_weight=t(data.pp_norm_weight),
-        )
-    if data.drug_feat is not None:
-        graph["drug_feat"] = t(data.drug_feat)
-    if data.d_norm is not None:
-        graph["d_norm"] = t(data.d_norm)
-    gs = GraphStatic(
-        n_drug=data.n_drug, n_prot=data.n_prot, n_et=data.n_et,
-        dd_n_valid=data.dd_train.n_edges,
-        drug_feat_dim=0 if data.drug_feat is None else data.drug_feat.shape[1],
-        dd_chunk=dd_chunk, pp_window=pp_window,
-        dd_n_chunks=graph["dd_src2d"].shape[0] if "dd_src2d" in graph else 0,
-        pp_n_windows=wpp.n_windows, dd_layout=layout,
-        dd_sampled=sampled and layout != "chunked", dd_decoder=decoder,
-        pp_layout="windowed" if a1 is None else "dense",
-    )
+            ppw_src=to_device(wpp.src.reshape(npp, pp_chunk), device),
+            ppw_dstl=to_device(wpp.dst_local.reshape(npp, pp_chunk), device),
+            ppw_w=to_device(wpp.weight.reshape(npp, pp_chunk), device),
+            ppw_chunk_window=to_device(wpp.chunk_window, device))
+    graph.update(pp_arrays(data, device, pp_dense))
     return graph, gs
 
 
@@ -399,9 +403,9 @@ def relation_ordered(graph: dict, n_drug: int) -> dict:
 def make_test_arrays(data: TriGraphData, device=None) -> dict:
     src, dst = data.dd_test.edge_index
     return {
-        "src": torch.from_numpy(src.astype("int64")).to(device),
-        "dst": torch.from_numpy(dst.astype("int64")).to(device),
-        "et": torch.from_numpy(data.dd_test.edge_type.astype("int64")).to(device),
+        "src": to_device(src.astype("int64"), device),
+        "dst": to_device(dst.astype("int64"), device),
+        "et": to_device(data.dd_test.edge_type.astype("int64"), device),
         "bitmap": bitmap_tensor(data.dd_test_bitmap, device),
     }
 
@@ -424,13 +428,135 @@ def resolve_backend(requested: str = "auto") -> str:
 
 
 @dataclass(frozen=True)
-class TIP:
-    """Static model description; parameters live in explicit dicts."""
+class DDFamily:
+    """The contract of the D-D model families (TIP, models/dd.py,
+    models/decagon.py), static descriptions whose parameters live in
+    explicit dicts.  A family writes ``init``, ``encode(params, graph,
+    **kw)`` and ``_loss_sum(params, graph, z, seed, u24, **kw)`` (its BCE
+    sum over the train edges); it inherits the loss frame, the test
+    negatives, the evaluation and the DistMult or NN decoder.  ``loss``
+    and ``evaluate`` call ``self.encode``, so an instance attribute of
+    that name replaces it."""
 
-    cfg: ModelConfig
+    cfg: Any
     gs: GraphStatic
     device: torch.device
     backend: str = "pallas"
+
+    def decoder_init(self, gen: torch.Generator) -> dict:
+        cfg, gs = self.cfg, self.gs
+        if cfg.decoder == "distmult":
+            return distmult_init(gen, cfg.n_hid2, gs.n_et, device=self.device)
+        return nn_decoder_init(gen, cfg.n_hid2, gs.n_et, cfg.nn_decoder_l1_dim,
+                               device=self.device)
+
+    def score(self, params, z, src, dst, et, sigmoid: bool = True):
+        """Scores of (src, dst, relation) triples, flat (the eval's)."""
+        apply = (distmult_apply if self.cfg.decoder == "distmult"
+                 else nn_decoder_apply)
+        return apply(params["decoder"], z, src, dst, et, sigmoid)
+
+    def score_padded(self, params, z, src2d, dst2d, chunk_type, sigmoid=True):
+        """Flat scores [n_chunks * chunk] of a chunk-aligned buffer (kernel
+        B8 for DistMult, B9 for the NN decoder; gathers with 'xla')."""
+        apply = (distmult_apply_padded if self.cfg.decoder == "distmult"
+                 else nn_decoder_apply_padded)
+        return apply(params["decoder"], z, src2d, dst2d, chunk_type, sigmoid,
+                     kernel_dtype=self.cfg.kernel_dtype, backend=self.backend)
+
+    def loss(self, params, graph, seed: int, u24=None, **kw):
+        """Mean BCE over the train edges.  ``seed`` (uint32) keys the
+        negatives, ``u24`` (CPU only) replaces their random bits; ``kw``
+        reach ``encode`` and ``_loss_sum`` (TIP's ``mesh`` and ``remat``)."""
+        with trace.span("forward"):
+            z = self.encode(params, graph, **kw)
+            with trace.span("loss"):
+                total = self._loss_sum(params, graph, z, seed, u24, **kw)
+                return trace.backward_span(total / float(self.gs.dd_n_valid))
+
+    def sample_test_negatives(self, gen: torch.Generator, test):
+        src, dst = typed_negative_sampling(gen, test["et"], test["bitmap"],
+                                           self.gs.n_drug)
+        return {"src": src, "dst": dst}
+
+    @torch.no_grad()
+    def evaluate(self, params, graph, test, test_neg):
+        """Per-relation + macro AUPRC/AUROC/AP on the test split; the
+        encoder runs on the train graph and test edges are only scored."""
+        with trace.span("eval"):
+            z = self.encode(params, graph)
+            with trace.span("score"):
+                pos = self.score(params, z, test["src"], test["dst"],
+                                 test["et"])
+                neg = self.score(params, z, test_neg["src"], test_neg["dst"],
+                                 test["et"])
+            with trace.span("rank"):
+                per_rel = grouped_ranking_metrics(pos, neg, test["et"],
+                                                  self.gs.n_et)
+                return per_rel, macro_average(per_rel)
+
+
+def fused_dd_route(model) -> bool:
+    """Whether the fused dense BCE serves the model's D-D layout, decoder
+    and negatives (:func:`dd_loss_sum`)."""
+    cfg = model.cfg
+    return (model.gs.dd_layout != "chunked" and cfg.decoder == "distmult"
+            and cfg.negatives != "sampled")
+
+
+def dd_loss_sum(model, params, graph, z, seed: int, u24=None,
+                fused: bool = True, score_ct=None, pages_pos: bool = True):
+    """The BCE sum over the train edges of a D-D model with a DistMult or
+    NN decoder (TIP, DR-DF, DR-NN), by route.
+
+    Fused (:func:`fused_dd_route`, where ``fused``): positives plus
+    Poissonized negatives from the fused dense BCE, kernel B1 on the
+    strips, B2 on the pages (``u24`` is its cell field), each by its
+    module-level name here, or its plain twin under ``backend="xla"``.
+    Otherwise: one sampled negative per slot (kernel B10, by the global
+    relation ids of ``dd_chunk_type``, the bitmap's layout; ``u24`` is the
+    sampler's [n_chunks, 1, draws * chunk] draws) scored by the decoder's
+    SDDMM (kernel B8 or B9) binned by ``score_ct`` (default
+    ``dd_chunk_type``), positives scored by it over the chunk buffers,
+    except DistMult's on the dense layouts where ``pages_pos``, which are
+    scored over the full pages; softplus terms of slots masked by
+    ``dd_valid``."""
+    gs, cfg = model.gs, model.cfg
+    if fused and fused_dd_route(model):
+        w = params["decoder"]["weight"]
+        xla = model.backend == "xla"
+        if gs.dd_layout == "strips":
+            bce = dense_bce_sym_sum_xla if xla else dense_bce_sym_sum
+            return bce(w, z, graph["dd_adj_sym"], graph["dd_neg_q8"], seed,
+                       u24=u24)
+        bce = dense_bce_sum_xla if xla else dense_bce_sum
+        return bce(w, z, graph["dd_adj_t"], graph["dd_neg_q"], seed, u24=u24)
+    if cfg.negatives == "poisson":
+        raise ValueError(POISSON_NEEDS_DENSE)
+    ct = graph["dd_chunk_type"]
+    neg_src2d, neg_dst2d = typed_negative_sampling_chunked(
+        seed, ct, graph["dd_bitmap"], gs.n_drug, gs.n_et, gs.dd_chunk,
+        u24=u24, backend=model.backend)
+    if score_ct is None:
+        score_ct = ct
+    valid = graph["dd_valid"]
+    if (pages_pos and gs.dd_layout != "chunked"
+            and cfg.decoder == "distmult"):
+        pos_sum = distmult_dense_pos_bce_sum(
+            params["decoder"]["weight"], z, graph["dd_adj_t"],
+            kernel_dtype=cfg.kernel_dtype)
+    else:
+        pos = model.score_padded(params, z, graph["dd_src2d"],
+                                 graph["dd_dst2d"], score_ct, sigmoid=False)
+        pos_sum = torch.sum(softplus(-pos) * valid)
+    neg = model.score_padded(params, z, neg_src2d, neg_dst2d, score_ct,
+                             sigmoid=False)
+    return pos_sum + torch.sum(softplus(neg) * valid)
+
+
+@dataclass(frozen=True)
+class TIP(DDFamily):
+    cfg: ModelConfig
 
     @staticmethod
     def for_data(cfg: ModelConfig, data: TriGraphData, gs: GraphStatic,
@@ -465,11 +591,7 @@ class TIP:
             "encoder": fm_encoder_init(gen, self.cfg, gs.n_drug, gs.n_prot,
                                        gs.n_et, gs.drug_feat_dim or None,
                                        device=self.device),
-            "decoder": (
-                distmult_init(gen, self.cfg.n_hid2, gs.n_et, device=self.device)
-                if self.cfg.decoder == "distmult" else
-                nn_decoder_init(gen, self.cfg.n_hid2, gs.n_et,
-                                self.cfg.nn_decoder_l1_dim, device=self.device)),
+            "decoder": self.decoder_init(gen),
         }
 
     def _ep_encoder_view(self, enc_params, graph, mesh):
@@ -564,120 +686,35 @@ class TIP:
             return torch.utils.checkpoint.checkpoint(enc, enc_params,
                                                      use_reentrant=False)
 
-    def score(self, params, z, src, dst, et, sigmoid: bool = True):
-        """Scores of (src, dst, relation) triples, flat (the eval's)."""
-        apply = (distmult_apply if self.cfg.decoder == "distmult"
-                 else nn_decoder_apply)
-        return apply(params["decoder"], z, src, dst, et, sigmoid)
-
-    def score_padded(self, params, z, src2d, dst2d, chunk_type, sigmoid=True):
-        """Flat scores [n_chunks * chunk] of a chunk-aligned buffer (kernel
-        B8 for DistMult, B9 for the NN decoder; gathers with 'xla')."""
-        apply = (distmult_apply_padded if self.cfg.decoder == "distmult"
-                 else nn_decoder_apply_padded)
-        return apply(params["decoder"], z, src2d, dst2d, chunk_type, sigmoid,
-                     kernel_dtype=self.cfg.kernel_dtype, backend=self.backend)
-
-    def loss(self, params, graph, seed: int, u24=None, mesh=None,
-             remat: bool = False):
-        """Mean BCE over the train edges.  ``seed`` (uint32) keys the
-        negatives; ``u24`` replaces their random bits: the fused dense
-        BCEs' cell field (CPU only), or the sampler's draws (kernel B10
-        reads them on the card; not the xla route's).
-
-        DistMult on the strips or pages with ``negatives`` auto or poisson:
-        positives plus Poissonized negatives from the fused dense BCE,
-        kernel B1 on the strips, B2 on the pages (``u24`` is its cell
-        field).  Otherwise (the chunked layout, ``negatives="sampled"``, the
-        NN decoder, or an EP graph unsharded): one sampled negative per
-        slot (kernel B10; ``u24`` is the sampler's [n_chunks, 1, draws *
-        chunk] draws) scored by the decoder's SDDMM (kernel B8 or B9),
-        positives scored by it over the chunk buffers, except DistMult's on
-        the dense layouts without EP, which are scored over the full pages;
-        softplus terms of slots masked by ``dd_valid``.
-
-        Under ``mesh``: the chunked layout, or any EP-laid one; ``graph``
-        is this rank's view, the seed is folded with the rank (``u24``:
-        this rank's slice of the draws), and the sums are summed over the
-        ranks before the division, so every rank returns the same loss.
-        ``remat``: see :meth:`encode`, with or without ``mesh``."""
-        with trace.span("forward"):
-            if mesh is not None:
-                seed = fold_seed(seed, mesh.rank)
-            z = self.encode(params, graph, mesh, remat=remat)
-            with trace.span("loss"):
-                total = self._loss_sum(params, graph, z, seed, u24, mesh)
-                if mesh is not None:
-                    total = psum(total)
-                return trace.backward_span(total / float(self.gs.dd_n_valid))
-
-    def _loss_sum(self, params, graph, z, seed: int, u24, mesh):
-        """This rank's BCE sum over its train edges (:meth:`loss`)."""
-        gs, cfg = self.gs, self.cfg
-        ep = gs.ep_r_max > 0
-        if (gs.dd_layout != "chunked" and cfg.decoder == "distmult"
-                and cfg.negatives != "sampled" and (mesh is None) != ep):
-            w = params["decoder"]["weight"]
-            if ep:
-                w = w[0]  # the rank's rows, in the order of its pages
-            xla = self.backend == "xla"
-            if gs.dd_layout == "strips":
-                bce = dense_bce_sym_sum_xla if xla else dense_bce_sym_sum
-                return bce(w, z, graph["dd_adj_sym"], graph["dd_neg_q8"],
-                           seed, u24=u24)
-            bce = dense_bce_sum_xla if xla else dense_bce_sum
-            return bce(w, z, graph["dd_adj_t"], graph["dd_neg_q"], seed,
-                       u24=u24)
-        if cfg.negatives == "poisson":
-            raise ValueError(POISSON_NEEDS_DENSE)
-        dec_params, score_ct = params, graph["dd_chunk_type"]
-        if ep:
+    def _loss_sum(self, params, graph, z, seed: int, u24, mesh=None,
+                  remat: bool = False):
+        """This rank's BCE sum over its train edges (:func:`dd_loss_sum`),
+        summed over the ranks under ``mesh``, where ``graph`` is this
+        rank's view and the seed is folded with the rank (``u24``: this
+        rank's slice of the draws).  ``remat`` is :meth:`encode`'s."""
+        gs = self.gs
+        if mesh is not None:
+            seed = fold_seed(seed, mesh.rank)
+        fused, score_ct = (mesh is None) != (gs.ep_r_max > 0), None
+        if gs.ep_r_max and fused and fused_dd_route(self):
+            # the rank's decoder rows, in the order of its pages
+            dec = params["decoder"]
+            params = dict(params, decoder=dict(dec, weight=dec["weight"][0]))
+        elif gs.ep_r_max:  # the sampled route, by rows in bin order
             if mesh is None:
                 graph = relation_ordered(graph, gs.n_drug)
-                score_ct = graph["dd_chunk_type"]
             else:
                 score_ct = graph["dd_chunk_bin"]
-            dec_params = dict(params, decoder=self._ep_decoder_view(
+            params = dict(params, decoder=self._ep_decoder_view(
                 params["decoder"], graph, mesh))
-        # sampled by GLOBAL relation id: the bitmap's layout
-        neg_src2d, neg_dst2d = typed_negative_sampling_chunked(
-            seed, graph["dd_chunk_type"], graph["dd_bitmap"], gs.n_drug,
-            gs.n_et, gs.dd_chunk, u24=u24, backend=self.backend)
-        valid = graph["dd_valid"]
-        if gs.dd_layout == "chunked" or cfg.decoder == "nn" or ep:
-            pos = self.score_padded(dec_params, z, graph["dd_src2d"],
-                                    graph["dd_dst2d"], score_ct, sigmoid=False)
-            pos_sum = torch.sum(softplus(-pos) * valid)
-        else:
-            pos_sum = distmult_dense_pos_bce_sum(
-                params["decoder"]["weight"], z, graph["dd_adj_t"],
-                kernel_dtype=cfg.kernel_dtype)
-        neg = self.score_padded(dec_params, z, neg_src2d, neg_dst2d, score_ct,
-                                sigmoid=False)
-        return pos_sum + torch.sum(softplus(neg) * valid)
-
-    def sample_test_negatives(self, gen: torch.Generator, test):
-        src, dst = typed_negative_sampling(gen, test["et"], test["bitmap"],
-                                           self.gs.n_drug)
-        return {"src": src, "dst": dst}
+        total = dd_loss_sum(self, params, graph, z, seed, u24, fused,
+                            score_ct, pages_pos=not gs.ep_r_max)
+        return total if mesh is None else psum(total)
 
     @torch.no_grad()
     def evaluate(self, params, graph, test, test_neg):
-        """Per-relation + macro AUPRC/AUROC/AP on the test split; the
-        encoder runs on the train graph and test edges are only scored.  An
-        EP graph is evaluated whole: its params in the [n_dev, r_max, ...]
-        layout (parallel/ep.py:gather_params), no mesh."""
-        with trace.span("eval"):
-            z = self.encode(params, graph)
-            if self.gs.ep_r_max:
-                params = dict(params, decoder=self._ep_decoder_view(
-                    params["decoder"], graph, None))
-            with trace.span("score"):
-                pos = self.score(params, z, test["src"], test["dst"],
-                                 test["et"])
-                neg = self.score(params, z, test_neg["src"], test_neg["dst"],
-                                 test["et"])
-            with trace.span("rank"):
-                per_rel = grouped_ranking_metrics(pos, neg, test["et"],
-                                                  self.gs.n_et)
-                return per_rel, macro_average(per_rel)
+        """An EP graph is evaluated whole (parallel/ep.py:gather_params)."""
+        if self.gs.ep_r_max:
+            params = dict(params, decoder=self._ep_decoder_view(
+                params["decoder"], graph, None))
+        return super().evaluate(params, graph, test, test_neg)
