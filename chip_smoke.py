@@ -950,6 +950,132 @@ def check_pp_aggregate(graph, gs, data, dev, timed: bool = True) -> dict:
     return rep
 
 
+# B15's error bound, in units of 2^-24 sum |terms| of an element: 4 sqrt(n),
+# n the most nonzero terms an element sums (the plain version's float32
+# GEMM rounds each of its additions; the kernel's sums are exact where
+# float32 holds them)
+def rgcn_contract_bounds(strips) -> tuple:
+    """(forward, backward) bounds and their n: the most nonzero relations
+    of a strip column, three times the most nonzero columns of a
+    relation."""
+    import torch
+
+    nz = strips.reshape(strips.shape[0], -1) != 0
+    n_fwd = int(nz.sum(0, dtype=torch.int64).max())
+    n_bwd = 3 * int(nz.sum(1, dtype=torch.int64).max())
+    return (4 * math.sqrt(max(n_fwd, 1)), 4 * math.sqrt(max(n_bwd, 1)),
+            n_fwd, n_bwd)
+
+
+def check_rgcn_contract(graph, gs, data, dev, timed: bool = True) -> dict:
+    """Kernel B15 against its plain version on the Decagon-shaped strips
+    (``graph["dd_adj_sym"]``, 1,097 relations) at both cells' basis widths
+    (64: TIP-cat's two layers of 32, 32: DR-NN's of 16): the forward M =
+    bf16(att)^T S on a bf16 att, and the backward dA = S dM^T on a float32
+    gradient of spread exponents (three bf16 terms), each within
+    :func:`rgcn_contract_bounds` units of 2^-24 sum|terms|; two runs of each
+    bit-equal; the elements of bf16(M) that differ from the bf16 rounding
+    of the upcast product, counted (the R-GCN rounds M to bf16 before it
+    multiplies h).  One NaN in att reaches M's column as in the plain
+    version.  Timed: both widths each way; the plain version, and the
+    route it replaced as the library yardstick: the int8 -> float32
+    upcast, then torch.mm (forward), and torch.mm of the backward on that
+    copy."""
+    import torch
+
+    from tip_tpu_torch.ops import rgcn_contract as rc
+
+    strips = graph["dd_adj_sym"]
+    r, c = strips.shape[0], strips[0].numel()
+    b_fwd, b_bwd, n_fwd, n_bwd = rgcn_contract_bounds(strips)
+    rep = {"r": r, "c": c, "n_fwd": n_fwd, "n_bwd": n_bwd,
+           "ulps_bound_fwd": b_fwd, "ulps_bound_bwd": b_bwd}
+    sf = strips.reshape(r, -1).float()
+    gen = torch.Generator().manual_seed(25)
+    ins, worst = {}, 0.0
+    for bt in (64, 32):
+        att = torch.randn(r, bt, generator=gen).to(torch.bfloat16).to(dev)
+        gm = (torch.randn(bt, c, generator=gen) * torch.exp2(torch.randint(
+            -8, 9, (bt, c), generator=gen).float())).to(dev)
+        ins[bt] = (att, gm)
+        k = rc.rgcn_contract_cuda(att, strips)
+        p = rc.rgcn_contract_plain(att, strips)
+        scale = att.float().abs().T @ sf.abs()
+        ulps = float(((k.double() - p.double()).abs()
+                      / (scale.double() * 2.0**-24).clamp_min(1e-300)).max())
+        check(ulps <= b_fwd, f"B15 bt={bt} fwd: {ulps} units of 2^-24 "
+              f"sum|terms|, bound {b_fwd}")
+        check(torch.equal(k, rc.rgcn_contract_cuda(att, strips)),
+              f"B15 bt={bt} fwd differs between two runs")
+        rep[f"bt{bt}_fwd_ulps_of_sum"] = ulps
+        rep[f"bt{bt}_fwd_max_abs_err"] = max_err(k, p)[0]
+        rep[f"bt{bt}_fwd_bf16_differ"] = int(
+            (k.to(torch.bfloat16) != p.to(torch.bfloat16)).sum())
+        rep[f"bt{bt}_fwd_f32_differ"] = int((k != p).sum())
+        worst = max(worst, rep[f"bt{bt}_fwd_max_abs_err"])
+        del k, p, scale
+        k = rc.rgcn_contract_grad_cuda(strips, gm)
+        p = rc.rgcn_contract_grad_plain(strips, gm)
+        scale = sf.abs() @ gm.abs().t()
+        ulps = float(((k.double() - p.double()).abs()
+                      / (scale.double() * 2.0**-24).clamp_min(1e-300)).max())
+        check(ulps <= b_bwd, f"B15 bt={bt} bwd: {ulps} units of 2^-24 "
+              f"sum|terms|, bound {b_bwd}")
+        check(torch.equal(k, rc.rgcn_contract_grad_cuda(strips, gm)),
+              f"B15 bt={bt} bwd differs between two runs")
+        rep[f"bt{bt}_bwd_ulps_of_sum"] = ulps
+        rep[f"bt{bt}_bwd_max_abs_err"] = max_err(k, p)[0]
+        rep[f"bt{bt}_bwd_bf16_differ"] = int(
+            (k.to(torch.bfloat16) != p.to(torch.bfloat16)).sum())
+        worst = max(worst, rep[f"bt{bt}_bwd_max_abs_err"])
+        del k, p, scale
+    att = ins[64][0].clone()
+    att[r // 2, 5] = float("nan")
+    kn = torch.isnan(rc.rgcn_contract_cuda(att, strips))
+    check(bool(kn[5].any()) and torch.equal(
+        kn, torch.isnan(rc.rgcn_contract_plain(att, strips))),
+        "B15: a NaN in att did not reach M as in the plain version")
+    del att, kn
+    rep["max_abs_err"] = worst
+    if not timed:
+        return rep
+
+    for bt in (64, 32):
+        att, gm = ins[bt]
+        tag = "" if bt == 64 else f"bt{bt}_"
+        rep[f"{tag}ms" if bt == 64 else f"{tag}fwd_ms"] = cuda_ms(
+            lambda: rc.rgcn_contract_cuda(att, strips), reps=20, primed=True)
+        rep[f"{tag}bwd_ms"] = cuda_ms(
+            lambda: rc.rgcn_contract_grad_cuda(strips, gm), reps=20,
+            primed=True)
+        # the work of one call: S read, att / dM read, M / dA written
+        for what, terms, nb in (
+                ("", 1, r * c + 2 * r * bt + 4 * bt * c),
+                ("bwd_", 3, r * c + 4 * bt * c + 4 * r * bt)):
+            t_bytes = nb / PEAK_BYTES_PER_S
+            t_ops = terms * 2.0 * r * c * bt / PEAK_BF16_FLOP_PER_S
+            rep[f"{tag}{what}bound_ms"] = 1e3 * max(t_bytes, t_ops)
+            rep[f"{tag}{what}bound_by"] = ("bytes" if t_bytes >= t_ops
+                                           else "operations")
+    rep["step_ms"] = rep["ms"] + rep["bwd_ms"]  # a TIP-cat step's two calls
+    rep["bt32_step_ms"] = rep["bt32_fwd_ms"] + rep["bt32_bwd_ms"]
+    rep["roofline_pct"] = 100 * rep["bound_ms"] / rep["ms"]
+    rep["bwd_roofline_pct"] = 100 * rep["bwd_bound_ms"] / rep["bwd_ms"]
+    att, gm = ins[64]
+    rep["plain_ms"] = cuda_ms(lambda: rc.rgcn_contract_plain(att, strips),
+                              reps=5, warmup=1)
+    want = rc.rgcn_contract_plain(att, strips)
+    rep["library_ms"] = library_call(
+        lambda: att.float().T @ strips.reshape(r, -1).float(), want, 1e-5,
+        "B15")
+    del want
+    want = rc.rgcn_contract_grad_plain(strips, gm)
+    rep["library_bwd_ms"] = library_call(lambda: sf @ gm.t(), want, 1e-5,
+                                         "B15 bwd")
+    rep["library_step_ms"] = rep["library_ms"] + rep["library_bwd_ms"]
+    return rep
+
+
 # B14's forward bound, in units of 2^-24 sum |terms| of an element (both
 # forwards: bf16 operand and exact), between the kernel's readings (0.47
 # to 0.48 on an NVIDIA H100 80GB HBM3) and the least planted fault's (13.6,
@@ -1769,6 +1895,7 @@ KERNEL_CHECKS = {
     "pp_aggregate": ("dense", check_pp_aggregate),
     "rel_aggregate": ("decagon", check_rel_aggregate),
     "dense_bce_dedicom": ("decagon", check_dense_bce_dedicom),
+    "rgcn_contract": ("dense", check_rgcn_contract),
 }
 
 
@@ -1961,14 +2088,19 @@ def expected_launches(path: str, steps: int, eval_rank: bool = True,
     backward a step, the eval's encode 2 (Decagon's d = 64 layer is two
     column blocks of 32: the same counts).  Decagon on the strips' uint8
     pages: B14 once a layer forward and backward (4 a step, the eval's 2),
-    B13 once a step."""
+    B13 once a step.  B15 wherever the R-GCN pair runs over the strips
+    (TIP dense, strips sampled, TIP-NN dense, DR-NN dense, DR-DF dense, the
+    EP strips runs on each rank's block): its forward and its backward
+    once a step each (both layers' M in one contraction), the eval's
+    encode once."""
     ev, rm = 2 * eval_rank, 2 * steps * remat
     pp = {"pp_aggregate": 4 * steps + ev}
+    b15 = {"rgcn_contract": 2 * steps + eval_rank}
     sharded = {"typed_neg_sampler": steps, "distmult_sddmm": 4 * steps,
                "typed_neighbor_sum": 4 * steps + ev, "gcn_spmm": ev}
     if path in EP_PATHS:
         n_ring, pp, _, layout, decoder = EP_PATHS[path]
-        want = {"strips": {"dense_bce_sym": steps},
+        want = {"strips": {"dense_bce_sym": steps, **b15},
                 "pages": {"dense_bce": steps}}.get(layout, {
                     "typed_neg_sampler": steps,
                     ("nn_sddmm" if decoder == "nn" else "distmult_sddmm"):
@@ -1986,26 +2118,26 @@ def expected_launches(path: str, steps: int, eval_rank: bool = True,
                 **({"ring_spmm": n_ring * (4 * steps + rm)}
                    if pp == "coo" else {})}
     return {
-        "tip dense": {"dense_bce_sym": steps, **pp},
+        "tip dense": {"dense_bce_sym": steps, **pp, **b15},
         "tip pages": {"dense_bce": steps, **pp},
         "tip pages bf16": {"dense_bce": steps, **pp},
         "tip strips sampled": {"typed_neg_sampler": steps,
-                               "distmult_sddmm": 2 * steps, **pp},
+                               "distmult_sddmm": 2 * steps, **pp, **b15},
         "tip pages sampled": {"typed_neg_sampler": steps,
                               "distmult_sddmm": 2 * steps, **pp},
         "tip chunked": {"typed_neg_sampler": steps, "distmult_sddmm": 4 * steps,
                         "typed_neighbor_sum": 4 * steps + ev + rm,
                         "gcn_spmm": 4 * steps + ev + rm},
         "tip-nn dense": {"typed_neg_sampler": steps, "nn_sddmm": 4 * steps,
-                         **pp},
+                         **pp, **b15},
         "tip-nn chunked": {"typed_neg_sampler": steps, "nn_sddmm": 4 * steps,
                            "typed_neighbor_sum": 4 * steps + ev + rm,
                            "gcn_spmm": 4 * steps + ev + rm},
-        "dr-nn dense": {"dense_bce_nn": steps},
+        "dr-nn dense": {"dense_bce_nn": steps, **b15},
         "dr-nn pages": {"dense_bce_nn": steps},
         "dr-nn chunked": {"typed_neg_sampler": steps, "nn_sddmm": 4 * steps,
                           "typed_neighbor_sum": 4 * steps + ev},
-        "dr-df dense": {"dense_bce_sym": steps},
+        "dr-df dense": {"dense_bce_sym": steps, **b15},
         "dr-df pages": {"dense_bce": steps},
         "dr-df chunked": {"typed_neg_sampler": steps,
                           "distmult_sddmm": 4 * steps,
@@ -3184,6 +3316,7 @@ KERNEL_PATH = {
     "pp_aggregate": "tip dense",
     "rel_aggregate": "decagon dense",
     "dense_bce_dedicom": "decagon dense",
+    "rgcn_contract": "tip dense",
 }
 PATH_CHECKS = {"tip dense": "decagon_dense", "tip pages": "decagon_dense",
                "decagon dense": "decagon_trigraph",

@@ -35,7 +35,7 @@ WIDTHS = dict(mode="cat", prot_drug_dim=6, n_embed=10, n_hid1=8, n_hid2=8,
               num_base=4, pp_hid1=8, pp_hid2=6)
 # each layout's ops with a backward span in a TIP-cat step
 OPS = {"chunked": {"typed_neighbor_sum", "gcn_spmm", "distmult_logits"},
-       "strips": {"dense_bce_sym", "pp_aggregate"}}
+       "strips": {"dense_bce_sym", "pp_aggregate", "rgcn_contract"}}
 
 
 def load_tool():

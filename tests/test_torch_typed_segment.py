@@ -398,6 +398,6 @@ def test_kernel_launch_signatures_match_c_entry_points():
     for py in (ROOT / "tip_tpu_torch" / "ops").glob("*.py"):
         calls += re.findall(r'kernels\.launch\(\w+, "(\w+)", "(\w+)"',
                             py.read_text())
-    assert len(calls) == 19  # with the launches of B13 and B14
+    assert len(calls) == 21  # with the launches of B13, B14 and B15
     for entry, sig in calls:
         assert entries[entry] == sig, entry

@@ -1,5 +1,7 @@
 // Warpgroup MMA (wgmma, sm_90a) on TF32 operands with float32 sums, for
-// kernel B13 (dense_bce_dedicom.cu).  A warpgroup (four consecutive warps,
+// kernel B13 (dense_bce_dedicom.cu); kernel B15's backward
+// (rgcn_contract.cu) lays its bf16 B tiles out the same way, two k slots
+// to a 32-bit word, and uses the descriptor and fences.  A warpgroup (four consecutive warps,
 // warp w of it owning rows 16 w .. 16 w + 15) multiplies a 64 x 8 A tile,
 // held in registers, by an 8 x N B tile in shared memory, N = 8, 16 or 32,
 // into a 64 x N float32 accumulator in registers, asynchronously.

@@ -8,9 +8,11 @@ with ``ctypes``, and never imported at module import: a machine without
 ``nvcc`` or a GPU imports this package and runs the plain PyTorch versions.
 
 ``KERNELS`` lists every kernel with the TPU kernel it replaces (B12,
-``pp_aggregate``, replaces no ``pl.pallas_call``: the XLA dot of the dense
-P-P GCN; B13 and B14, Decagon's DEDICOM loss and relation convolution,
-replace nothing: the JAX package has no Decagon model).  Each CUDA wrapper
+``pp_aggregate``, and B15, ``rgcn_contract``, replace no
+``pl.pallas_call``: the XLA dots of the dense P-P GCN and of the R-GCN's
+M-first contraction over the strips; B13 and B14, Decagon's DEDICOM loss
+and relation convolution, replace nothing: the JAX package has no Decagon
+model).  Each CUDA wrapper
 adds one to ``LAUNCHES[name]`` where it launches its kernel (:func:`launch` does so for it), so a run can show
 that its main path went through the kernels (``reset_launch_counts``
 before, ``LAUNCHES`` after).
@@ -114,6 +116,11 @@ KERNELS = {
         name="rel_aggregate",
         source="tip_tpu_torch/csrc/rel_aggregate.cu",
         replaces="none (no Decagon model in the JAX package)",
+    ),
+    "rgcn_contract": KernelSpec(
+        name="rgcn_contract",
+        source="tip_tpu_torch/csrc/rgcn_contract.cu",
+        replaces="tip_tpu/nn/rgcn.py:203",
     ),
 }
 

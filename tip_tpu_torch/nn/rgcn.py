@@ -16,7 +16,11 @@ block triangle; ``M @ h`` is reassembled strip by strip: strip I adds
 ``strip_I @ h[I*128:]`` to rows I and ``strip_I[:, 128:]^T @ h[I]`` to the
 mirror rows.  Contributions to a row block are summed in the JAX
 package's order.  Both contractions take bf16-rounded operands with f32
-accumulation (ops/matmul.py).  Over the full pages (the JAX package's
+accumulation: the M-first one is kernel B15 (ops/rgcn_contract.py), which
+reads the int8 strips where they lie (``backend="xla"``: the float32
+product of the upcast operands, as the JAX package's XLA dot), the
+strip-by-strip ``M @ h`` the float32 product of bf16-rounded operands
+(ops/matmul.py).  Over the full pages (the JAX package's
 float32 or bf16 ``dd_adj_t``, unpadded here) the same M-first pair runs
 without the strip bookkeeping: float32 pages take float32 operands as they
 are, bf16 pages bf16-rounded ones.
@@ -44,6 +48,7 @@ import torch
 from tip_tpu_torch.data.packing import SYM_BLOCK as B, nb_from_cols
 from tip_tpu_torch.nn import initializers as init
 from tip_tpu_torch.ops.matmul import bf16_round, mm_bf16
+from tip_tpu_torch.ops.rgcn_contract import rgcn_contract
 from tip_tpu_torch.ops.segment import (
     mean_from_sum,
     segment_sum_sorted,
@@ -95,19 +100,24 @@ def _finish(params, agg, h, degree, mesh):
 
 
 def dense_rgcn_pair_apply_sym(params1, params2, x, sym_strips, degree,
-                              mesh=None):
+                              mesh=None, backend: str = "pallas"):
     """Both R-GCN layers (ReLU between) over the int8 strips
     [R, 128, NB*128] (data/packing.py:sym_strip_pack); x [n, d_in],
     degree [n] the cross-relation in-degree.  Returns [n, d_out2].  Under
     an EP ``mesh`` the strips and ``att`` rows are this rank's relation
-    block and each layer's aggregate is summed over the ranks."""
+    block and each layer's aggregate is summed over the ranks.
+    ``backend`` 'pallas' contracts M with kernel B15 (its plain version on
+    CPU tensors), 'xla' with the float32 product of the upcast strips."""
     att_cat = torch.cat([params1["att"], params2["att"]], dim=1)
     b1 = params1["att"].shape[1]
     n_true = degree.shape[0]
     r, _, totcols = sym_strips.shape
     nb = nb_from_cols(totcols)
     offs = [(i * nb - i * (i - 1) // 2) * B for i in range(nb + 1)]
-    m = (bf16_round(att_cat).T @ bf16_round(sym_strips).reshape(r, -1))
+    if backend == "xla":
+        m = bf16_round(att_cat).T @ bf16_round(sym_strips).reshape(r, -1)
+    else:
+        m = rgcn_contract(att_cat.to(torch.bfloat16), sym_strips)
     m = m.reshape(-1, B, totcols)  # [B1 + B2, 128, totcols] f32
 
     def half(params, m_half, h):
@@ -202,7 +212,7 @@ def rgcn_pair_on_layout(params1, params2, x, graph: dict, gs,
     if gs.dd_layout != "chunked":
         return dense_rgcn_pair_apply_sym(params1, params2, x,
                                          graph["dd_adj_sym"], graph["dd_deg"],
-                                         mesh=mesh)
+                                         mesh=mesh, backend=backend)
     dd = (graph["dd_src2d"], graph["dd_dst2d"], graph["dd_chunk_type"],
           graph["dd_deg"], gs.n_drug, gs.n_et)
     kw = dict(kernel_dtype=kernel_dtype, mesh=mesh, backend=backend)

@@ -10,10 +10,12 @@ float32 on either device.  This needs TF32 off on the card
 (:func:`set_matmul_precision`), or the rounded operands would lose bits
 again.  int8 operands (the 0/1 and count matrices) upcast exactly.
 
-Where these helpers feed a matmul the upcast copies are materialised
-(torch has no int8 x bf16 product): the M-first R-GCN over the int8 strips
-(nn/rgcn.py).  The dense P-P GCN takes kernel B12 (ops/pp_aggregate.py),
-which reads its int8 (A+I) where it lies.
+Where these helpers feed a matmul an int8 operand, its upcast copy is
+materialised (torch has no int8 x bf16 product): the sharded dense P-P
+rows (parallel/ring.py) and the ``backend="xla"`` routes.  The M-first
+R-GCN over the int8 strips takes kernel B15 (ops/rgcn_contract.py) and
+the dense P-P GCN kernel B12 (ops/pp_aggregate.py), which read their int8
+operands where they lie.
 """
 
 from __future__ import annotations

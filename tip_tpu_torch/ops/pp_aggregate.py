@@ -84,14 +84,14 @@ def check_args(a1: torch.Tensor, x: torch.Tensor, kernel: bool = False):
         raise ValueError("a1 must be contiguous and 16-byte aligned")
 
 
-def column_blocks(d: int):
+def column_blocks(d: int, widths=WIDTHS):
     """[(c0, c1, w)]: the column ranges of an [N, d] operand that the kernel
     takes in turn, each zero-padded to the instantiated width w (the least
-    in :data:`WIDTHS` that holds it): one block up to 32 columns, blocks of
-    32 beyond."""
-    top = WIDTHS[-1]
+    in ``widths`` that holds it): one block up to the widest, blocks of the
+    widest beyond (B12: 32 columns)."""
+    top = widths[-1]
     return [(c0, min(c0 + top, d),
-             next(w for w in WIDTHS if w >= min(top, d - c0)))
+             next(w for w in widths if w >= min(top, d - c0)))
             for c0 in range(0, d, top)]
 
 

@@ -40,7 +40,7 @@ convolution) and ``loss`` (Decagon's ``dedicom_bce`` inside it);
 name (``dense_bce_sym``, ``dense_bce``, ``dense_bce_nn``,
 ``typed_neighbor_sum``, ``gcn_spmm``, ``distmult_logits``, ``nn_logits``,
 ``distmult_v1``, ``nn_v1``, ``ring_spmm``, ``pp_aggregate``,
-``rel_aggregate``, ``dedicom_bce``) and, under remat, the
+``rel_aggregate``, ``dedicom_bce``, ``rgcn_contract``) and, under remat, the
 recomputed ``encode``; ``eval`` holding ``encode``, ``score`` and
 ``rank``; set-up's ``cache`` (``cached_trigraph``), ``device_graph``
 (``make_graph_arrays``, ``make_dd_graph_arrays``) and ``kernel_load``
