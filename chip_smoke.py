@@ -29,7 +29,11 @@ Phases, each fatal on failure:
      dense strips, B2 on the full float32 and bf16 pages and B3 on DR-NN's
      uint8, bf16 and float32 pages, the dense paths' shapes, B2 and B3
      also on float32 pages holding counts past 256; B4-B10 on the
-     chunked buffers, B6 and B7 also against B8 and B9); then Decagon's
+     chunked buffers, B6 and B7 also against B8 and B9; on the strips
+     at CompGCN's width 200 B16 forward and backward, in units of 2^-24
+     sum|terms| with a planted two-term backward above its bound, and B1's
+     wide instance (d = 200) against a float64 oracle, value-only equal to
+     fused, two runs bit-equal, a NaN in z reaching the loss); then Decagon's
      graph (make_decagon_graph_arrays: the uint8 pages): B14 at d = 64 and
      32 forward (bf16 and exact operand) and backward, each with a planted
      fault above its bound, B13 on the uint8 pages, fused and value-only,
@@ -62,8 +66,10 @@ Phases, each fatal on failure:
      as in 5: DR-NN on the strips and uint8 pages (B3; profiled), DR-NN
      with float32 matmuls pinned ("dr-nn pages": B3 on the float32 pages),
      then DR-DF (B1), PR-HMP-NN (no kernel) and PP-GAE (B12), DR-DF
-     with float32 matmuls pinned ("dr-df pages", B2), and Decagon
-     ("decagon dense": B14, B13, B12; profiled);
+     with float32 matmuls pinned ("dr-df pages", B2), Decagon
+     ("decagon dense": B14, B13, B12; profiled) and CompGCN ("compgcn
+     dense": B16, B1's wide instance, B12 at 200 columns; profiled; one
+     more step's peak memory under a float32 copy of the strips);
   7. the decoder A/B entry point (tip_tpu_torch/scripts/decoder_ab.py) on
      the same graph in float32, counters as in 5: v1 (B6, B7) against v2
      (B8, B9) against a plain gather, the sampler (B10), the positives' BCE;
@@ -1880,6 +1886,239 @@ def check_nn_sddmm_v1(graph, gs, data, dev, timed: bool = True) -> dict:
     return rep
 
 
+
+# B16's bounds, in units of 2^-24 sum |terms| of an element: about five
+# times the kernel's readings on an NVIDIA H100 80GB HBM3 (forward 0.49;
+# backward dU 1.07, dz 1.79), the backward's seven times under the planted
+# two-term backward's (58.0)
+B16_FWD_UNITS = 2.5
+B16_BWD_UNITS = 8.0
+B16_WIDTH = 200  # CompGCN's two directions of init_dim 100
+
+
+def b16_units(k, p, scale) -> float:
+    return float(((k.double() - p.double()).abs()
+                  / (scale.double() * 2.0**-24).clamp_min(1e-300)).max())
+
+
+def check_rel_scaled(graph, gs, data, dev, timed: bool = True) -> dict:
+    """Kernel B16 against its plain version on the Decagon-shaped strips
+    (``graph["dd_adj_sym"]``, R = 1,097, n = 645) at CompGCN's width 200:
+    the forward on a bf16 operand, the backward (dU, dz) on a float32
+    gradient of spread exponents (its three exact bf16 terms), each within
+    B16_FWD_UNITS / B16_BWD_UNITS units of 2^-24 sum|terms| of the plain
+    version; two runs of each bit-equal; a planted backward on two terms
+    (the third left out) reads above the backward bound.  Timed: forward
+    and backward, their bounds (bytes and bf16 operations), the plain
+    version."""
+    import torch
+
+    from tip_tpu_torch.ops import rel_scaled as b16
+    from tip_tpu_torch.ops.pp_aggregate import split3_plain
+
+    strips = graph["dd_adj_sym"]
+    r, n, d = strips.shape[0], data.n_drug, B16_WIDTH
+    gen = torch.Generator().manual_seed(26)
+    ub = b16.bf16_value(torch.randn(n, d, generator=gen)).to(dev)
+    z = torch.randn(r, d, generator=gen).to(dev)
+    g = (torch.randn(n, d, generator=gen) * torch.exp2(torch.randint(
+        -8, 9, (n, d), generator=gen).float())).to(dev)
+    rep = {"r": r, "n": n, "d": d, "units_bound_fwd": B16_FWD_UNITS,
+           "units_bound_bwd": B16_BWD_UNITS}
+    k = b16.rel_scaled_cuda(strips, ub, z)
+    p = b16.rel_scaled_plain(strips, ub, z)
+    scale = b16.rel_scaled_plain(strips, ub.abs(), z.abs())
+    units = b16_units(k, p, scale)
+    check(units <= B16_FWD_UNITS, f"B16 fwd: {units} units of 2^-24 "
+          f"sum|terms|, bound {B16_FWD_UNITS}")
+    check(torch.equal(k, b16.rel_scaled_cuda(strips, ub, z)),
+          "B16 fwd differs between two runs")
+    rep.update(fwd_units=units, fwd_max_abs_err=max_err(k, p)[0])
+    du, dz = b16.rel_scaled_grad_cuda(strips, ub, z, g)
+    du_p, dz_p = b16.rel_scaled_grad_plain(strips, ub, z, g)
+    du_s, dz_s = b16.rel_scaled_grad_plain(strips, ub.abs(), z.abs(), g.abs())
+    u_du, u_dz = b16_units(du, du_p, du_s), b16_units(dz, dz_p, dz_s)
+    check(max(u_du, u_dz) <= B16_BWD_UNITS, f"B16 bwd: dU {u_du}, dz {u_dz} "
+          f"units of 2^-24 sum|terms|, bound {B16_BWD_UNITS}")
+    again = b16.rel_scaled_grad_cuda(strips, ub, z, g)
+    check(torch.equal(du, again[0]) and torch.equal(dz, again[1]),
+          "B16 bwd differs between two runs")
+    # the planted fault: G on two bf16 terms, the third dropped
+    nb = strips.shape[2] // 128
+    nb = int(round(((8 * nb + 1) ** 0.5 - 1) / 2))
+    dw = b16.padded_width(d)
+    hi, mid, _ = split3_plain(g)
+    xt = torch.stack([b16._pad(t, nb * 128, dw, torch.bfloat16)
+                      for t in (hi, mid, torch.zeros_like(g))])
+    zz = b16._pad(z, r, dw, torch.float32)
+    ubp = b16._pad(ub, nb * 128, dw, torch.bfloat16)
+    du2, dz2 = b16._launch(strips, xt, 3, zz, ubp, n, d, True)
+    planted = max(b16_units(du2, du_p, du_s), b16_units(dz2, dz_p, dz_s))
+    check(planted > B16_BWD_UNITS, f"B16: the two-term backward reads "
+          f"{planted} units, within the bound {B16_BWD_UNITS}")
+    rep.update(bwd_du_units=u_du, bwd_dz_units=u_dz, planted_two_term=planted,
+               bwd_max_abs_err=max(max_err(du, du_p)[0],
+                                   max_err(dz, dz_p)[0]))
+    rep["max_abs_err"] = max(rep["fwd_max_abs_err"], rep["bwd_max_abs_err"])
+    del k, p, scale, du_p, dz_p, du_s, dz_s, du2, dz2
+    if not timed:
+        return rep
+    rep["ms"] = cuda_ms(lambda: b16.rel_scaled_cuda(strips, ub, z), reps=20,
+                        primed=True)
+    rep["bwd_ms"] = cuda_ms(lambda: b16.rel_scaled_grad_cuda(
+        strips, ub, z, g), reps=20, primed=True)
+    for what, terms, nbytes_ in (
+            ("", 1, strips.numel() + 2 * n * d + 4 * r * d + 4 * n * d),
+            ("bwd_", 3, strips.numel() + 4 * n * d + 4 * r * d + 2 * n * d
+             + 4 * n * d + 4 * r * d)):
+        t_bytes = nbytes_ / PEAK_BYTES_PER_S
+        t_ops = terms * 2.0 * r * n * n * d / PEAK_BF16_FLOP_PER_S
+        rep[f"{what}bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        rep[f"{what}bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    rep["roofline_pct"] = 100 * rep["bound_ms"] / rep["ms"]
+    rep["bwd_roofline_pct"] = 100 * rep["bwd_bound_ms"] / rep["bwd_ms"]
+    rep["plain_ms"] = cuda_ms(lambda: b16.rel_scaled_plain(strips, ub, z),
+                              reps=3, warmup=1)
+    rep["library_ms"] = None  # no one PyTorch call: the plain version's bmm
+    return rep
+
+
+B1_WIDE_D = 200  # CompGCN's gcn_dim
+# the wide instance's floor, in units of 2^-24 sum|terms| of the float64
+# oracle: a logit is a float32 dot of d = 200 products in an order of its
+# own, a few units at most (readings on an NVIDIA H100 80GB HBM3: loss
+# 0.33, dw 0.59, dz 0.42; the plain version's 1.07, 0.25, 0.32)
+B1W_FLOOR_UNITS = 4.0
+
+
+def b1_wide_oracle(w, z, pages, q8, seed: int, chunk: int = 64):
+    """float64 loss, dw, dz of the symmetric estimator with the hashed
+    field (the plain version's cells and counts, ops/dense_bce_sym.py), and
+    each one's sum of |terms|: the loss terms are >= 0; dw's and dz's are
+    |G| |z_I| |z_J| (|w|)."""
+    import torch
+
+    from tip_tpu_torch.data.packing import nb_from_cols
+    from tip_tpu_torch.ops import dense_bce_sym as bce
+
+    r, _, totcols = pages.shape
+    n, d = z.shape
+    nb = nb_from_cols(totcols)
+    npad = nb * 128
+    dev = z.device
+    zb = torch.nn.functional.pad(z.double(), (0, 0, 0, npad - n))
+    wd = w.double()
+    idx = torch.arange(npad, device=dev)
+    loss = torch.zeros((), dtype=torch.float64, device=dev)
+    dw, dw_a = torch.zeros_like(wd), torch.zeros_like(wd)
+    dz, dz_a = torch.zeros_like(zb), torch.zeros_like(zb)
+    for c0 in range(0, r, chunk):
+        c1 = min(c0 + chunk, r)
+        rel = torch.arange(c0, c1, device=dev)
+        wc, qc = wd[c0:c1], q8[c0:c1].long()
+        for i in range(nb):
+            s = (nb - i) * 128
+            off = bce._strip_off(nb, i)
+            da = pages[c0:c1, :, off:off + s].double()
+            zi, zt = zb[i * 128:(i + 1) * 128], zb[i * 128:]
+            lg = (zi[None] * wc[:, None, :]) @ zt.T
+            rows, cols = idx[i * 128:(i + 1) * 128], idx[i * 128:]
+            u = bce.u24_field(seed, rel, rows, cols, npad)
+            diag = (cols < (i + 1) * 128)[None, None, :]
+            cnt = sum((u < torch.where(diag, qc[:, k, None, None],
+                                       qc[:, 4 + k, None, None])).double()
+                      for k in range(4))
+            bad = (da > 0) | (rows >= n)[None, :, None] | \
+                (cols >= n)[None, None, :]
+            cnt = torch.where(bad, 0.0, cnt)
+            daw = torch.where(diag, da, 2.0 * da)
+            sp = torch.nn.functional.softplus(-lg, threshold=1e9)
+            loss += (sp * daw + (sp + lg) * cnt).sum()
+            gg = cnt - torch.sigmoid(-lg) * (daw + cnt)
+            ga = gg.abs()
+            dw[c0:c1] += (zi[None] * (gg @ zt)).sum(1)
+            dw_a[c0:c1] += (zi.abs()[None] * (ga @ zt.abs())).sum(1)
+            dz[i * 128:(i + 1) * 128] += (wc[:, None] * (gg @ zt)).sum(0)
+            dz[i * 128:] += (wc[:, None] * (gg.transpose(1, 2) @ zi)).sum(0)
+            dz_a[i * 128:(i + 1) * 128] += (wc.abs()[:, None]
+                                            * (ga @ zt.abs())).sum(0)
+            dz_a[i * 128:] += (wc.abs()[:, None] * (ga.transpose(1, 2)
+                                                    @ zi.abs())).sum(0)
+    return loss, dw, dz[:n], dw_a, dz_a[:n]
+
+
+def check_dense_bce_sym_wide(graph, gs, data, dev, timed: bool = True
+                             ) -> dict:
+    """B1's wide instance (csrc/dense_bce_sym.cu ``b1w``) at CompGCN's d =
+    200 on the Decagon-shaped strips and thresholds, against the float64
+    oracle of the same cells and draws (:func:`b1_wide_oracle`), with the
+    plain version's float32 errors beside it: loss, dw and dz in units of
+    2^-24 sum|terms|, each within 4 x the plain version's reading (and at
+    least B1W_FLOOR_UNITS: the logit's float32 dot of 200 products, in
+    another order); value-only equals fused and two runs are bit-equal; a
+    NaN in z reaches the loss.  Timed: fused, value-only, the plain
+    version, the bound of counts/compgcn_kernels.py's reckoning."""
+    import torch
+
+    from tip_tpu_torch.ops import dense_bce_sym as bce
+
+    pages, q8 = graph["dd_adj_sym"], graph["dd_neg_q8"]
+    r, n, d = pages.shape[0], data.n_drug, B1_WIDE_D
+    gen = torch.Generator().manual_seed(27)
+    w = (torch.randn(r, d, generator=gen) / d**0.5).to(dev)
+    z = (torch.rand(n, d, generator=gen) * 2 - 1).to(dev)  # tanh's range
+    seed = 2**31 + 26
+    lk, dwk, dzk = bce.dense_bce_sym_cuda(w, z, pages, q8, seed, True)
+    lp, dwp, dzp = bce.dense_bce_sym_plain(w, z, pages, q8, seed, True)
+    lo, dwo, dzo, dw_a, dz_a = b1_wide_oracle(w, z, pages, q8, seed)
+
+    def units(x, want, scale):
+        return float(((x.double() - want).abs()
+                      / (scale * 2.0**-24).clamp_min(1e-300)).max())
+
+    rep = {"r": r, "n": n, "d": d}
+    for name, k, p_, o, sc in (("loss", lk, lp, lo, lo.abs()),
+                               ("dw", dwk, dwp, dwo, dw_a),
+                               ("dz", dzk, dzp, dzo, dz_a)):
+        uk, up = units(k, o, sc), units(p_, o, sc)
+        bound = max(4 * up, B1W_FLOOR_UNITS)
+        check(uk <= bound, f"B1 wide {name}: {uk} units of 2^-24 "
+              f"sum|terms| (the plain version {up}), bound {bound}")
+        rep[f"{name}_units"], rep[f"{name}_plain_units"] = uk, up
+        rep[f"{name}_bound_units"] = bound
+    rep["loss"] = float(lk)
+    rep["max_abs_err"] = max(max_err(dwk, dwp)[0], max_err(dzk, dzp)[0])
+    check(float(bce.dense_bce_sym_cuda(w, z, pages, q8, seed, False))
+          == float(lk), "B1 wide: value-only != fused")
+    again = bce.dense_bce_sym_cuda(w, z, pages, q8, seed, True)
+    check(torch.equal(again[1], dwk) and torch.equal(again[2], dzk)
+          and float(again[0]) == float(lk), "B1 wide: two runs differ")
+    check_nan_reaches_loss(lambda zz, gr: bce.dense_bce_sym_cuda(
+        w, zz, pages, q8, seed, gr), z, "B1 wide z")
+    del lo, dwo, dzo, dw_a, dz_a
+    if not timed:
+        return rep
+    rep["ms"] = cuda_ms(lambda: bce.dense_bce_sym_cuda(
+        w, z, pages, q8, seed, True), reps=10, primed=True)
+    rep["value_only_ms"] = cuda_ms(lambda: bce.dense_bce_sym_cuda(
+        w, z, pages, q8, seed, False), reps=10, primed=True)
+    rep["plain_ms"] = cuda_ms(lambda: bce.dense_bce_sym_plain(
+        w, z, pages, q8, seed, True), reps=2, warmup=1)
+    # the bound: counts/compgcn_kernels.py:b1_wide_bound_s's reckoning
+    nb = -(-n // 128)
+    cells = r * sum(min(128, n - i * 128) * (n - i * 128) for i in range(nb))
+    active = 1.5 * data.dd_train.n_edges
+    nbytes_ = pages.numel() + 4 * (2 * r * d + 2 * n * d + 8 * r + 1)
+    flops = 20.0 * cells + 8.0 * d * active + 4.0 * d * r * n
+    t_bytes, t_ops = nbytes_ / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
+    rep["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+    rep["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    rep["roofline_pct"] = 100 * rep["bound_ms"] / rep["ms"]
+    # the dense 3xTF32 pass the tile kernel would run at this width
+    rep["dense_tf32_bound_ms"] = 1e3 * 3 * cells * 6 * d / PEAK_TF32_FLOP_PER_S
+    return rep
+
+
 # name -> (the layout whose kernel checks run it, its check)
 KERNEL_CHECKS = {
     "dense_bce_sym": ("dense", check_dense_bce_sym),
@@ -1896,6 +2135,9 @@ KERNEL_CHECKS = {
     "rel_aggregate": ("decagon", check_rel_aggregate),
     "dense_bce_dedicom": ("decagon", check_dense_bce_dedicom),
     "rgcn_contract": ("dense", check_rgcn_contract),
+    "rel_scaled": ("dense", check_rel_scaled),
+    # B1's wide instance (d = 200), a second check of dense_bce_sym
+    "dense_bce_sym_wide": ("dense", check_dense_bce_sym_wide),
 }
 
 
@@ -2092,7 +2334,10 @@ def expected_launches(path: str, steps: int, eval_rank: bool = True,
     (TIP dense, strips sampled, TIP-NN dense, DR-NN dense, DR-DF dense, the
     EP strips runs on each rank's block): its forward and its backward
     once a step each (both layers' M in one contraction), the eval's
-    encode once."""
+    encode once.  CompGCN on the strips: B16 forward and backward a step
+    (the eval's encode once), B1's wide instance once a step, B12 on its
+    200-column P-P operand in seven blocks of 32, forward and backward (7
+    x 2 a step, the eval's 7)."""
     ev, rm = 2 * eval_rank, 2 * steps * remat
     pp = {"pp_aggregate": 4 * steps + ev}
     b15 = {"rgcn_contract": 2 * steps + eval_rank}
@@ -2146,6 +2391,9 @@ def expected_launches(path: str, steps: int, eval_rank: bool = True,
         "pp-gae dense": pp,
         "decagon dense": {"rel_aggregate": 4 * steps + ev,
                           "dense_bce_dedicom": steps, **pp},
+        "compgcn dense": {"rel_scaled": 2 * steps + eval_rank,
+                          "dense_bce_sym": steps,
+                          "pp_aggregate": 7 * (2 * steps + eval_rank)},
     }[path]
 
 
@@ -2291,6 +2539,12 @@ def run_variant(variant: str, data, dev, steps: int,
               and "dd_adj_sym" not in graph,
               "decagon: not the uint8 pages alone")
         layout, n_rel = "dense", data.n_et
+    elif variant == "compgcn":
+        check(model.gs.dd_layout == "strips" and "dd_adj_sym" in graph
+              and "dd_adj_t" not in graph and "dd_adj_u8" not in graph
+              and graph["pp_a"].dtype == torch.int8,
+              "compgcn: not the int8 strips and P-P A alone")
+        layout, n_rel = "dense", data.n_et
     else:
         layout = "flat" if variant == "pr-hmp-nn" else model.layout
         n_rel = data.n_et if variant == "pr-hmp-nn" else 1
@@ -2303,6 +2557,20 @@ def run_variant(variant: str, data, dev, steps: int,
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     check_result(path, steps, n_rel, result, launches)
+    if variant == "compgcn":  # a step makes no float copy of the strips
+        params = model.init(torch.Generator().manual_seed(1))
+        for _, x in leaf_paths(params):
+            x.requires_grad_(True)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model.loss(params, graph, 5).backward()
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - before
+        check(extra < 4 * graph["dd_adj_sym"].numel(),
+              f"compgcn: a step took {extra} bytes, as many as a float32 "
+              "copy of the strips")
+        del params
     print(train_line({"variant": variant, "path": layout,
                       "dd_layout": model.gs.dd_layout if variant.startswith(
                           "dr-") else None,
@@ -3317,8 +3585,10 @@ KERNEL_PATH = {
     "rel_aggregate": "decagon dense",
     "dense_bce_dedicom": "decagon dense",
     "rgcn_contract": "tip dense",
+    "rel_scaled": "compgcn dense",
 }
 PATH_CHECKS = {"tip dense": "decagon_dense", "tip pages": "decagon_dense",
+               "compgcn dense": "decagon_dense",
                "decagon dense": "decagon_trigraph",
                "dr-nn dense": "decagon_dense", "tip chunked": "main",
                "tip-nn dense": "decagon_chunked",
@@ -3433,6 +3703,8 @@ def main() -> int:
         run_variant(variant, data, dev, OTHER_STEPS)
     run_variant("dr-df", data, dev, OTHER_STEPS, matmul_precision="highest")
     launches["decagon dense"] = run_variant("decagon", data, dev,
+                                            VARIANT_STEPS, profiled=True)
+    launches["compgcn dense"] = run_variant("compgcn", data, dev,
                                             VARIANT_STEPS, profiled=True)
     mark("dense paths, variants")
     launches["decoder ab"] = run_decoder_ab(data, dev)

@@ -441,6 +441,370 @@ cudaError_t dispatch(int grads, const float* w, const float* z,
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The wide instance (32 < d <= 232; CompGCN's d = 200, models/compgcn.py).
+//
+// At d = 200 a 128 x 128 tile's z_I and z_J, split into TF32 parts, would
+// take 418 KB of shared memory, and the tile kernel's 3xTF32 logits and
+// gradients 1.3 TFLOP a step, for cells that mostly add nothing: a cell
+// with no positive (da = 0) and no negative drawn (cnt = 0) has G = 0 and
+// adds exactly 0 to the loss, and at Decagon shape about 1.5 cells in a
+// hundred are active (the positives, about n_train / 2, and the cells that
+// draw a negative, about n_train).  So the wide instance draws every cell's
+// count as the tile kernel does (the same u24 = f(seed, t, row, col) and
+// thresholds: the same estimator) and computes the logit and G of the
+// active cells alone, in float32 FMAs over z's columns, no TF32:
+//  * A block owns a 64 x 64 subtile of one strip tile (I, J) for a chunk
+//    of relations: z_I and z_J (float32, [64][d]) and the column side of dz
+//    stay in shared memory; each relation's 64 x 64 int8 page subtile comes
+//    through registers into a double buffer (row pitch 68 bytes, so the
+//    column-wise reads of the second sweep are free of bank conflicts).
+//    16 warps, so that the SM holds enough of the cells' dependent chains
+//    (logit, butterfly, softplus) to issue every cycle.
+//  * Sweep 1: warp w owns rows 4w..4w+3; a lane draws one cell's count, a
+//    ballot gives the row's active cells, and for each the warp computes
+//    the logit (lane j sums columns j, j + 32, ..., then a butterfly) and
+//    the loss and G in every lane; G z_J[c] adds into the row's h, which
+//    leaves into the row side of dz (w_t * h, registers) and dw (z_I * h);
+//    each active cell's (row, column, G) is appended to the warp's list.
+//  * Sweep 2: warp w owns columns 4w..4w+3 and walks the 16 lists in
+//    order, adding w_t * G z_I[r] into its columns of the column side.
+//  * dw_t's warp partials are added in warp order; the block's loss, dw and
+//    dz partials go to scratch and reduce_loss, reduce_dw and
+//    wide_reduce_dz sum them in a fixed order: deterministic, no atomics.
+// The loss and dw of a cell are taken once (sweep 1), as the tile kernel
+// takes them; the diagonal tiles' cells (r, c) and (c, r) are two cells.
+// The sums differ from the tile kernel's only in float32 order: every
+// logit is a float32 dot product where the tile kernel's 3xTF32 keeps
+// about float32's accuracy.
+//
+// Bound on an H100 at Decagon shape (d = 200): the strips, 377 MB, take
+// 0.11 ms; ~12.7 M active cells at 7 d float32 operations each take 0.26
+// ms at 67 TFLOP/s; every cell's count is ~20 integer operations more.
+// ---------------------------------------------------------------------------
+namespace b1w {
+
+using bce_cell::cell_u24;
+using bce_cell::relation_key;
+using tile_math::cell_loss;
+using tile_math::sigmoid_neg;
+using tile_math::softplus_neg;
+
+constexpr int B = 128;            // block edge of the strip layout
+constexpr int H = 64;             // subtile edge
+constexpr int WARPS = 16;        // 4 rows or columns each: more warps hide
+constexpr int THREADS = 32 * WARPS;  // the dependent chains of a cell
+constexpr int RW = H / WARPS;     // rows (sweep 1) or columns (sweep 2) a warp
+constexpr int PW = H + 4;         // bytes a staged page row (17 words)
+constexpr int LCAP = RW * H;      // a warp's list holds every cell of its rows
+
+__host__ __device__ inline int smem_bytes(int d) {
+  // z_I, z_J, the column side of dz [H][d] floats; dw partials [WARPS][d];
+  // the lists' G [WARPS][LCAP] floats and (row, column) [WARPS][LCAP]
+  // uint16; their counts; two page subtiles [H][PW] bytes
+  return 4 * (3 * H * d + WARPS * d + WARPS * LCAP + WARPS) +
+         2 * WARPS * LCAP + 2 * H * PW;
+}
+
+// The page subtile's 16 bytes thread tid < 256 carries: row tid / 4,
+// bytes 16 (tid % 4) on.
+constexpr int PAGE_THREADS = H * H / 16;
+
+__device__ __forceinline__ int4 load_page(const int8_t* pages, int t,
+                                          size_t sub_off, int totcols) {
+  const int row = threadIdx.x >> 2, c = (threadIdx.x & 3) * 16;
+  if (threadIdx.x >= PAGE_THREADS) return make_int4(0, 0, 0, 0);
+  return __ldg(reinterpret_cast<const int4*>(
+      pages + ((size_t)t * B + row) * totcols + sub_off + c));
+}
+
+__device__ __forceinline__ void store_page(int8_t* pg, int4 v) {
+  const int row = threadIdx.x >> 2, c = (threadIdx.x & 3) * 16;
+  if (threadIdx.x >= PAGE_THREADS) return;
+  int* dst = reinterpret_cast<int*>(pg + row * PW + c);
+  dst[0] = v.x;
+  dst[1] = v.y;
+  dst[2] = v.z;
+  dst[3] = v.w;
+}
+
+template <int KL, bool GRADS>
+__global__ void __launch_bounds__(THREADS, 1)
+wide_kernel(const float* __restrict__ w, const float* __restrict__ z,
+            const int8_t* __restrict__ pages, const int32_t* __restrict__ q8,
+            uint32_t seed, int n_et, int n, int d, int nb, int totcols,
+            int rc, float* __restrict__ loss_part,
+            float* __restrict__ dw_part, float* __restrict__ dz_part) {
+  extern __shared__ __align__(16) float wsm[];
+  float* zI = wsm;                      // [H][d]
+  float* zJ = zI + H * d;               // [H][d]
+  float* accJ = zJ + H * d;             // [H][d]
+  float* red = accJ + H * d;            // [WARPS][d]
+  float* lg = red + WARPS * d;          // [WARPS][LCAP]
+  int* lcnt = reinterpret_cast<int*>(lg + WARPS * LCAP);           // [WARPS]
+  uint16_t* lidx = reinterpret_cast<uint16_t*>(lcnt + WARPS);      // [WARPS][LCAP]
+  int8_t* pg = reinterpret_cast<int8_t*>(lidx + WARPS * LCAP);     // [2][H][PW]
+  __shared__ float warp_loss[WARPS];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sub = blockIdx.x, tile = sub >> 2;
+  const int sa = (sub >> 1) & 1, sb = sub & 1;
+  int i = 0, rem = tile;
+  while (rem >= nb - i) {
+    rem -= nb - i;
+    ++i;
+  }
+  const int j = i + rem;
+  const int r0 = i * B + sa * H, c0 = j * B + sb * H;
+  const uint32_t npad = (uint32_t)nb * B;
+  const bool diag = i == j;
+  const int qoff = diag ? 0 : 4;
+  const float posw = diag ? 1.f : 2.f;
+  const int t0 = blockIdx.y * rc;
+  const int t1 = min(t0 + rc, n_et);
+  const size_t blk = (size_t)blockIdx.y * gridDim.x + sub;
+  const bool live = r0 < n && c0 < n;
+  const size_t sub_off =
+      ((size_t)i * nb - (size_t)i * (i - 1) / 2 + (j - i)) * B +
+      (size_t)sa * H * totcols + (size_t)sb * H;
+
+  for (int idx = tid; idx < H * d; idx += THREADS) {
+    const int rr = idx / d, k = idx - rr * d;
+    zI[idx] = r0 + rr < n ? z[(size_t)(r0 + rr) * d + k] : 0.f;
+    zJ[idx] = c0 + rr < n ? z[(size_t)(c0 + rr) * d + k] : 0.f;
+    accJ[idx] = 0.f;
+  }
+
+  float accI[RW][KL];  // the row side of dz: rows RW warp + rr, columns lane + 32 jj
+#pragma unroll
+  for (int rr = 0; rr < RW; ++rr)
+#pragma unroll
+    for (int jj = 0; jj < KL; ++jj) accI[rr][jj] = 0.f;
+  float loss_acc = 0.f;
+
+  int4 nxt = make_int4(0, 0, 0, 0);
+  if (live && t0 < t1) nxt = load_page(pages, t0, sub_off, totcols);
+  for (int t = t0; live && t < t1; ++t) {
+    int8_t* page = pg + ((t - t0) & 1) * H * PW;
+    store_page(page, nxt);
+    if (t + 1 < t1) nxt = load_page(pages, t + 1, sub_off, totcols);
+    __syncthreads();  // page t; the last relation's lists and dw partials read
+
+    const uint32_t key = relation_key(seed, (uint32_t)t);
+    const int q0 = q8[t * 8 + qoff], q1 = q8[t * 8 + qoff + 1];
+    const int q2 = q8[t * 8 + qoff + 2], q3 = q8[t * 8 + qoff + 3];
+    float wv[KL], dwa[KL];
+#pragma unroll
+    for (int jj = 0; jj < KL; ++jj) {
+      const int k = lane + 32 * jj;
+      wv[jj] = k < d ? w[(size_t)t * d + k] : 0.f;
+      dwa[jj] = 0.f;
+    }
+    int count = 0;  // this warp's list, the same in every lane
+
+#pragma unroll
+    for (int rr = 0; rr < RW; ++rr) {
+      const int lr = warp * RW + rr;
+      const int gr = r0 + lr;
+      if (gr >= n) continue;  // the same in every lane
+      float zw[KL], h[KL];
+#pragma unroll
+      for (int jj = 0; jj < KL; ++jj) {
+        const int k = lane + 32 * jj;
+        zw[jj] = k < d ? __fmul_rn(zI[lr * d + k], wv[jj]) : 0.f;
+        h[jj] = 0.f;
+      }
+      for (int cg = 0; cg < H / 32; ++cg) {
+        const int lc = cg * 32 + lane, gc = c0 + lc;
+        const int da = page[lr * PW + lc];
+        const int u = cell_u24(key, (uint32_t)gr * npad + (uint32_t)gc);
+        int cnt = (u < q0) + (u < q1) + (u < q2) + (u < q3);
+        if (da > 0 || gc >= n) cnt = 0;
+        unsigned mask = __ballot_sync(0xffffffffu, gc < n && (da > 0 || cnt > 0));
+        while (mask) {
+          const int src = __ffs(mask) - 1;
+          mask &= mask - 1;
+          const int cda = __shfl_sync(0xffffffffu, da, src);
+          const float ccnt = (float)__shfl_sync(0xffffffffu, cnt, src);
+          const int cc = cg * 32 + src;
+          float zj[KL];
+          float x = 0.f;
+#pragma unroll
+          for (int jj = 0; jj < KL; ++jj) {
+            const int k = lane + 32 * jj;
+            zj[jj] = k < d ? zJ[cc * d + k] : 0.f;
+            x = fmaf(zw[jj], zj[jj], x);
+          }
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, off));
+          const float daw = __fmul_rn(posw, (float)cda);
+          float e;
+          const float sp = softplus_neg(x, e);
+          loss_acc = __fadd_rn(loss_acc, cell_loss(sp, x, daw, ccnt));
+          if constexpr (GRADS) {
+            const float gv = ccnt - sigmoid_neg(x, e) * (daw + ccnt);
+#pragma unroll
+            for (int jj = 0; jj < KL; ++jj) h[jj] = fmaf(gv, zj[jj], h[jj]);
+            if (lane == 0) {
+              lg[warp * LCAP + count] = gv;
+              lidx[warp * LCAP + count] = (uint16_t)((lr << 6) | cc);
+            }
+            ++count;
+          }
+        }
+      }
+      if constexpr (GRADS) {
+#pragma unroll
+        for (int jj = 0; jj < KL; ++jj) {
+          const int k = lane + 32 * jj;
+          accI[rr][jj] = fmaf(wv[jj], h[jj], accI[rr][jj]);
+          dwa[jj] = fmaf(k < d ? zI[lr * d + k] : 0.f, h[jj], dwa[jj]);
+        }
+      }
+    }
+    if constexpr (!GRADS) continue;
+#pragma unroll
+    for (int jj = 0; jj < KL; ++jj) {
+      const int k = lane + 32 * jj;
+      if (k < d) red[warp * d + k] = dwa[jj];
+    }
+    if (lane == 0) lcnt[warp] = count;
+    __syncthreads();  // the lists and the dw partials are complete
+    for (int k = tid; k < d; k += THREADS) {
+      float s = 0.f;
+      for (int ww = 0; ww < WARPS; ++ww) s += red[ww * d + k];
+      dw_part[((size_t)sub * n_et + t) * d + k] = s;
+    }
+    // sweep 2: this warp's columns, from the warps' lists in order
+    for (int src_w = 0; src_w < WARPS; ++src_w) {
+      const int cnt_w = lcnt[src_w];
+      for (int base = 0; base < cnt_w; base += 32) {
+        const int e = base + lane;
+        const int ix = e < cnt_w ? lidx[src_w * LCAP + e] : 0;
+        unsigned mask = __ballot_sync(0xffffffffu,
+                                      e < cnt_w && (ix & 63) / RW == warp);
+        while (mask) {
+          const int src = __ffs(mask) - 1;
+          mask &= mask - 1;
+          const int cix = __shfl_sync(0xffffffffu, ix, src);
+          const float gv = lg[src_w * LCAP + base + src];
+          const int lr = cix >> 6, lc = cix & 63;
+#pragma unroll
+          for (int jj = 0; jj < KL; ++jj) {
+            const int k = lane + 32 * jj;
+            if (k < d)
+              accJ[lc * d + k] =
+                  fmaf(__fmul_rn(gv, wv[jj]), zI[lr * d + k], accJ[lc * d + k]);
+          }
+        }
+      }
+    }
+  }
+  if (!live) {  // a subtile past n: zero partials
+    for (int t = t0; GRADS && t < t1; ++t)
+      for (int k = tid; k < d; k += THREADS)
+        dw_part[((size_t)sub * n_et + t) * d + k] = 0.f;
+  }
+  __syncthreads();  // the column side is complete
+
+  if constexpr (GRADS) {
+    float* outI = dz_part + (blk * 2 * H) * d;
+    float* outJ = dz_part + ((blk * 2 + 1) * H) * d;
+#pragma unroll
+    for (int rr = 0; rr < RW; ++rr)
+#pragma unroll
+      for (int jj = 0; jj < KL; ++jj) {
+        const int k = lane + 32 * jj;
+        if (k < d) outI[(warp * RW + rr) * d + k] = accI[rr][jj];
+      }
+    for (int idx = tid; idx < H * d; idx += THREADS) outJ[idx] = accJ[idx];
+  }
+  if (lane == 0) warp_loss[warp] = loss_acc;
+  __syncthreads();
+  if (tid == 0) {
+    float s = 0.f;
+    for (int k = 0; k < WARPS; ++k) s = __fadd_rn(s, warp_loss[k]);
+    loss_part[blk] = s;
+  }
+}
+
+__device__ __forceinline__ int tile_of(int i, int j, int nb) {
+  return i * nb - i * (i - 1) / 2 + (j - i);
+}
+
+// dz[v, k]: v's rows of the subtiles (I, J >= I) and its columns of the
+// subtiles (I' <= I, I), over every relation chunk, in that order.
+__global__ void wide_reduce_dz(const float* __restrict__ part, int n_chunks,
+                               int nb, int n, int d, float* __restrict__ dz) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n * d) return;
+  const int v = idx / d, k = idx % d;
+  const int bi = v / B, half = (v % B) / H, rr = v % H;
+  const int n_sub = 4 * (nb * (nb + 1) / 2);
+  float s = 0.f;
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const size_t base = (size_t)ch * n_sub;
+    for (int jj = bi; jj < nb; ++jj)
+      for (int sb = 0; sb < 2; ++sb) {
+        const size_t blk = base + 4 * tile_of(bi, jj, nb) + 2 * half + sb;
+        s += part[((blk * 2) * H + rr) * d + k];
+      }
+    for (int ii = 0; ii <= bi; ++ii)
+      for (int sa = 0; sa < 2; ++sa) {
+        const size_t blk = base + 4 * tile_of(ii, bi, nb) + 2 * sa + half;
+        s += part[((blk * 2 + 1) * H + rr) * d + k];
+      }
+  }
+  dz[idx] = s;
+}
+
+template <int KL, bool GRADS>
+cudaError_t launch(const float* w, const float* z, const int8_t* pages,
+                   const int32_t* q8, uint32_t seed, int n_et, int n, int d,
+                   int nb, int totcols, int rc, float* loss_part,
+                   float* dw_part, float* dz_part, float* loss, float* dw,
+                   float* dz, cudaStream_t stream) {
+  const int n_sub = 4 * (nb * (nb + 1) / 2);
+  const int n_chunks = (n_et + rc - 1) / rc;
+  const int smem = smem_bytes(d);
+  cudaError_t err = cudaFuncSetAttribute(
+      wide_kernel<KL, GRADS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  wide_kernel<KL, GRADS><<<dim3(n_sub, n_chunks), THREADS, smem, stream>>>(
+      w, z, pages, q8, seed, n_et, n, d, nb, totcols, rc, loss_part, dw_part,
+      dz_part);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  reduce_loss<<<1, 256, 0, stream>>>(loss_part, n_sub * n_chunks, loss);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if constexpr (GRADS) {
+    reduce_dw<<<(n_et * d + 255) / 256, 256, 0, stream>>>(dw_part, n_sub,
+                                                          n_et, d, dw);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    wide_reduce_dz<<<(n * d + 255) / 256, 256, 0, stream>>>(
+        dz_part, n_chunks, nb, n, d, dz);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <int KL>
+cudaError_t dispatch(int grads, const float* w, const float* z,
+                     const int8_t* pages, const int32_t* q8, uint32_t seed,
+                     int n_et, int n, int d, int nb, int totcols, int rc,
+                     float* loss_part, float* dw_part, float* dz_part,
+                     float* loss, float* dw, float* dz, cudaStream_t stream) {
+  if (grads)
+    return launch<KL, true>(w, z, pages, q8, seed, n_et, n, d, nb, totcols,
+                            rc, loss_part, dw_part, dz_part, loss, dw, dz,
+                            stream);
+  return launch<KL, false>(w, z, pages, q8, seed, n_et, n, d, nb, totcols, rc,
+                           loss_part, dw_part, dz_part, loss, dw, dz, stream);
+}
+
+}  // namespace b1w
+
 // Plain C entry point (bound with ctypes by ops/dense_bce_sym.py).
 // Scratch sizes, in floats: loss_part n_tiles * n_chunks; dw_part
 // n_tiles * n_et * d; dz_part n_chunks * n_tiles * 2 * 128 * d, where
@@ -468,6 +832,42 @@ extern "C" int tip_dense_bce_sym(const float* w, const float* z,
     case 32:
       return dispatch<32>(grads, w, z, pages, q8, seed, n_et, n, nb, totcols,
                           rc, loss_part, dw_part, dz_part, loss, dw, dz, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The wide instance's entry (32 < d <= 232), the same arguments as
+// tip_dense_bce_sym.  Scratch sizes, in floats: loss_part n_sub * n_chunks;
+// dw_part n_sub * n_et * d; dz_part n_chunks * n_sub * 2 * 64 * d, where
+// n_sub = 4 nb (nb + 1) / 2 (each strip tile's four 64 x 64 subtiles) and
+// n_chunks = ceil(n_et / rc).
+extern "C" int tip_dense_bce_sym_wide(const float* w, const float* z,
+                                      const int8_t* pages, const int32_t* q8,
+                                      unsigned int seed, int n_et, int n,
+                                      int d, int nb, int totcols, int rc,
+                                      int grads, float* loss_part,
+                                      float* dw_part, float* dz_part,
+                                      float* loss, float* dw, float* dz,
+                                      void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (((uintptr_t)pages | (uintptr_t)totcols) % 16 != 0 || d <= 32 ||
+      d > 232 || rc < 1)
+    return (int)cudaErrorInvalidValue;
+  switch ((d + 31) / 32) {
+#define B1W_CASE(KL)                                                        \
+  case KL:                                                                  \
+    return b1w::dispatch<KL>(grads, w, z, pages, q8, seed, n_et, n, d, nb,  \
+                             totcols, rc, loss_part, dw_part, dz_part, loss, \
+                             dw, dz, s);
+    B1W_CASE(2)
+    B1W_CASE(3)
+    B1W_CASE(4)
+    B1W_CASE(5)
+    B1W_CASE(6)
+    B1W_CASE(7)
+    B1W_CASE(8)
+#undef B1W_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -11,7 +11,8 @@ with ``ctypes``, and never imported at module import: a machine without
 ``pp_aggregate``, and B15, ``rgcn_contract``, replace no
 ``pl.pallas_call``: the XLA dots of the dense P-P GCN and of the R-GCN's
 M-first contraction over the strips; B13 and B14, Decagon's DEDICOM loss
-and relation convolution, replace nothing: the JAX package has no Decagon
+and relation convolution, and B16, ``rel_scaled``, CompGCN's
+relation-scaled aggregation, replace nothing: the JAX package has neither
 model).  Each CUDA wrapper
 adds one to ``LAUNCHES[name]`` where it launches its kernel (:func:`launch` does so for it), so a run can show
 that its main path went through the kernels (``reset_launch_counts``
@@ -121,6 +122,11 @@ KERNELS = {
         name="rgcn_contract",
         source="tip_tpu_torch/csrc/rgcn_contract.cu",
         replaces="tip_tpu/nn/rgcn.py:203",
+    ),
+    "rel_scaled": KernelSpec(
+        name="rel_scaled",
+        source="tip_tpu_torch/csrc/rel_scaled.cu",
+        replaces="none (no CompGCN model in the JAX package)",
     ),
 }
 

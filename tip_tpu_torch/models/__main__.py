@@ -1,7 +1,8 @@
 """CLI entry: ``python -m tip_tpu_torch.models --variant dr-df [...]``.
 
 Trains and evaluates one of the reference's experiment variants (DR-DF,
-DR-NN, PR-HMP-NN, PP-GAE), or Decagon (``--variant decagon``), on the GPU
+DR-NN, PR-HMP-NN, PP-GAE), Decagon (``--variant decagon``) or CompGCN
+(``--variant compgcn``, at its published widths 100 -> 200), on the GPU
 (``cuda``) unless ``--cpu`` is given; without a GPU and without ``--cpu``
 it stops with an error.  ``--synthetic``
 trains on a small random tri-graph; otherwise the Decagon files are read
@@ -96,6 +97,8 @@ def main(argv=None) -> dict:
                 if getattr(args, name) is not None}
     if args.variant == "decagon" and set(dim_over) - {"n_hid1", "n_hid2"}:
         parser.error("decagon takes --n-hid1 and --n-hid2 only")
+    if args.variant == "compgcn" and dim_over:
+        parser.error("compgcn runs at its published widths 100 -> 200")
     model, graph, test = build_variant(
         args.variant, data, device, kernel_dtype=args.kernel_dtype,
         matmul_precision=os.environ.get("JAX_DEFAULT_MATMUL_PRECISION",

@@ -1,8 +1,10 @@
 """One training runner for the non-TIP model families (port of
 tip_tpu/models/runner.py): ``python -m tip_tpu_torch.models --variant
 {dr-df,dr-nn,pr-hmp-nn,pp-gae}`` reproduces the reference's four-variant
-table; ``--variant decagon`` trains Decagon (models/decagon.py), which the
-JAX package does not have.
+table; ``--variant decagon`` trains Decagon (models/decagon.py) and
+``--variant compgcn`` CompGCN (models/compgcn.py: DistMult score, ``mult``
+composition, one layer 100 -> 200, kernels B16, B12 and B1's wide
+instance over the int8 strips), which the JAX package does not have.
 
 The loop is train/loop.py's (``start_run``, ``train_step``,
 ``finish_run``): Adam with optax's eps placement, each epoch's negatives
@@ -20,6 +22,11 @@ import numpy as np
 
 from tip_tpu_torch import trace
 from tip_tpu_torch.data.packing import TriGraphData
+from tip_tpu_torch.models.compgcn import (
+    CompGCNConfig,
+    CompGCNModel,
+    make_compgcn_graph_arrays,
+)
 from tip_tpu_torch.models.dd import DDConfig, DDModel, make_dd_graph_arrays
 from tip_tpu_torch.models.decagon import (
     DecagonConfig,
@@ -42,7 +49,7 @@ from tip_tpu_torch.train.model import (
     resolve_device,
 )
 
-VARIANTS = ("dr-df", "dr-nn", "pr-hmp-nn", "pp-gae", "decagon")
+VARIANTS = ("dr-df", "dr-nn", "pr-hmp-nn", "pp-gae", "decagon", "compgcn")
 
 
 def build_variant(variant: str, data: TriGraphData, device=None,
@@ -65,8 +72,25 @@ def build_variant(variant: str, data: TriGraphData, device=None,
     side takes the strips' uint8 pages ('strips_pages', kernels B14 and
     B13) within the dense budget, where float32 matmuls are pinned too
     (B14's operand then float32); beyond the budget it raises (no chunked
-    route)."""
+    route).
+
+    compgcn: ``dims`` overrides CompGCNConfig's init_dim, gcn_dim; the D-D
+    side takes the int8 strips ('strips': kernels B16 and B1), which it
+    needs: where float32 matmuls are pinned or the graph is past the dense
+    budget it raises."""
     dev = resolve_device(device)
+    if variant == "compgcn":
+        dense_dtype = preferred_dense_dtype(data, kernel_dtype,
+                                            matmul_precision)
+        if dense_dtype != "bfloat16":
+            raise ValueError(
+                "CompGCN runs on the int8 strips: this graph takes the "
+                f"{dense_dtype or 'chunked'!r} layout (float32 matmuls "
+                "pinned, or past the dense budget)")
+        graph, gs = make_compgcn_graph_arrays(data, dev)
+        model = CompGCNModel.for_data(CompGCNConfig(**(dims or {})), gs, dev,
+                                      backend=backend)
+        return model, graph, make_test_arrays(data, dev)
     if variant in ("decagon", "dr-df", "dr-nn"):
         dense_dtype = preferred_dense_dtype(data, kernel_dtype,
                                             matmul_precision)

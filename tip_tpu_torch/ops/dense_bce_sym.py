@@ -18,6 +18,12 @@ Three pieces:
   * :func:`dense_bce_sym_cuda` — the wrapper of the hand-written kernel
     ``csrc/dense_bce_sym.cu`` (whose header says what it replaces, what
     bounds it and how it is laid out); it launches the kernel or raises.
+    Widths d in :data:`SUPPORTED_D` run the tile kernel (3xTF32 logits of
+    every cell); 32 < d <= :data:`WIDE_MAX_D` (CompGCN's d = 200) its wide
+    instance, which draws every cell's count the same way and computes the
+    logit and G, in float32, of the cells with a positive or a negative
+    drawn alone: the other cells add exactly 0 to the loss and have G = 0,
+    so the estimator, its draws and its sums are the same.
   * :func:`dense_bce_sym_sum` — the entry point: an ``autograd.Function``
     whose forward runs the fused (loss, dw, dz) pass when a gradient is
     needed and saves (dw, dz); its backward scales them by the incoming
@@ -45,7 +51,9 @@ from tip_tpu_torch.data.packing import SYM_BLOCK as B, nb_from_cols
 KERNEL = "dense_bce_sym"
 RC = 16  # relations per CUDA block: the kernel keeps z tiles across them
 PLAIN_CHUNK = 128  # relations per step of the plain version (memory bound)
-SUPPORTED_D = (8, 16, 32)  # feature widths the kernel is instantiated for
+SUPPORTED_D = (8, 16, 32)  # feature widths the tile kernel is instantiated for
+WIDE_MAX_D = 232  # the wide instance takes 32 < d <= 232 (dense_bce_sym.cu)
+WIDE_H = 64  # the wide instance's subtile edge
 
 _M32 = 0xFFFFFFFF
 
@@ -179,8 +187,9 @@ def _check_cuda_args(w, z, pages, q8):
                          f"q8 {tuple(q8.shape)}")
     if not (nb - 1) * B < n <= nb * B:
         raise ValueError(f"n = {n} does not fit {nb} strip rows")
-    if d not in SUPPORTED_D:
-        raise ValueError(f"feature width {d} not in {SUPPORTED_D}")
+    if d not in SUPPORTED_D and not 32 < d <= WIDE_MAX_D:
+        raise ValueError(f"feature width {d} not in {SUPPORTED_D} or "
+                         f"(32, {WIDE_MAX_D}]")
     if (nb * B) ** 2 >= 2**32:
         raise ValueError("cell index exceeds 32 bits")
     if pages.data_ptr() % 16:
@@ -189,12 +198,25 @@ def _check_cuda_args(w, z, pages, q8):
     return n_et, n, d, nb, totcols
 
 
+def wide_chunks(n_et: int, n: int, nb: int, sms: int) -> int:
+    """Relations a block of the wide instance: two blocks an SM over the
+    subtiles inside n x n (one block is resident on an SM at a time)."""
+    live = sum(1 for i in range(nb) for j in range(i, nb) for a in (0, 1)
+               for b in (0, 1) if i * B + a * WIDE_H < n
+               and j * B + b * WIDE_H < n)
+    return -(-n_et // max(1, -(-2 * sms // max(1, live))))
+
+
 def dense_bce_sym_cuda(w, z, pages, q8, seed: int, grads: bool = False):
     """Launch csrc/dense_bce_sym.cu on CUDA tensors.  Same contract as
-    :func:`dense_bce_sym_plain` with the hashed field."""
+    :func:`dense_bce_sym_plain` with the hashed field.  d in SUPPORTED_D
+    runs the tile kernel, 32 < d <= WIDE_MAX_D the wide instance."""
     if not pages.is_cuda:
         raise ValueError("dense_bce_sym_cuda needs CUDA tensors")
     n_et, n, d, nb, totcols = _check_cuda_args(w, z, pages, q8)
+    if d not in SUPPORTED_D:
+        return _wide_cuda(w, z, pages, q8, seed, grads, n_et, n, d, nb,
+                          totcols)
     n_tiles = nb * (nb + 1) // 2
     n_chunks = -(-n_et // RC)
     # scratch freed on return while the kernel may still run: the caching
@@ -211,6 +233,32 @@ def dense_bce_sym_cuda(w, z, pages, q8, seed: int, grads: bool = False):
         dw_part = dz_part = dw = dz = None
     kernels.launch(KERNEL, "tip_dense_bce_sym", "ppppuiiiiiiipppppp", w, z,
                    pages, q8, seed & _M32, n_et, n, d, nb, totcols, RC,
+                   int(grads), loss_part, dw_part, dz_part, loss, dw, dz,
+                   device=pages.device)
+    if not grads:
+        return loss
+    return loss, dw, dz
+
+
+def _wide_cuda(w, z, pages, q8, seed, grads, n_et, n, d, nb, totcols):
+    """The wide instance's launch (``tip_dense_bce_sym_wide``)."""
+    rc = wide_chunks(n_et, n, nb, kernels.sm_count(pages.device))
+    n_sub = 4 * nb * (nb + 1) // 2
+    n_chunks = -(-n_et // rc)
+    f32 = dict(dtype=torch.float32, device=pages.device)
+    # scratch freed on return while the kernel may still run (reused only by
+    # later work on this stream)
+    loss_part = torch.empty(n_sub * n_chunks, **f32)
+    loss = torch.empty((), **f32)
+    if grads:
+        dw_part = torch.empty(n_sub * n_et * d, **f32)
+        dz_part = torch.empty(n_chunks * n_sub * 2 * WIDE_H * d, **f32)
+        dw = torch.empty((n_et, d), **f32)
+        dz = torch.empty((n, d), **f32)
+    else:
+        dw_part = dz_part = dw = dz = None
+    kernels.launch(KERNEL, "tip_dense_bce_sym_wide", "ppppuiiiiiiipppppp", w,
+                   z, pages, q8, seed & _M32, n_et, n, d, nb, totcols, rc,
                    int(grads), loss_part, dw_part, dz_part, loss, dw, dz,
                    device=pages.device)
     if not grads:

@@ -35,12 +35,15 @@ The program's spans (tools/idle_by_span.py lays device idle against
 them; README "Profiling"): ``forward`` (``TIP.loss``, ``DDModel.loss``,
 ``DecagonModel.loss``) holding ``encode`` (``pp_gcn``, ``hierarchy``,
 ``rgcn``; Decagon's ``rel_conv``, once a layer, around the D-D relation
-convolution) and ``loss`` (Decagon's ``dedicom_bce`` inside it);
+convolution; CompGCN's ``kg_conv`` around its layer, holding ``rel_scaled``
+around each kernel B16 call) and ``loss`` (Decagon's ``dedicom_bce``
+inside it);
 ``backward`` holding each custom autograd op's backward under the op's
 name (``dense_bce_sym``, ``dense_bce``, ``dense_bce_nn``,
 ``typed_neighbor_sum``, ``gcn_spmm``, ``distmult_logits``, ``nn_logits``,
 ``distmult_v1``, ``nn_v1``, ``ring_spmm``, ``pp_aggregate``,
-``rel_aggregate``, ``dedicom_bce``, ``rgcn_contract``) and, under remat, the
+``rel_aggregate``, ``dedicom_bce``, ``rgcn_contract``, ``rel_scaled``)
+and, under remat, the
 recomputed ``encode``; ``eval`` holding ``encode``, ``score`` and
 ``rank``; set-up's ``cache`` (``cached_trigraph``), ``device_graph``
 (``make_graph_arrays``, ``make_dd_graph_arrays``) and ``kernel_load``
